@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the PyTorch port (Hopper, sm_90a).
+
+Each kernel package mirrors ``repro.kernels``: the launcher module builds
+and binds the CUDA source under ``csrc/``, ``ops.py`` is the wrapper with
+the reference's shape contract, and ``ref.py`` is the plain PyTorch
+version that CPU tensors run.
+
+  sweep_bracket/  fused bracket-term + per-site segment sum for the
+                  scenario sweep (the ``"fused"`` backend), and a generic
+                  CSR segment sum
+"""

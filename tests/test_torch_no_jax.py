@@ -1,0 +1,46 @@
+"""Import hygiene of the port: ``repro_torch`` (and ``chip_smoke.py``)
+import neither ``jax`` nor the JAX package ``repro``."""
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib"))
+             or k == "repro" or k.startswith("repro."))
+print(json.dumps({"modules": len(names), "bad": bad}))
+"""
+
+
+def test_importing_every_port_module_loads_no_jax():
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                          text=True, env=env, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out["modules"] >= 18
+    assert out["bad"] == [], f"the port imported {out['bad']}"
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax"
+                        r"|import\s+repro\b|from\s+repro\b)",
+                        re.M)
+
+
+def test_no_source_file_names_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 18
+    for path in files:
+        hits = _FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

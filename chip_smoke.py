@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's pricing path on one CUDA GPU, and check it.
+"""Drive the PyTorch port's paths on one CUDA GPU, and check them.
 
     python3 chip_smoke.py
 
@@ -8,20 +8,38 @@ sm_90 card), ``nvcc`` and PyTorch built for CUDA.  Phases, in order; any
 failure exits non-zero and no result line is printed:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version;
-  2. build    — ``nvcc`` builds ``csrc/sweep_bracket.cu`` for sm_90a;
-  3. kernels  — both CUDA kernels against their plain PyTorch versions on
-                the card (f64 and f32, the reference's test shapes);
-  4. main path — for each Fig. 7 stencil tile: memsim ``collect`` ->
-                ``compile_bundle`` -> ``price`` of 262,144 scenarios under
-                the default plan (the fused kernel on "cuda"); the kernel's
-                launch count must rise; the result must agree with the
-                "torch" backend on every row and with the host "numpy"
-                backend on 16,384 rows (rtol 1e-9), and scenario chunking
-                must be bit-identical;
-  5. times    — CUDA-event medians of the kernels, their plain versions and
-                ``index_add_``, and ``price()`` split into host view, H2D,
-                device pricing and D2H;
-  6. the ``kernels`` JSON line, the nvidia-smi line, and last
+  2. build    — ``nvcc`` builds ``csrc/sweep_bracket.cu`` and
+                ``csrc/halo_exchange.cu`` for sm_90a, both at once;
+  3. kernels  — every CUDA kernel against its plain PyTorch version on the
+                card: the sweep kernels (f64 and f32, the reference's test
+                shapes) and the halo exchange (bit-exact; 1, 2, 3, 8 and 64
+                ranks, odd plane sizes, f32 and f64, strips read in place
+                from (n, nz, ny, nx) blocks, 50 calls in a row);
+  4. pricing  — for each Fig. 7 stencil tile and each HPCG lattice
+                (nx = 16, 64, 128, 256; unpack halo buffers): memsim
+                ``collect`` -> ``compile_bundle`` -> ``price`` of 262,144
+                scenarios under the default plan (the fused kernel on
+                "cuda"); the kernel's launch count must rise; the result
+                must agree with the "torch" backend on every row and with
+                the host "numpy" backend on 16,384 rows (rtol 1e-9), and
+                scenario chunking must be bit-identical;
+  5. times    — CUDA-event medians of the sweep kernels, their plain
+                versions and ``index_add_``, and ``price()`` split into
+                host view, H2D, device pricing and D2H;
+  6. stencil  — the paper's Fig. 7 decomposition at full size: 8 x 8 ranks
+                of 4096^2 f32 tiles, 10 steps with each backend, held
+                against ``reference_step`` on the whole 32768^2 plane (atol
+                and rtol 1e-6) and bit-identical to each other;
+  7. HPCG     — the JAX test's case (4 ranks x 16^3, 30 iterations) on the
+                card: converged (max |x - 1| < 1e-2), both backends bit-
+                identical and within 1e-4 of the CPU; then 8 ranks x 256^3
+                (HPCG validation's largest lattice): ``apply_a`` against
+                ``reference_apply_a`` (rtol 1e-6), a 25-iteration PCG with
+                each backend, bit-identical, the message-free one through
+                the halo kernel (launches read from its wrapper), and one
+                traced solve with each; then the halo kernel's times at HPCG level
+                0's strips beside its plain version and two ``torch.roll``;
+  8. the ``kernels`` JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -30,6 +48,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -42,6 +61,14 @@ S_MAIN = 262_144              # scenarios per price() call (2**18)
 S_HOST = 16_384               # rows also priced on the host
 CHUNK = 65_536
 TILES = (32, 128, 512, 1024, 2048, 4096)     # the paper's Fig. 7 tiles
+HPCG_NX = (16, 64, 128, 256)                 # HPCG lattices priced
+STENCIL_GRID, STENCIL_TILE, STENCIL_STEPS = (8, 8), 4096, 10   # Fig. 7
+HPCG_RANKS, HPCG_NX_FULL, HPCG_ITERS = 8, 256, 25
+TOL_STENCIL = dict(rtol=1e-6, atol=1e-6)     # the JAX test's bound
+RTOL_APPLY_A = 1e-6
+HALO_RANKS = (1, 2, 3, 8, 64)
+HALO_BLOCKS = ((3, 33, 31), (2, 129, 127))   # odd P = ny * nx
+HALO_CALLS_IN_A_ROW = 50
 RTOL_PATH = 1e-9
 DEVICE = "cuda"
 TOL = {"f64": dict(rtol=1e-12, atol=1e-9), "f32": dict(rtol=2e-5, atol=1e-2),
@@ -74,6 +101,43 @@ def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def trace(torch, fn, reps: int = 1) -> tuple:
+    """(device events, wall seconds) of ``reps`` calls of ``fn()`` under
+    ``torch.profiler``: the card's kernels and copies, with their names and
+    durations."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda_type = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None) == cuda_type], wall
+
+
+def busy_ms(events, name: str = "") -> float:
+    """Summed duration in ms of the device events whose name holds
+    ``name``."""
+    return sum(e.time_range.elapsed_us() for e in events
+               if name in e.name) / 1e3
+
+
+def device_ms(torch, fn, reps: int = 100, name: str = "") -> float:
+    """Device time per call of ``fn()`` in ms: the profiler's durations of
+    its kernels and copies (of those named ``name``, if given), without the
+    host's enqueue time.  Raises when the trace holds none."""
+    fn()
+    torch.cuda.synchronize()
+    events, _ = trace(torch, fn, reps)
+    total = busy_ms(events, name)
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no device time for {name!r}")
+    return total / reps
 
 
 def wall_s(torch, fn, reps: int) -> tuple:
@@ -148,9 +212,24 @@ def phase_kernels(torch, np, sb):
         f"max_abs_err={err:.3e}")
 
 
-def phase_main_path(torch, np, pt, ms, sb, stencil):
-    """Price every Fig. 7 tile's bundle under 262,144 scenarios on the card
-    and hold the result against the torch and numpy backends."""
+def main_path_bundles(ms, stencil, hpcg):
+    """(label, bundle) of every Fig. 7 stencil tile, then of every HPCG
+    lattice as its validation collects it (unpack halo buffers)."""
+    for tile in TILES:
+        yield f"stencil tile {tile}", ms.collect(stencil.build_spec(
+            stencil.StencilConfig(tile, grid=(8, 8), ranks_per_socket=6)),
+            network=ms.NetworkParams.multinode(), seed=0)
+    for nx in HPCG_NX:
+        cfg = hpcg.HpcgConfig(nx=nx)
+        yield f"hpcg nx {nx}", ms.collect(
+            hpcg.build_spec(cfg), network=hpcg.validation.NETWORK, seed=0,
+            bw_share=cfg.bw_share, ranks_per_socket=cfg.ranks_per_socket)
+
+
+def phase_main_path(torch, np, pt, ms, sb, stencil, hpcg):
+    """Price every Fig. 7 tile's bundle and every HPCG bundle under 262,144
+    scenarios on the card and hold the result against the torch and numpy
+    backends."""
     t0 = time.perf_counter()
     grid = pt.ParamGrid.sample(pt.ModelParams.multinode(), S_MAIN, seed=0,
                                cxl_lat_ns=(250, 700),
@@ -161,12 +240,9 @@ def phase_main_path(torch, np, pt, ms, sb, stencil):
     host_grid = grid.subset(rows)
     launches = {"fused_bracket_segsum": 0, "segment_sum": 0}
     bundles = {}
-    for tile in TILES:
-        bundle = ms.collect(stencil.build_spec(stencil.StencilConfig(
-            tile, grid=(8, 8), ranks_per_socket=6)),
-            network=ms.NetworkParams.multinode(), seed=0)
+    for label, bundle in main_path_bundles(ms, stencil, hpcg):
         cb = pt.compile_bundle(bundle)
-        bundles[tile] = (bundle, cb)
+        bundles[label] = (bundle, cb)
 
         sb.fused_bracket_segsum.launches = 0
         sb.segment_sum.launches = 0
@@ -175,7 +251,7 @@ def phase_main_path(torch, np, pt, ms, sb, stencil):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n_fused = sb.fused_bracket_segsum.launches
-        assert n_fused > 0, f"tile {tile}: the fused kernel never launched"
+        assert n_fused > 0, f"{label}: the fused kernel never launched"
         launches["fused_bracket_segsum"] += n_fused
         launches["segment_sum"] += sb.segment_sum.launches
 
@@ -211,7 +287,7 @@ def phase_main_path(torch, np, pt, ms, sb, stencil):
                 np.testing.assert_allclose(call.t_access_cxl_ns,
                                            run.calls[cid].t_access_cxl_ns,
                                            rtol=RTOL_PATH)
-        log(f"main: tile {tile}: {cb.n_calls} sites, samples hit/lfb/miss "
+        log(f"main: {label}: {cb.n_calls} sites, samples hit/lfb/miss "
             f"{len(cb.hit_lat)}/{len(cb.lfb_lat)}/{len(cb.miss_lat)}; "
             f"price() {dt:.3f} s, fused launches {n_fused}; speedup "
             f"min/median/max {sp.min():.6f}/{np.median(sp):.6f}/"
@@ -228,7 +304,7 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
 
     dev = torch.device(DEVICE)
     tile = TILES[-1]
-    bundle, cb = bundles[tile]
+    bundle, cb = bundles[f"stencil tile {tile}"]
     view = sweep_mod._scenario_view(grid).to(dev)
     delta = view.cxl_lat_ns - view.mem_lat_ns
     cxl = view.cxl_lat_ns
@@ -334,17 +410,8 @@ def phase_price_split(torch, pt, sweep_mod, price_grid_fused, grid, cb,
         + f"; staged sum {staged * 1e3:.3f} ms, price() right after "
         f"{total_s * 1e3:.3f} ms")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pt.price(cb, grid)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    cuda_type = torch.autograd.DeviceType.CUDA
-    dev_events = [e for e in prof.events()
-                  if getattr(e, "device_type", None) == cuda_type]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    dev_events, traced_s = trace(torch, lambda: pt.price(cb, grid))
+    busy_us = busy_ms(dev_events) * 1e3
     if dev_events:
         log(f"time [{card}]: price() traced (torch.profiler): wall "
             f"{traced_s * 1e3:.3f} ms, {len(dev_events)} device events "
@@ -355,6 +422,226 @@ def phase_price_split(torch, pt, sweep_mod, price_grid_fused, grid, cb,
         log(f"time [{card}]: price() traced (torch.profiler): wall "
             f"{traced_s * 1e3:.3f} ms; the trace holds no device events, "
             f"so the card's busy share is not measured")
+
+
+def phase_halo_kernel(torch, np, hx):
+    """The halo kernel against its plain version, bit for bit: every rank
+    count and odd plane size in f32 and f64 with strips read in place from
+    (n, nz, ny, nx) blocks, then many calls in a row on one stream."""
+    dev = torch.device(DEVICE)
+    for dtype in (torch.float32, torch.float64):
+        for n in HALO_RANKS:
+            for shape in HALO_BLOCKS:
+                rng = np.random.default_rng(n * 7 + shape[1])
+                blocks = torch.as_tensor(rng.normal(size=(n, *shape)),
+                                         dtype=dtype, device=dev)
+                lo, hi = blocks[:, 0], blocks[:, -1]
+                before = hx.ring_halo_exchange.launches
+                got = hx.ring_halo_exchange(lo, hi)
+                torch.cuda.synchronize()
+                assert hx.ring_halo_exchange.launches == before + 1
+                for g, w in zip(got, hx.ring_halo_exchange_ref(lo, hi)):
+                    assert g.dtype == dtype and torch.equal(g, w), (n, shape)
+                log(f"kernel ring_halo_exchange {str(dtype)[6:]} n={n} "
+                    f"blocks {shape} (P={shape[1] * shape[2]}, in place): "
+                    f"bit-exact")
+    blocks = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(8, *HALO_BLOCKS[-1])), dtype=torch.float32, device=dev)
+    for i in range(HALO_CALLS_IN_A_ROW):
+        blocks = blocks + 1.0
+        got = hx.ring_halo_exchange(blocks[:, 0], blocks[:, -1])
+        want = hx.ring_halo_exchange_ref(blocks[:, 0], blocks[:, -1])
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), i
+    torch.cuda.synchronize()
+    log(f"kernel ring_halo_exchange: {HALO_CALLS_IN_A_ROW} calls in a row "
+        f"on one stream (n=8, rising epochs): bit-exact")
+
+
+def device_allclose(torch, a, b, rtol: float, atol: float) -> float:
+    """Hold ``a`` against ``b`` on the device (raises on a miss); returns
+    max |a - b|."""
+    diff = (a - b).abs_()
+    err = float(diff.max())
+    worst = float(diff.sub_(b.abs().mul_(rtol)).max())
+    assert worst <= atol, f"max |a - b| {err:.3e} beyond rtol {rtol} / " \
+        f"atol {atol} (excess {worst:.3e})"
+    return err
+
+
+def phase_stencil(torch, grid_mesh, st, card):
+    """Fig. 7's 8 x 8 ranks of 4096^2 f32 tiles, 10 steps per backend,
+    against ``reference_step`` on the whole plane."""
+    px, py = STENCIL_GRID
+    grid = grid_mesh(px, py)
+    H, W = px * STENCIL_TILE, py * STENCIL_TILE
+    plane = st.init_plane(H, W)
+    t0 = time.perf_counter()
+    ref = plane
+    for _ in range(STENCIL_STEPS):
+        ref = st.reference_step(ref)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    outs = {}
+    for backend in ("message_based", "message_free"):
+        t0 = time.perf_counter()
+        out = st.make_runner(grid, backend)(plane, STENCIL_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        assert out.shape == (H, W) and bool(torch.isfinite(out).all())
+        err = device_allclose(torch, out, ref, **TOL_STENCIL)
+        step = st.make_step(grid, backend)
+        tiles = st.to_tiles(plane, grid)
+        step_ms = cuda_ms(torch, lambda: step(tiles), reps=STENCIL_STEPS,
+                          warmup=1)
+        outs[backend] = out
+        log(f"stencil [{card}]: {backend} {px}x{py} ranks x "
+            f"{STENCIL_TILE}^2 f32, {STENCIL_STEPS} steps: make_runner "
+            f"{run_s:.4f} s, step {step_ms:.4f} ms (CUDA events, median of "
+            f"{STENCIL_STEPS}); max |x - reference_step^{STENCIL_STEPS}| "
+            f"{err:.3e}")
+        del tiles
+    assert torch.equal(outs["message_based"], outs["message_free"])
+    log(f"stencil: message_based and message_free bit-identical; "
+        f"reference_step x{STENCIL_STEPS} on the {H}x{W} plane {ref_s:.4f} s")
+    del plane, ref, outs
+    torch.cuda.empty_cache()
+
+
+def phase_hpcg_small(torch, grid_mesh, hp):
+    """The JAX test's case on the card (4 ranks, 16^3, 30 iterations): both
+    backends converge (max |x - 1| < 1e-2), agree bit for bit, and agree
+    with the same solve on the CPU (atol 1e-4)."""
+    cpu_grid = grid_mesh(4, device="cpu")
+    b = hp.make_problem((16, 16, 16), device="cpu")
+    want, _ = hp.make_cg(cpu_grid, "message_free", n_iter=30)(
+        b, torch.zeros_like(b))
+    b = b.to(DEVICE)
+    outs = {}
+    for backend in ("message_based", "message_free"):
+        x, res = hp.make_cg(grid_mesh(4), backend, n_iter=30)(
+            b, torch.zeros_like(b))
+        err = float((x - 1.0).abs().max())
+        cpu_err = float((x.cpu() - want).abs().max())
+        assert err < 1e-2 and cpu_err <= 1e-4, (backend, err, cpu_err)
+        outs[backend] = (x, res)
+        log(f"hpcg: {backend} PCG 30 iterations on 4 ranks x 16^3 (the JAX "
+            f"test's case): residual norm {float(res):.6e}, max |x - 1| "
+            f"{err:.3e}, max |x - x_cpu| {cpu_err:.3e}")
+    (xa, ra), (xb, rb) = outs["message_based"], outs["message_free"]
+    assert torch.equal(xa, xb) and torch.equal(ra, rb)
+
+
+def phase_hpcg(torch, grid_mesh, hp, hx, card):
+    """8 ranks x 256^3: apply_a against its oracle, then the PCG with each
+    backend, then one traced solve with each.  Returns the halo kernel's
+    launches in the message-free solve and the (8, 256, 256, 256) slabs for
+    the kernel's times."""
+    grid = grid_mesh(HPCG_RANKS)
+    shape = (HPCG_RANKS * HPCG_NX_FULL, HPCG_NX_FULL, HPCG_NX_FULL)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=DEVICE)
+    want = hp.reference_apply_a(x)
+    for backend in ("message_based", "message_free"):
+        got = hp.from_slabs(hp.apply_a(hp.to_slabs(x, HPCG_RANKS), backend))
+        err = device_allclose(torch, got, want, RTOL_APPLY_A, 0.0)
+        log(f"hpcg: apply_a {backend} on {HPCG_RANKS} ranks x "
+            f"{HPCG_NX_FULL}^3 against reference_apply_a on {shape}: "
+            f"max abs err {err:.3e} (rtol {RTOL_APPLY_A})")
+    del x, want, got
+    b = hp.make_problem(shape)
+    b_norm = float(torch.linalg.vector_norm(b))
+    solve = {k: hp.make_cg(grid, k, n_iter=HPCG_ITERS)
+             for k in ("message_based", "message_free")}
+    results, times, launches = {}, {}, 0
+    # in turns (based, free, free, based), so that neither backend alone
+    # pays the allocator's first growth
+    for backend in ("message_based", "message_free", "message_free",
+                    "message_based"):
+        hx.ring_halo_exchange.launches = 0
+        t0 = time.perf_counter()
+        xs, res = solve[backend](b, torch.zeros_like(b))
+        torch.cuda.synchronize()
+        times.setdefault(backend, []).append(time.perf_counter() - t0)
+        n_launch = hx.ring_halo_exchange.launches
+        if backend == "message_free":
+            launches = n_launch
+            assert launches > 0, "the message-free solve never launched " \
+                "the halo kernel"
+        else:
+            assert n_launch == 0, n_launch
+        assert xs.shape == shape and bool(torch.isfinite(xs).all())
+        assert 0 < float(res) < b_norm, (float(res), b_norm)
+        if backend in results:
+            assert torch.equal(xs, results[backend][0]), backend
+            continue
+        results[backend] = (xs, res)
+        log(f"hpcg: {backend} PCG {HPCG_ITERS} iterations on {HPCG_RANKS} "
+            f"ranks x {HPCG_NX_FULL}^3 f32: residual norm {float(res):.6e} "
+            f"(|b| {b_norm:.6e}), max |x - 1| "
+            f"{float((xs - 1.0).abs().max()):.3e}, halo kernel launches "
+            f"{n_launch}")
+    for backend, ts in times.items():
+        log(f"hpcg [{card}]: {backend} solve " + ", ".join(
+            f"{t:.4f} s" for t in ts) + " (in turns: based, free, free, "
+            "based)")
+    (xa, ra), (xb, rb) = results["message_based"], results["message_free"]
+    assert torch.equal(xa, xb) and torch.equal(ra, rb)
+    log("hpcg: message_based and message_free bit-identical")
+    del results, xa, xb
+
+    for backend in ("message_based", "message_free"):
+        events, wall = trace(torch, lambda: solve[backend](
+            b, torch.zeros_like(b)))
+        busy, halo = busy_ms(events), busy_ms(events, "halo_kernel")
+        n_halo = sum("halo_kernel" in e.name for e in events)
+        share = 100 * busy / 1e3 / wall
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"hpcg [{card}]: {backend} solve traced (torch.profiler): wall "
+            f"{wall:.4f} s, {len(events)} device events busy {busy:.3f} ms "
+            f"({share:.2f}%; idle {100 - share:.2f}%), halo_kernel {n_halo} "
+            f"launches {halo:.3f} ms ({100 * halo / max(busy, 1e-9):.3f}% of "
+            f"the busy time); top kernels: " + "; ".join(
+                f"{name[:48]} {ms:.1f} ms" for name, ms in top))
+    return launches, hp.to_slabs(b, HPCG_RANKS)
+
+
+def phase_halo_times(torch, hx, blocks, card):
+    """The halo kernel at HPCG level 0's strips, beside its plain version
+    and two ``torch.roll`` calls: device time per call from the profiler
+    (the kernels alone), and CUDA-event time per call (enqueue included)."""
+    lo, hi = blocks[:, 0], blocks[:, -1]
+    got = hx.ring_halo_exchange(lo, hi)
+    want = hx.ring_halo_exchange_ref(lo, hi)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert err == 0.0 and all(torch.equal(g, w) for g, w in zip(got, want))
+    fns = {"kernel": (lambda: hx.ring_halo_exchange(lo, hi), "halo_kernel"),
+           "plain": (lambda: hx.ring_halo_exchange_ref(lo, hi), ""),
+           "torch.roll x2": (lambda: (torch.roll(hi, 1, 0),
+                                      torch.roll(lo, -1, 0)), "")}
+    dev = {k: device_ms(torch, fn, name=name)
+           for k, (fn, name) in fns.items()}
+    call = {k: cuda_ms(torch, fn, reps=100, warmup=10)
+            for k, (fn, _) in fns.items()}
+    n, p = lo.shape[0], lo[0].numel()
+    nbytes = 4 * n * p * lo.element_size()   # 2 strips read, 2 written
+    bound = nbytes / HBM_BYTES_S * 1e3
+    log(f"time [{card}]: halo_exchange {n} ranks x {tuple(lo.shape[1:])} "
+        f"f32, device time per call (profiler): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in dev.items())
+        + "; per call with enqueue (CUDA events): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in call.items())
+        + f"; bound {bound:.4f} ms (bytes: {nbytes})")
+    return dict(name="halo_exchange", route="cuda",
+                source="src/repro_torch/kernels/halo_exchange/csrc/"
+                       "halo_exchange.cu",
+                replaces="src/repro/kernels/halo_exchange/halo_exchange.py:33",
+                launches=None, max_abs_err=err, ms=dev["kernel"],
+                plain_ms=dev["plain"], bound_ms=bound, bound_by="bytes",
+                library_ms=dev["torch.roll x2"])
 
 
 def main() -> int:
@@ -375,30 +662,52 @@ def main() -> int:
 
     import repro_torch.core as pt
     import repro_torch.memsim as ms
-    from repro_torch.apps import stencil
+    from repro_torch.apps import hpcg, stencil
+    from repro_torch.apps.hpcg import torch_impl as hp
+    from repro_torch.apps.stencil import torch_impl as st
+    from repro_torch.comm import grid_mesh
+    from repro_torch.kernels import halo_exchange as hx
     from repro_torch.kernels import sweep_bracket as sb
-    from repro_torch.kernels.sweep_bracket import sweep_bracket as build_mod
+    from repro_torch.kernels.halo_exchange import halo_exchange as hx_build
+    from repro_torch.kernels.sweep_bracket import sweep_bracket as sb_build
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = build_mod.build()
-    log(f"build: {lib.path.name} in {time.perf_counter() - t0:.2f} s")
-    if lib.report:
-        log("\n".join("build: " + ln for ln in lib.report.strip().splitlines()
-                      if ln.strip()))
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (sb_build, hx_build)))
+    log(f"build: {', '.join(lib.path.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        if lib.report:
+            log("\n".join("build: " + ln for ln in
+                          lib.report.strip().splitlines() if ln.strip()))
 
     # 3. kernels against their plain versions
     phase_kernels(torch, np, sb)
+    phase_halo_kernel(torch, np, hx)
 
-    # 4. main path
-    grid, bundles, launches = phase_main_path(torch, np, pt, ms, sb, stencil)
+    # 4. pricing path
+    grid, bundles, launches = phase_main_path(torch, np, pt, ms, sb,
+                                              stencil, hpcg)
 
-    # 5. times
+    # 5. times of the sweep kernels and of price()
     kernels = phase_times(torch, np, pt, sb, grid, bundles, card)
+    del grid, bundles
+    torch.cuda.empty_cache()
+
+    # 6. the stencil at full size
+    phase_stencil(torch, grid_mesh, st, card)
+
+    # 7. HPCG: the JAX test's case, then full size, then the halo kernel's
+    #    times at its strips
+    phase_hpcg_small(torch, grid_mesh, hp)
+    launches["halo_exchange"], blocks = phase_hpcg(torch, grid_mesh, hp, hx,
+                                                   card)
+    kernels.append(phase_halo_times(torch, hx, blocks, card))
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    # 6. result lines
+    # 8. result lines
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,15 @@
 communication model, beside the JAX package ``repro`` (the reference).
 
 It imports ``torch`` and ``numpy``, never ``jax`` and never ``repro``.
-Slice 1 holds the pricing path: ``memsim`` and the stencil spec produce a
-``TraceBundle``; ``core.compile_bundle`` packs it; ``core.price`` prices it
-under a ``ParamGrid`` on the GPU, with the fused bracket kernel of
-``kernels.sweep_bracket`` (CUDA C++ for sm_90a).
+
+* The pricing path: ``memsim`` and the app specs produce a ``TraceBundle``;
+  ``core.compile_bundle`` packs it; ``core.price`` prices it under a
+  ``ParamGrid`` on the GPU, with the fused bracket kernel of
+  ``kernels.sweep_bracket`` (CUDA C++ for sm_90a).
+* The paper's apps: ``apps.stencil.torch_impl`` and ``apps.hpcg.torch_impl``
+  run over a grid of ranks stacked on one device (``comm.grid_mesh``), with
+  message-based or message-free halo exchange (``comm``); HPCG's
+  message-free exchange on the card is the CUDA kernel of
+  ``kernels.halo_exchange``.  ``apps.*.validation`` reproduce the paper's
+  model-vs-reference rows.
 """

@@ -8,4 +8,11 @@ version that CPU tensors run.
   sweep_bracket/  fused bracket-term + per-site segment sum for the
                   scenario sweep (the ``"fused"`` backend), and a generic
                   CSR segment sum
+  halo_exchange/  the message-free ring halo exchange (HPCG's
+                  ``"message_free"`` backend on the card): each rank's
+                  CTAs write its boundary planes into the neighbours'
+                  windows under a release/acquire flag handshake
+
+``_build`` compiles each ``csrc/*.cu`` with ``nvcc`` and loads it with
+``ctypes``.
 """

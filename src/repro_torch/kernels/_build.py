@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA sources: one ``nvcc`` call per source.
+
+Each source under a kernel package's ``csrc/`` is compiled for ``sm_90a``
+into a shared library with a plain C interface, at first use, into
+``build/repro_torch/`` at the root of the checkout.  The library's name
+carries a hash of the source and the flags, so an edited source is rebuilt.
+It is compiled into a temporary file and renamed into place, so concurrent
+processes never load a half-written library; a failed compile raises with
+the compiler's output.  The library is loaded with ``ctypes``; every pointer
+and the stream travel as ``c_void_p``.
+
+Nothing is built or loaded when this module is imported: machines without
+``nvcc`` import it freely.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Every kernel is templated on both float types; entry points are named
+#: ``<base>_<suffix>``.
+SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+
+class Library:
+    """A loaded shared library, and the compiler's report if this process
+    built it (``None`` when an up-to-date library was already on disk)."""
+
+    def __init__(self, path: pathlib.Path, report: str | None,
+                 signatures: dict):
+        self.path = path
+        self.report = report
+        self._dll = ctypes.CDLL(str(path))
+        for base, argtypes in signatures.items():
+            for suffix in SUFFIX.values():
+                fn = getattr(self._dll, f"{base}_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+
+    def fn(self, base: str, dtype: torch.dtype):
+        return getattr(self._dll, f"{base}_{SUFFIX[dtype]}")
+
+
+_LIBS: dict[pathlib.Path, Library] = {}
+_LOCKS: dict[pathlib.Path, threading.Lock] = {}
+_GUARD = threading.Lock()
+
+
+def _nvcc(what: str) -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(f"nvcc not found (PATH or /usr/local/cuda/bin): "
+                           f"the {what} CUDA kernels cannot be built")
+    return found
+
+
+def _compile(source: pathlib.Path) -> tuple[pathlib.Path, str | None]:
+    digest = hashlib.sha1(source.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    path = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    if path.exists():
+        return path, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(source.stem), *NVCC_FLAGS, "-o", tmp,
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source.name} "
+                               f"({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path, proc.stdout + proc.stderr
+
+
+def build(source: pathlib.Path, signatures: dict) -> Library:
+    """Compile ``source`` (if needed) and load it; idempotent per source.
+
+    ``signatures`` maps each entry point's base name to its ``ctypes``
+    argument types.  Different sources build concurrently from different
+    threads (``nvcc`` runs outside the interpreter lock).
+    """
+    with _GUARD:
+        lock = _LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if source not in _LIBS:
+            _LIBS[source] = Library(*_compile(source), signatures)
+        return _LIBS[source]
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")

@@ -1,10 +1,7 @@
 """Build, load and launch the CUDA kernels of ``csrc/sweep_bracket.cu``.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``build/repro_torch/`` at the
-root of the checkout (the library's name carries a hash of the source, so an
-edited source is rebuilt).  It is loaded with ``ctypes``; every pointer and
-the stream travel as ``c_void_p``.  Nothing is built or loaded when this
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use and loaded
+with ``ctypes`` by ``kernels._build``.  Nothing is built or loaded when this
 module is imported: machines without ``nvcc`` import it freely and run the
 plain versions in ``ref`` on CPU tensors.
 
@@ -15,19 +12,13 @@ CSR preparation and the output allocation.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from .. import _build
+
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "sweep_bracket.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -36,79 +27,11 @@ _SIGNATURES = {
     # x, rows, n, offsets, perm, n_seg, out, stream
     "segsum": [_P, _I, _I, _P, _P, _I, _P, _P],
 }
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
-class _Library:
-    """The loaded shared library, and the compiler's report if this process
-    built it (``None`` when an up-to-date library was already on disk)."""
-
-    def __init__(self, path: pathlib.Path, report: str | None):
-        self.path = path
-        self.report = report
-        self._dll = ctypes.CDLL(str(path))
-        for base, argtypes in _SIGNATURES.items():
-            for suffix in _SUFFIX.values():
-                fn = getattr(self._dll, f"{base}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-
-    def fn(self, base: str, dtype: torch.dtype):
-        return getattr(self._dll, f"{base}_{_SUFFIX[dtype]}")
-
-
-_LIB: _Library | None = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
-                           "sweep_bracket CUDA kernels cannot be built")
-    return found
-
-
-def build() -> _Library:
-    """Compile (if needed) and load the kernels' library; idempotent.
-
-    Compiles into a temporary file and renames it into place, so concurrent
-    processes never load a half-written library.  A failed compile raises
-    with the compiler's output.
-    """
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    path = BUILD_DIR / f"libsweep_bracket-{digest}.so"
-    report = None
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   str(SOURCE)], capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        report = proc.stdout + proc.stderr
-    _LIB = _Library(path, report)
-    return _LIB
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+def build() -> _build.Library:
+    """Compile (if needed) and load the kernels' library; idempotent."""
+    return _build.build(SOURCE, _SIGNATURES)
 
 
 def launch_bracket(groups, delta: torch.Tensor, cxl: torch.Tensor,
@@ -117,12 +40,12 @@ def launch_bracket(groups, delta: torch.Tensor, cxl: torch.Tensor,
     are three ``(lat, w, offsets, perm)`` tuples (``perm`` may be None);
     ``outs`` four preallocated ``(S, n_seg)`` tensors."""
     lib = build()
-    args = [_ptr(t) for g in groups for t in g]
+    args = [_build.ptr(t) for g in groups for t in g]
     stream = torch.cuda.current_stream(delta.device).cuda_stream
     rc = lib.fn("sweep_bracket", delta.dtype)(
-        *args, _ptr(delta), _ptr(cxl), delta.shape[0], n_seg,
-        *(_ptr(o) for o in outs), stream)
-    _check(rc, "sweep_bracket")
+        *args, _build.ptr(delta), _build.ptr(cxl), delta.shape[0], n_seg,
+        *(_build.ptr(o) for o in outs), stream)
+    _build.check(rc, "sweep_bracket")
 
 
 def launch_segsum(x: torch.Tensor, offsets: torch.Tensor,
@@ -133,6 +56,6 @@ def launch_segsum(x: torch.Tensor, offsets: torch.Tensor,
     lib = build()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fn("segsum", x.dtype)(
-        _ptr(x), x.shape[0], x.shape[1], _ptr(offsets), _ptr(perm), n_seg,
-        _ptr(out), stream)
-    _check(rc, "segsum")
+        _build.ptr(x), x.shape[0], x.shape[1], _build.ptr(offsets),
+        _build.ptr(perm), n_seg, _build.ptr(out), stream)
+    _build.check(rc, "segsum")

@@ -8,8 +8,9 @@ sm_90 card), ``nvcc`` and PyTorch built for CUDA.  Phases, in order; any
 failure exits non-zero and no result line is printed:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version;
-  2. build    — ``nvcc`` builds ``csrc/sweep_bracket.cu`` and
-                ``csrc/halo_exchange.cu`` for sm_90a, both at once;
+  2. build    — ``nvcc`` builds ``csrc/sweep_bracket.cu``,
+                ``csrc/halo_exchange.cu``, ``csrc/flash_attention.cu`` and
+                ``csrc/mamba_scan.cu`` for sm_90a, all at once;
   3. kernels  — every CUDA kernel against its plain PyTorch version on the
                 card: the sweep kernels (f64 and f32, the reference's test
                 shapes) and the halo exchange (bit-exact; 1, 2, 3, 8 and 64
@@ -39,13 +40,33 @@ failure exits non-zero and no result line is printed:
                 the halo kernel (launches read from its wrapper), and one
                 traced solve with each; then the halo kernel's times at HPCG level
                 0's strips beside its plain version and two ``torch.roll``;
-  8. the ``kernels`` JSON line, the nvidia-smi line, and last
+  8. LM kernels — the flash-attention kernel against its plain version at
+                the JAX tests' shapes (f32 at 2e-5, three block shapes, bf16
+                at 3e-2, causal and bidirectional, GQA 4:1 and 3:1) and the
+                selective-scan kernel at the JAX tests' four shapes (1e-4);
+  9. LM forward — ``jamba-v0.1-52b`` at its published widths, cut to one
+                pattern period (8 layers: 7 Mamba, 1 attention; MoE on odd
+                layers), bf16, weights drawn on the card from a seeded
+                generator, ``train_4k`` inputs cut to 2 x 4096 tokens:
+                ``forward`` and ``loss`` with the kernels on (1 flash and 7
+                scan launches per forward, read from the wrappers; finite
+                logits of shape (2, 4096, 65536)); every kernel call of that
+                forward held against its plain version on the inputs the
+                forward fed it (flash at atol 4e-3 / rtol 1e-2 and a
+                relative norm of 2^-7, scan at 1e-4); the same forward with the plain paths, whose
+                loss must agree within 1e-2 relative;
+ 10. LM times  — the flash kernel's device time at the forward's shape
+                beside its plain version and ``scaled_dot_product_attention``,
+                the scan kernel's beside its plain version, the forward's wall
+                time (tokens/s), and one traced forward;
+ 11. the ``kernels`` JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import pathlib
 from concurrent.futures import ThreadPoolExecutor
@@ -77,6 +98,33 @@ TOL = {"f64": dict(rtol=1e-12, atol=1e-9), "f32": dict(rtol=2e-5, atol=1e-2),
 # operations/s outside the tensor cores (the kernels' type and unit).
 HBM_BYTES_S = 3.35e12
 FP64_OPS_S = 34e12
+# bf16 operations/s on the tensor cores, float32 operations/s outside them
+# (NVIDIA data sheet), and exponentials/s on the special-function units
+# (16 per SM per clock on sm_90, CUDA C++ Programming Guide; 132 SMs at the
+# 1.98 GHz boost clock).
+BF16_OPS_S = 989e12
+FP32_OPS_S = 67e12
+SFU_EXP_S = 132 * 16 * 1.98e9
+LM_ARCH, LM_LAYERS, LM_BATCH, LM_SEED = "jamba-v0.1-52b", 8, 2, 0
+RTOL_LM_LOSS = 1e-2
+TOL_FLASH = {"f32": dict(rtol=2e-5, atol=2e-5),       # the JAX tests' bounds
+             "bf16": dict(rtol=3e-2, atol=3e-2)}
+TOL_SCAN = dict(rtol=1e-4, atol=1e-4)
+# The flash kernel on the inputs the full-width forward feeds it.  There a
+# causal row at position n averages about n / e values of v ~ N(0, 1), so
+# most outputs are about sqrt(e / n) ~ 0.03 and the JAX tests' 3e-2 would
+# pass them whatever they held: hold them elementwise at 4e-3 (a few times
+# one bf16 rounding of such values) and as a whole at bf16's machine epsilon
+# of relative norm.
+TOL_FLASH_LM = dict(rtol=1e-2, atol=4e-3)
+RTOL_NORM_FLASH_LM = 2.0 ** -7
+#: (B, S, T, Hq, Hkv, D, causal) and (B, L, d, N): the JAX kernel tests'.
+FLASH_CASES = [(1, 128, 128, 4, 4, 64, True), (2, 256, 256, 8, 2, 64, True),
+               (1, 256, 256, 16, 16, 128, True),
+               (2, 128, 128, 8, 8, 64, False), (1, 384, 384, 6, 2, 64, True)]
+FLASH_BLOCKS = ((64, 64), (128, 64), (64, 128))
+SCAN_CASES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),
+              (3, 256, 16, 8)]
 BRACKET_CASES = [(1, 1, 4, 0, 3), (3, 5, 40, 17, 29), (16, 3, 128, 128, 128),
                  (7, 130, 200, 150, 90), (2, 4, 0, 0, 0), (2, 3, 640, 10, 5),
                  (0, 3, 10, 5, 2), (4, 0, 0, 0, 0)]
@@ -644,6 +692,276 @@ def phase_halo_times(torch, hx, blocks, card):
                 library_ms=dev["torch.roll x2"])
 
 
+def hold(torch, got, want, tol: dict) -> float:
+    """``got`` against ``want`` in float32 on the device (raises on a miss);
+    returns max |got - want|."""
+    assert got.shape == want.shape and got.dtype == want.dtype, \
+        (got.shape, want.shape, got.dtype, want.dtype)
+    return device_allclose(torch, got.float(), want.float(), **tol)
+
+
+def phase_lm_kernels(torch, np, fa, ms):
+    """Both LM kernels against their plain versions at the JAX kernel tests'
+    shapes."""
+    dev = torch.device(DEVICE)
+
+    def qkv(B, S, T, Hq, Hkv, D, dtype, seed):
+        rng = np.random.default_rng(seed)
+        return [torch.as_tensor(rng.normal(size=shp), dtype=dtype, device=dev)
+                for shp in ((B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))]
+
+    runs = [(c, torch.float32, 128, 128) for c in FLASH_CASES]
+    runs += [((1, 256, 256, 4, 4, 64, True), torch.float32, bq, bk)
+             for bq, bk in FLASH_BLOCKS]
+    runs.append(((1, 128, 128, 4, 4, 64, True), torch.bfloat16, 128, 128))
+    for (B, S, T, Hq, Hkv, D, causal), dtype, bq, bk in runs:
+        q, k, v = qkv(B, S, T, Hq, Hkv, D, dtype, S + Hq + bq + bk)
+        before = fa.flash_attention.launches
+        out = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        tol = TOL_FLASH["f32" if dtype == torch.float32 else "bf16"]
+        err = hold(torch, out, fa.attention_ref(q, k, v, causal), tol)
+        log(f"kernel flash_attention {str(dtype)[6:]} B={B} S={S} T={T} "
+            f"Hq={Hq} Hkv={Hkv} D={D} causal={causal} blocks {bq}/{bk}: ok, "
+            f"max_abs_err={err:.3e}")
+    for B, L, d, N in SCAN_CASES:
+        rng = np.random.default_rng(L + d)
+        ins = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+            rng.normal(size=(B, L, d)),
+            np.abs(rng.normal(0.05, 0.02, size=(B, L, d))),
+            rng.normal(size=(B, L, N)), rng.normal(size=(B, L, N)),
+            -np.abs(rng.normal(1, 0.3, size=(d, N))), rng.normal(size=(d,)))]
+        before = ms.mamba_scan.launches
+        y, h = ms.mamba_scan(*ins, d_block=d, chunk=L)
+        torch.cuda.synchronize()
+        assert ms.mamba_scan.launches == before + 1
+        yr, hr = ms.mamba_scan_ref(*ins)
+        err = max(hold(torch, y, yr, TOL_SCAN), hold(torch, h, hr, TOL_SCAN))
+        log(f"kernel mamba_scan f32 B={B} L={L} d={d} N={N}: ok, "
+            f"max_abs_err={err:.3e}")
+
+
+class _Recorder:
+    """Passes each call on to a kernel wrapper and keeps its inputs and
+    output; the wrapper itself (and its launch count) is untouched."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.calls.append((args, kwargs, out))
+        return out
+
+
+def phase_lm(torch, fa, ms):
+    """The LM's full-sequence forward at full width on the card: the main
+    path with both kernels, each kernel call held against its plain version,
+    and the same forward with the plain paths.  Returns the model, its
+    batch, the kernel launches of one forward and the recorded calls."""
+    import types
+    from repro_torch import configs
+    from repro_torch.models import blocks, layers, make_inputs, make_model
+    from repro_torch.models import mamba as mamba_mod
+
+    cfg = configs.get_arch(LM_ARCH).replace(n_layers=LM_LAYERS)
+    specs = blocks.layer_specs(cfg)
+    want = {"flash_attention": sum(s.mixer == "attn" for s in specs),
+            "mamba_scan": sum(s.mixer == "mamba" for s in specs)}
+    assert want == {"flash_attention": 1, "mamba_scan": 7}, want
+    shape = configs.get_shape("train_4k")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+    model = make_model(cfg, use_kernel=True, moe_impl="scatter",
+                       device=DEVICE, generator=gen)
+    batch = make_inputs(cfg, shape, seed=LM_SEED, batch_override=LM_BATCH,
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    kinds = ", ".join(f"{s.mixer}/{s.ffn}" for s in specs)
+    log(f"lm: {cfg.name} x {cfg.n_layers} layers ({kinds}), "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, {cfg.n_experts} experts "
+        f"top-{cfg.experts_per_token}, d_inner {cfg.d_inner}, N "
+        f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}: {n_params:,} "
+        f"parameters ({n_params * 2 / 1e9:.2f} GB), active "
+        f"{model.active_param_count():,}; weights and batch "
+        f"{tuple(batch['tokens'].shape)} in {time.perf_counter() - t0:.2f} s")
+
+    rec = {"flash_attention": _Recorder(fa.flash_attention),
+           "mamba_scan": _Recorder(ms.mamba_scan)}
+    fa_ops, ms_ops = layers.fa_ops, mamba_mod.ms_ops
+    layers.fa_ops = types.SimpleNamespace(
+        flash_attention=rec["flash_attention"])
+    mamba_mod.ms_ops = types.SimpleNamespace(mamba_scan=rec["mamba_scan"])
+    try:
+        with torch.inference_mode():
+            fa.flash_attention.launches = 0
+            ms.mamba_scan.launches = 0
+            t0 = time.perf_counter()
+            logits, aux = model(batch)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            launches = {"flash_attention": fa.flash_attention.launches,
+                        "mamba_scan": ms.mamba_scan.launches}
+    finally:
+        layers.fa_ops, mamba_mod.ms_ops = fa_ops, ms_ops
+    assert launches == want, launches
+    assert tuple(logits.shape) == (LM_BATCH, shape.seq_len, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    log(f"lm: forward (kernels on, first call) {fwd_s:.3f} s; launches "
+        f"{launches}; logits {tuple(logits.shape)} {logits.dtype}, all "
+        f"finite, max |logit| {float(logits.abs().max()):.4f}; aux "
+        f"{float(aux):.6f}")
+
+    with torch.inference_mode():
+        fa.flash_attention.launches = ms.mamba_scan.launches = 0
+        loss = model.loss(batch)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(loss))
+        assert fa.flash_attention.launches == want["flash_attention"]
+        assert ms.mamba_scan.launches == want["mamba_scan"]
+
+        # every kernel call of the forward against its plain version
+        (args, kw, out), = rec["flash_attention"].calls
+        want_fa = fa.attention_ref(*args, **kw)
+        err_fa = hold(torch, out, want_fa, TOL_FLASH_LM)
+        mag = want_fa.float().abs()
+        rel_fa = float(torch.linalg.vector_norm(out.float() - want_fa.float())
+                       / torch.linalg.vector_norm(want_fa.float()))
+        log(f"lm kernel flash_attention on the forward's q "
+            f"{tuple(args[0].shape)} k/v {tuple(args[1].shape)} bf16, "
+            f"causal: max_abs_err {err_fa:.3e} (bound {TOL_FLASH_LM}); "
+            f"relative norm {rel_fa:.3e} (bound {RTOL_NORM_FLASH_LM:.3e}); "
+            f"plain |out| mean {float(mag.mean()):.4e} max "
+            f"{float(mag.max()):.4e}, "
+            f"{float((mag > TOL_FLASH_LM['atol']).float().mean()):.2%} "
+            f"above atol")
+        assert rel_fa <= RTOL_NORM_FLASH_LM, rel_fa
+        del want_fa, mag
+        assert len(rec["mamba_scan"].calls) == want["mamba_scan"]
+        err_ms = 0.0
+        for i, (args, kw, (y, h)) in enumerate(rec["mamba_scan"].calls):
+            yr, hr = ms.mamba_scan_ref(*args)
+            e = max(hold(torch, y, yr, TOL_SCAN), hold(torch, h, hr, TOL_SCAN))
+            err_ms = max(err_ms, e)
+            log(f"lm kernel mamba_scan call {i} on x {tuple(args[0].shape)} "
+                f"N={args[4].shape[1]}: max_abs_err {e:.3e} (bound "
+                f"{TOL_SCAN}); max |y| {float(yr.abs().max()):.4f}")
+            del yr, hr
+
+        # the same forward with the plain paths
+        model.use_kernel = False
+        t0 = time.perf_counter()
+        plain_logits, plain_aux = model(batch)
+        plain_loss = model.loss(batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        model.use_kernel = True
+        gap = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+        logit_gap = float((logits.float() - plain_logits.float()).abs().max())
+        log(f"lm: loss kernels {float(loss):.6f}, plain "
+            f"{float(plain_loss):.6f}: relative gap {gap:.3e} (bound {RTOL_LM_LOSS}); logits max "
+            f"abs gap {logit_gap:.4e}; aux {float(aux):.6f} / "
+            f"{float(plain_aux):.6f}; plain forward + loss {plain_s:.2f} s")
+        assert gap <= RTOL_LM_LOSS, gap
+    del logits, plain_logits
+    return model, batch, launches, rec, (err_fa, err_ms)
+
+
+def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
+    """The LM kernels' device times at the forward's shapes beside their
+    bounds, plain versions and library call; the forward's wall time; one
+    traced forward."""
+    (q, k, v), kw, _ = rec["flash_attention"].calls[0]
+    causal = kw.get("causal", True)
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+    fa_ops = 4 * B * Hq * D * pairs
+    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rate = BF16_OPS_S if q.dtype == torch.bfloat16 else FP32_OPS_S
+    fa_bound = max(fa_bytes / HBM_BYTES_S, fa_ops / rate) * 1e3
+    fa_by = "bytes" if fa_bytes / HBM_BYTES_S >= fa_ops / rate \
+        else "operations"
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.inference_mode():
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+        sdpa_gap = float((sdpa.transpose(1, 2).float()
+                          - fa.attention_ref(q, k, v, causal).float())
+                         .abs().max())
+        del sdpa
+        fa_ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal),
+                          reps=10, name="attn_kernel")
+        fa_plain = device_ms(torch, lambda: fa.attention_ref(q, k, v, causal),
+                             reps=3)
+        fa_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10)
+    log(f"time [{card}]: flash_attention q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} {str(q.dtype)[6:]} causal, device time per call "
+        f"(profiler): kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, "
+        f"scaled_dot_product_attention {fa_lib:.4f} ms (max |sdpa - plain| "
+        f"{sdpa_gap:.3e}); bound {fa_bound:.4f} ms ({fa_by}: {fa_ops:.4e} "
+        f"operations, {fa_bytes} bytes)")
+
+    x, dt, Bt, Ct, A, D_ = rec["mamba_scan"].calls[0][0]
+    Bs, L, d = x.shape
+    N = A.shape[1]
+    exps = Bs * L * d * N
+    ms_flops = Bs * L * d * (6 * N + 3)
+    ms_bytes = 4 * (3 * Bs * L * d + 2 * Bs * L * N + d * N + d + Bs * d * N)
+    ms_ops_t = max(ms_flops / FP32_OPS_S, exps / SFU_EXP_S)
+    ms_bound = max(ms_bytes / HBM_BYTES_S, ms_ops_t) * 1e3
+    ms_by = "bytes" if ms_bytes / HBM_BYTES_S >= ms_ops_t else "operations"
+    with torch.inference_mode():
+        args = (x, dt, Bt, Ct, A, D_)
+        ms_ms = device_ms(torch, lambda: ms.mamba_scan(*args), reps=10,
+                          name="scan_kernel")
+        ms_plain = device_ms(torch, lambda: ms.mamba_scan_ref(*args), reps=1)
+    log(f"time [{card}]: mamba_scan x {tuple(x.shape)} N={N} f32, device "
+        f"time per call (profiler): kernel {ms_ms:.4f} ms, plain "
+        f"{ms_plain:.4f} ms; bound {ms_bound:.4f} ms ({ms_by}: {ms_bytes} "
+        f"bytes, {exps:.4e} exponentials, {ms_flops:.4e} float32 operations)")
+
+    with torch.inference_mode():
+        fwd_s, _ = wall_s(torch, lambda: model(batch), 3)
+        tokens = batch["tokens"].numel()
+        log(f"time [{card}]: lm forward {tokens} tokens, kernels on: "
+            f"{fwd_s:.4f} s (median of 3) = {tokens / fwd_s:.1f} tokens/s")
+        events, wall = trace(torch, lambda: model(batch))
+    busy = busy_ms(events)
+    share = 100 * busy / 1e3 / wall
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"time [{card}]: lm forward traced (torch.profiler): wall "
+        f"{wall:.4f} s, {len(events)} device events busy {busy:.3f} ms "
+        f"({share:.2f}%; idle {100 - share:.2f}%), attn_kernel "
+        f"{busy_ms(events, 'attn_kernel'):.3f} ms, scan_kernel "
+        f"{busy_ms(events, 'scan_kernel'):.3f} ms; top device operations: "
+        + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
+    return [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:30",
+             launches=None, max_abs_err=errs[0], ms=fa_ms, plain_ms=fa_plain,
+             bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib),
+        dict(name="mamba_scan", route="cuda",
+             source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+             replaces="src/repro/kernels/mamba_scan/mamba_scan.py:25",
+             launches=None, max_abs_err=errs[1], ms=ms_ms, plain_ms=ms_plain,
+             bound_ms=ms_bound, bound_by=ms_by, library_ms=None),
+    ]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -666,15 +984,29 @@ def main() -> int:
     from repro_torch.apps.hpcg import torch_impl as hp
     from repro_torch.apps.stencil import torch_impl as st
     from repro_torch.comm import grid_mesh
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import halo_exchange as hx
+    from repro_torch.kernels import mamba_scan as ms_k
     from repro_torch.kernels import sweep_bracket as sb
     from repro_torch.kernels.halo_exchange import halo_exchange as hx_build
     from repro_torch.kernels.sweep_bracket import sweep_bracket as sb_build
+    # these two packages export a wrapper of their launcher module's name
+    fa_build = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    ms_build = importlib.import_module(
+        "repro_torch.kernels.mamba_scan.mamba_scan")
+
+    # float32 products in full float32 on the card (the plain versions'
+    # bounds assume it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (sb_build, hx_build)))
+    sources = (sb_build, hx_build, fa_build, ms_build)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(lambda m: m.build(), sources))
     log(f"build: {', '.join(lib.path.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -685,6 +1017,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     phase_kernels(torch, np, sb)
     phase_halo_kernel(torch, np, hx)
+    phase_lm_kernels(torch, np, fa, ms_k)
 
     # 4. pricing path
     grid, bundles, launches = phase_main_path(torch, np, pt, ms, sb,
@@ -704,10 +1037,19 @@ def main() -> int:
     launches["halo_exchange"], blocks = phase_hpcg(torch, grid_mesh, hp, hx,
                                                    card)
     kernels.append(phase_halo_times(torch, hx, blocks, card))
+    del blocks
+    torch.cuda.empty_cache()
+
+    # 8./9. the LM forward at full width, 10. its times
+    model, batch, lm_launches, rec, errs = phase_lm(torch, fa, ms_k)
+    launches.update(lm_launches)
+    kernels += phase_lm_times(torch, F, fa, ms_k, model, batch, rec, errs,
+                              card)
+    del model, batch, rec
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    # 8. result lines
+    # 11. result lines
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

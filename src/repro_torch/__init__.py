@@ -13,4 +13,8 @@ It imports ``torch`` and ``numpy``, never ``jax`` and never ``repro``.
   message-free exchange on the card is the CUDA kernel of
   ``kernels.halo_exchange``.  ``apps.*.validation`` reproduce the paper's
   model-vs-reference rows.
+* The LM stack's forward pass: ``models`` (``make_model``, ``make_inputs``,
+  ``LanguageModel.forward`` / ``loss``) over the arch registry
+  ``configs``; with ``use_kernel`` attention and the Mamba scan run the
+  CUDA kernels of ``kernels.flash_attention`` and ``kernels.mamba_scan``.
 """

@@ -1,0 +1,7 @@
+"""qwen2.5-3b — dense GQA with QKV bias [hf:Qwen/Qwen2.5; hf]."""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-3b", family="dense",
+    n_layers=36, d_model=2048, n_heads=16, n_kv_heads=2,
+    d_ff=11008, vocab_size=151936, qkv_bias=True, rope_theta=1e6)

@@ -12,6 +12,11 @@ version that CPU tensors run.
                   ``"message_free"`` backend on the card): each rank's
                   CTAs write its boundary planes into the neighbours'
                   windows under a release/acquire flag handshake
+  flash_attention/
+                  blockwise online-softmax attention (GQA, causal), the
+                  LM's attention with ``use_kernel``
+  mamba_scan/     the Mamba-1 selective scan, the LM's SSM mixer with
+                  ``use_kernel``
 
 ``_build`` compiles each ``csrc/*.cu`` with ``nvcc`` and loads it with
 ``ctypes``.

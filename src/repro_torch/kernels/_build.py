@@ -28,9 +28,9 @@ import torch
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: Every kernel is templated on both float types; entry points are named
-#: ``<base>_<suffix>``.
-SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+#: Entry points are named ``<base>_<suffix>``, one per float type that the
+#: source instantiates.
+SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 class Library:
@@ -42,14 +42,16 @@ class Library:
         self.path = path
         self.report = report
         self._dll = ctypes.CDLL(str(path))
-        for base, argtypes in signatures.items():
-            for suffix in SUFFIX.values():
-                fn = getattr(self._dll, f"{base}_{suffix}")
+        self._fns = {}
+        for base, (argtypes, dtypes) in signatures.items():
+            for dtype in dtypes:
+                fn = getattr(self._dll, f"{base}_{SUFFIX[dtype]}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                self._fns[base, dtype] = fn
 
     def fn(self, base: str, dtype: torch.dtype):
-        return getattr(self._dll, f"{base}_{SUFFIX[dtype]}")
+        return self._fns[base, dtype]
 
 
 _LIBS: dict[pathlib.Path, Library] = {}
@@ -92,7 +94,7 @@ def build(source: pathlib.Path, signatures: dict) -> Library:
     """Compile ``source`` (if needed) and load it; idempotent per source.
 
     ``signatures`` maps each entry point's base name to its ``ctypes``
-    argument types.  Different sources build concurrently from different
+    argument types and the float types the source defines it for.  Different sources build concurrently from different
     threads (``nvcc`` runs outside the interpreter lock).
     """
     with _GUARD:

@@ -1,0 +1,80 @@
+"""The public wrapper of the flash-attention kernel.
+
+``flash_attention`` keeps the reference's contract (``repro.kernels
+.flash_attention.ops``): the same signature, and block sizes that must
+divide S and T, so the same calls fail.  The CUDA kernel picks its own
+tiles (64 x 64), so ``block_q`` and ``block_k`` only shape those checks.
+For CPU tensors it runs the plain version in ``ref``; for CUDA tensors it
+launches the kernel or raises — it never falls back.  The kernel is
+forward-only, as in the JAX package: an input that requires grad raises.
+
+``flash_attention.launches`` counts the kernel's launches (a plain
+integer; callers may reset it).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import flash_attention as _cuda
+from .ref import attention_ref
+
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v, block_q: int, block_k: int) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B, S, Hq, D) and k, v (B, T, Hkv, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, Hq, D = q.shape
+    Bk, T, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}: "
+                         "batch and head width must agree and Hq must be a "
+                         "multiple of Hkv")
+    if not (q.dtype == k.dtype == v.dtype and q.device == k.device
+            == v.device):
+        raise ValueError("q, k and v must share dtype and device")
+    bq, bk = min(block_q, S), min(block_k, T)
+    if bq < 1 or bk < 1 or S % bq or T % bk:
+        raise ValueError(f"block sizes must divide the sequence lengths: "
+                         f"S={S}, T={T}, block_q={bq}, block_k={bk}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is forward-only: it has no "
+                           "backward kernel; call it under torch.no_grad() or "
+                           "torch.inference_mode()")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q: (B, S, Hq, D); k/v: (B, T, Hkv, D) -> (B, S, Hq, D) in q's dtype.
+
+    Query head h attends over kv head h // (Hq // Hkv); with ``causal``,
+    query position s sees kv positions t <= s.
+    """
+    _check(q, k, v, block_q, block_k)
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_ref(q, k, v, causal=causal)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if q.dtype not in _TYPES:
+        raise ValueError(f"flash_attention takes float32/bfloat16, got "
+                         f"{q.dtype}")
+    if q.shape[-1] not in _cuda.HEAD_DIMS:
+        raise ValueError(f"the kernel takes head widths {_cuda.HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention needs at least one kv position")
+    with torch.cuda.device(dev):
+        _cuda.launch(q, k, v, out, causal)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

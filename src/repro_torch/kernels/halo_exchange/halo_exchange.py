@@ -21,12 +21,14 @@ from .. import _build
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "halo_exchange.cu"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FLOATS = (torch.float64, torch.float32)
 _SIGNATURES = {
     # strip_lo, strip_hi, stride_lo, stride_hi, P, n, chunks, recv_lo,
     # recv_hi, flags, epoch, stream
-    "halo_exchange": [_P, _P, _L, _L, _L, _I, _I, _P, _P, _P, _L, _P],
+    "halo_exchange": ([_P, _P, _L, _L, _L, _I, _I, _P, _P, _P, _L, _P],
+                      _FLOATS),
     # out: the number of CTAs that can be resident at once
-    "halo_max_ctas": [_P],
+    "halo_max_ctas": ([_P], _FLOATS),
 }
 
 

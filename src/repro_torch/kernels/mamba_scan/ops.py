@@ -1,0 +1,76 @@
+"""The public wrapper of the selective-scan kernel.
+
+``mamba_scan`` keeps the reference's contract (``repro.kernels.mamba_scan
+.ops``): the same signature, x cast to float32, and ``d_block`` / ``chunk``
+that must divide d and L, so the same calls fail.  The CUDA kernel picks
+its own tiles (32 channels, 64-step chunks), so those two only shape the
+checks.  For CPU tensors it runs the plain version in ``ref``; for CUDA
+tensors it launches the kernel or raises — it never falls back.  The
+kernel is forward-only, as in the JAX package: an input that requires grad
+raises.
+
+``mamba_scan.launches`` counts the kernel's launches (a plain integer;
+callers may reset it).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import mamba_scan as _cuda
+from .ref import mamba_scan_ref
+
+
+def _check(x, dt, Bt, Ct, A, D, d_block: int, chunk: int) -> None:
+    if x.ndim != 3 or dt.shape != x.shape:
+        raise ValueError(f"want x and dt (B, L, d); got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}")
+    Bsz, L, d = x.shape
+    if A.ndim != 2 or A.shape[0] != d or D.shape != (d,):
+        raise ValueError(f"want A (d, N) and D (d,) with d={d}; got "
+                         f"{tuple(A.shape)}, {tuple(D.shape)}")
+    N = A.shape[1]
+    if Bt.shape != (Bsz, L, N) or Ct.shape != (Bsz, L, N):
+        raise ValueError(f"want Bt and Ct {(Bsz, L, N)}; got "
+                         f"{tuple(Bt.shape)}, {tuple(Ct.shape)}")
+    ts = (x, dt, Bt, Ct, A, D)
+    if any(t.device != x.device for t in ts):
+        raise ValueError("all inputs must lie on one device")
+    db, lc = min(d_block, d), min(chunk, L)
+    if db < 1 or lc < 1 or d % db or L % lc:
+        raise ValueError(f"d_block and chunk must divide d and L: d={d}, "
+                         f"L={L}, d_block={db}, chunk={lc}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError("mamba_scan is forward-only: it has no backward "
+                           "kernel; call it under torch.no_grad() or "
+                           "torch.inference_mode()")
+
+
+def mamba_scan(x, dt, Bt, Ct, A, D, d_block: int = 256, chunk: int = 256):
+    """Selective scan.  x/dt: (B, L, d); Bt/Ct: (B, L, N); A: (d, N);
+    D: (d,).  Returns (y (B, L, d), h_final (B, d, N)), float32."""
+    _check(x, dt, Bt, Ct, A, D, d_block, chunk)
+    x = x.float()
+    dev = x.device
+    if dev.type == "cpu":
+        return mamba_scan_ref(x, dt, Bt, Ct, A, D)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if any(t.dtype != torch.float32 for t in (dt, Bt, Ct, A, D)):
+        raise ValueError("mamba_scan takes float32 dt, Bt, Ct, A and D")
+    N = A.shape[1]
+    if N > _cuda.MAX_STATES:
+        raise ValueError(f"the kernel holds at most {_cuda.MAX_STATES} "
+                         f"states per channel, got N={N}")
+    ins = [t.contiguous() for t in (x, dt, Bt, Ct, A, D)]
+    Bsz, L, d = x.shape
+    y = torch.empty((Bsz, L, d), dtype=torch.float32, device=dev)
+    h = torch.empty((Bsz, d, N), dtype=torch.float32, device=dev)
+    if Bsz == 0:
+        return y, h
+    with torch.cuda.device(dev):
+        _cuda.launch(*ins, y, h)
+    mamba_scan.launches += 1
+    return y, h
+
+
+mamba_scan.launches = 0

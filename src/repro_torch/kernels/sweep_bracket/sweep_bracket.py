@@ -21,11 +21,12 @@ from .. import _build
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "sweep_bracket.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FLOATS = (torch.float64, torch.float32)
 _SIGNATURES = {
     # 12 group pointers, delta, cxl, S, n_seg, 4 outputs, stream
-    "sweep_bracket": [_P] * 14 + [_I, _I] + [_P] * 5,
+    "sweep_bracket": ([_P] * 14 + [_I, _I] + [_P] * 5, _FLOATS),
     # x, rows, n, offsets, perm, n_seg, out, stream
-    "segsum": [_P, _I, _I, _P, _P, _I, _P, _P],
+    "segsum": ([_P, _I, _I, _P, _P, _I, _P, _P], _FLOATS),
 }
 
 

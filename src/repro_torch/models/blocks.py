@@ -1,0 +1,125 @@
+"""Layer-pattern machinery: every assigned architecture is a stack of
+``n_layers`` layers, each layer = mixer (attention | mamba | none) + FFN
+(dense | MoE | none), all pre-norm residual.
+
+The JAX package finds the smallest repeating *pattern* of layers and
+compiles the stack as a ``lax.scan`` over homogeneous super-blocks, its
+parameters stacked along a leading ``n_blocks`` axis per pattern position.
+PyTorch runs eagerly, so the port keeps the layers in a ``ModuleList`` in
+depth order and loops over them: layer ``i * len(pattern) + pos`` is the
+reference's block ``i``, position ``pos`` (``models.convert`` maps one to
+the other).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from . import layers, mamba, moe
+from .config import ArchConfig
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str          # "attn" | "mamba" | "none"
+    ffn: str            # "dense" | "moe" | "none"
+
+
+def layer_specs(cfg: ArchConfig) -> tuple:
+    """Per-layer (mixer, ffn) kinds for the full stack."""
+    out = []
+    for i in range(cfg.n_layers):
+        if cfg.is_attn_layer(i):
+            mixer = "attn"
+        elif cfg.ssm_state:
+            mixer = "mamba"
+        else:
+            raise ValueError(f"layer {i} of {cfg.name} has no mixer")
+        if cfg.d_ff == 0:
+            ffn = "none"
+        elif cfg.is_moe_layer(i):
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        out.append(LayerSpec(mixer, ffn))
+    return tuple(out)
+
+
+def layer_pattern(cfg: ArchConfig) -> tuple:
+    """Smallest repeating prefix of ``layer_specs`` that tiles the stack."""
+    specs = layer_specs(cfg)
+    n = len(specs)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(specs[i] == specs[i % p] for i in range(n)):
+            return specs[:p]
+    return specs
+
+
+def n_blocks(cfg: ArchConfig) -> int:
+    return cfg.n_layers // len(layer_pattern(cfg))
+
+
+# ------------------------------------------------------------------- params
+class Layer(layers.Params):
+    """One layer: ``mixer_norm`` + ``attn`` | ``mamba``, ``ffn_norm`` +
+    ``mlp`` | ``moe`` (each present only where ``spec`` has it)."""
+
+    def __init__(self, spec: LayerSpec, **entries):
+        super().__init__(**entries)
+        self.spec = spec
+
+
+def init_layer(cfg: ArchConfig, spec: LayerSpec,
+               gen: torch.Generator) -> Layer:
+    dt = layers.dtype_of(cfg)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    p = {}
+    if spec.mixer == "attn":
+        p.update(mixer_norm=ones(), attn=layers.init_attention(cfg, gen))
+    elif spec.mixer == "mamba":
+        p.update(mixer_norm=ones(), mamba=mamba.init_mamba(cfg, gen))
+    if spec.ffn == "dense":
+        p.update(ffn_norm=ones(), mlp=layers.init_mlp(cfg, gen))
+    elif spec.ffn == "moe":
+        p.update(ffn_norm=ones(), moe=moe.init_moe(cfg, gen))
+    return Layer(spec, **p)
+
+
+def init_stack(cfg: ArchConfig, gen: torch.Generator) -> nn.ModuleList:
+    """Every layer of the stack, in depth order."""
+    return nn.ModuleList(init_layer(cfg, spec, gen)
+                         for spec in layer_specs(cfg))
+
+
+# -------------------------------------------------------------------- apply
+def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
+                 use_kernel: bool, moe_impl: str):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.mixer == "attn":
+        h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+        x = x + layers.attention_block(p["attn"], h, cfg, positions,
+                                       use_kernel=use_kernel)
+    elif spec.mixer == "mamba":
+        h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+        x = x + mamba.mamba_block(p["mamba"], h, cfg, use_kernel=use_kernel)
+    if spec.ffn == "dense":
+        h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        x = x + layers.mlp_block(p["mlp"], h, cfg)
+    elif spec.ffn == "moe":
+        h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl)
+        x = x + y
+    return x, aux
+
+
+def stack_apply(stack, x, cfg: ArchConfig, positions=None,
+                use_kernel: bool = False, moe_impl: str = "scatter"):
+    """Forward through the whole stack.  Returns (x, total_aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in stack:
+        x, a = _apply_layer(layer, layer.spec, x, cfg, positions, use_kernel,
+                            moe_impl)
+        aux = aux + a
+    return x, aux

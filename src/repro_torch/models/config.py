@@ -1,0 +1,167 @@
+"""Architecture configuration covering all assigned families
+(dense / MoE / hybrid / SSM / VLM / audio LM backbones).
+
+A copy of the JAX package's ``models/config.py``: the same fields, defaults
+and ``reduced()``, so one config means the same model on both sides.  The
+port's forward reads every field that shapes the function; ``remat`` and
+``scan_layers`` (how the JAX package compiles the stack) and
+``attn_expand_kv`` (a sharding hint) change nothing on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                    # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                   # 0 => attention-free (pure SSM)
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 => d_model // n_heads
+    vocab_pad: int = 0             # table/head padding rows so the vocab
+                                   # dim shards evenly; logits masked to
+                                   # -inf over the padding (see lm._head)
+
+    # --- MoE ---------------------------------------------------------------
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+
+    # --- SSM (Mamba-1) -------------------------------------------------------
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+
+    # --- hybrid interleave (Jamba: attn every 8th layer, MoE every 2nd) -----
+    attn_period: int = 0           # 0 => all layers attend (or none if n_heads=0)
+    attn_offset: int = 0
+    moe_period: int = 0            # 0 => never MoE (or always for family=moe)
+    moe_offset: int = 1
+
+    # --- misc ----------------------------------------------------------------
+    mlp_act: str = "swiglu"        # swiglu | geglu
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    frontend: Optional[str] = None  # "vision" | "audio" (stub frontends)
+    frontend_dim: int = 0           # raw patch/frame feature width
+    img_seq: int = 0                # vision: patch positions per sequence
+    n_codebooks: int = 0            # audio: EnCodec codebooks
+    dtype: str = "bfloat16"
+    remat: bool = True              # activation checkpointing in train_step
+    scan_layers: bool = True        # lax.scan over the (homogeneous) stack
+    fused_proj: bool = False        # fuse [q|k|v] and [gate|up] projections:
+                                    # coalesces the backward dx all-reduces
+                                    # (EXPERIMENTS.md §Perf iteration A2)
+    attn_expand_kv: bool = False    # materialize KV at full query-head
+                                    # count and pin head-sharding: keeps the
+                                    # blockwise-attention einsums rank-local
+                                    # instead of AR-per-tile when kv_heads <
+                                    # model-axis size (§Perf iteration B2)
+    head_pad_multiple: int = 0      # zero-pad q heads (wq cols / wo rows) to
+                                    # a multiple of the TP size: projection
+                                    # output is then whole-head aligned, so
+                                    # the reshape to (B,S,H,D) is local — no
+                                    # all-to-all (§Perf iteration B3; exact:
+                                    # padded lanes are zero-saddled)
+
+    @property
+    def padded_vocab(self) -> int:
+        return self.vocab_size + self.vocab_pad
+
+    @property
+    def padded_heads(self) -> int:
+        """Query-head count incl. TP-alignment padding (§Perf B3).
+
+        Must stay divisible by n_kv_heads (padding is per KV group to
+        preserve the GQA grouping); the smallest count satisfying both
+        constraints is chosen."""
+        if not self.head_pad_multiple or not self.n_heads:
+            return self.n_heads
+        m = self.head_pad_multiple
+        nkv = max(self.n_kv_heads, 1)
+        n = -(-self.n_heads // m) * m
+        while n % nkv:
+            n += m
+        return n
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // max(self.n_heads, 1)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    def is_attn_layer(self, layer: int) -> bool:
+        if self.n_heads == 0:
+            return False
+        if self.attn_period == 0:
+            return True
+        return layer % self.attn_period == self.attn_offset
+
+    def is_moe_layer(self, layer: int) -> bool:
+        if self.n_experts == 0:
+            return False
+        if self.moe_period == 0:
+            return True
+        return layer % self.moe_period == self.moe_offset
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self, n_layers: int = 2, d_model: int = 64, d_ff: int = 128,
+                vocab_size: int = 256, n_experts: int = 4,
+                ssm_state: int = 8) -> "ArchConfig":
+        """Smoke-test-sized config of the same family/topology."""
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        n_kv = max(1, min(self.n_kv_heads, n_heads)) if n_heads else 0
+        return self.replace(
+            name=self.name + "-smoke",
+            n_layers=n_layers, d_model=d_model, d_ff=d_ff,
+            vocab_size=vocab_size, vocab_pad=0,
+            n_heads=n_heads, n_kv_heads=n_kv, head_dim=0,
+            n_experts=min(self.n_experts, n_experts) if self.n_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2)
+            if self.experts_per_token else 0,
+            ssm_state=min(self.ssm_state, ssm_state) if self.ssm_state else 0,
+            attn_period=min(self.attn_period, n_layers) if self.attn_period else 0,
+            attn_offset=min(self.attn_offset, n_layers - 1),
+            moe_period=self.moe_period and 2,
+            frontend_dim=min(self.frontend_dim, 32) if self.frontend_dim else 0,
+            img_seq=min(self.img_seq, 16) if self.img_seq else 0,
+            dtype="float32", remat=False)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

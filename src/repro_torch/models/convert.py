@@ -1,0 +1,59 @@
+"""Load the JAX package's parameters into the port's model.
+
+The reference's parameter tree is nested dicts with the stack as a list,
+one entry per pattern position, each stacked along a leading ``n_blocks``
+axis; the port keeps its layers in depth order, so layer ``i * P + pos``
+(``P`` = the pattern's length) is the reference's block ``i``, position
+``pos``.  Leaves come as numpy arrays (``np.asarray`` of the JAX arrays);
+bfloat16 leaves, which numpy holds as ``ml_dtypes.bfloat16`` and
+``torch.from_numpy`` refuses, are reinterpreted through ``uint16``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .blocks import layer_pattern, n_blocks
+from .config import ArchConfig
+
+
+def to_tensor(a) -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor of the same dtype and
+    bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    else:
+        out[prefix[:-1]] = tree
+
+
+def params_from_jax(cfg: ArchConfig, tree) -> dict:
+    """The reference's parameter tree as a state dict of
+    ``LanguageModel(cfg, ...)`` (load it with ``load_state_dict``)."""
+    flat = {}
+    for key, value in tree.items():
+        if key != "stack":
+            _flatten(value, f"{key}.", flat)
+    P, nb = len(layer_pattern(cfg)), n_blocks(cfg)
+    if len(tree["stack"]) != P:
+        raise ValueError(f"{cfg.name}: the stack has {len(tree['stack'])} "
+                         f"pattern positions, the config {P}")
+    for pos, stacked in enumerate(tree["stack"]):
+        leaves = {}
+        _flatten(stacked, "", leaves)
+        for name, leaf in leaves.items():
+            leaf = np.asarray(leaf)
+            if leaf.shape[0] != nb:
+                raise ValueError(f"{cfg.name}: stack[{pos}].{name} has "
+                                 f"{leaf.shape[0]} blocks, the config {nb}")
+            for i in range(nb):
+                flat[f"stack.{i * P + pos}.{name}"] = leaf[i]
+    return {k: to_tensor(v) for k, v in flat.items()}

@@ -1,0 +1,85 @@
+"""Model + input construction for every (arch, shape) cell.
+
+``make_model``  — ArchConfig -> LanguageModel, its weights drawn from a
+                  seeded ``torch.Generator`` on the device
+``make_inputs`` — (cfg, shape) -> batch of tensors, drawn with numpy
+                  exactly as the JAX package's ``make_inputs`` draws them,
+                  so both sides see bit-identical tokens, targets and
+                  frontend embeddings
+
+Both run on the card unless the caller names another device, and raise when
+the card is absent; there is no fallback.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import ArchConfig, ShapeConfig
+from .lm import LanguageModel
+
+
+def torch_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it is CUDA and no CUDA
+    device is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{dev} was asked for but no CUDA device is "
+                           "present; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def make_model(cfg: ArchConfig, use_kernel: bool = False,
+               moe_impl: str = "scatter", device="cuda",
+               generator: torch.Generator | None = None) -> LanguageModel:
+    """The model with its weights drawn on ``device`` from ``generator``
+    (a fresh one seeded with 0 when None; it must live on ``device``)."""
+    dev = torch_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    elif torch.device(generator.device).type != dev.type:
+        raise ValueError(f"generator on {generator.device}, model on {dev}")
+    return LanguageModel(cfg, generator, use_kernel=use_kernel,
+                         moe_impl=moe_impl)
+
+
+def _concrete(shape, dtype, seed: int, device, vocab: int | None = None):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        values = rng.integers(0, vocab or 2, size=shape).astype(np.int32)
+    else:
+        values = rng.normal(0, 1, size=shape)
+    return torch.as_tensor(values).to(device=device, dtype=dtype)
+
+
+def make_inputs(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
+                batch_override: int | None = None, device="cuda") -> dict:
+    """The training/prefill batch for one cell (``decode`` shapes get the
+    single-token decode batch)."""
+    dev = torch_device(device)
+    B = batch_override or shape.global_batch
+    S = 1 if shape.is_decode else shape.seq_len
+
+    def ints(shp):
+        return _concrete(shp, torch.int32, seed, dev, vocab=cfg.vocab_size)
+
+    def floats(shp):
+        return _concrete(shp, torch.bfloat16, seed + 1, dev)
+
+    if cfg.frontend == "vision":
+        s_img = 0 if shape.is_decode else cfg.img_seq
+        s_txt = S if shape.is_decode else S - cfg.img_seq
+        batch = {"tokens": ints((B, s_txt)),
+                 "image_embeds": floats((B, s_img, cfg.frontend_dim))}
+        if shape.kind == "train":
+            batch["targets"] = ints((B, s_txt))
+        return batch
+    if cfg.frontend == "audio":
+        batch = {"frame_embeds": floats((B, S, cfg.frontend_dim))}
+        if shape.kind == "train":
+            batch["targets"] = ints((B, S, cfg.n_codebooks))
+        return batch
+    batch = {"tokens": ints((B, S))}
+    if shape.kind == "train":
+        batch["targets"] = ints((B, S))
+    return batch

@@ -1,0 +1,297 @@
+"""Shared neural layers: RMSNorm, RoPE, GQA attention, gated MLPs, the
+embedding — the forward parts of the JAX package's ``models/layers.py``.
+
+Parameters live in :class:`Params` modules that read like the reference's
+parameter dicts (``p["wq"]``, ``"wqkv" in p``), in the reference's layouts
+(``x @ w`` with ``w`` of shape ``(in, out)``), so the reference's
+parameters load one to one (``models.convert``).  Initialisation draws from
+an explicit ``torch.Generator`` on the target device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.flash_attention import ops as fa_ops
+from .config import ArchConfig
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
+    """``std`` times a standard normal draw of ``shape``, drawn in ``dtype``
+    on ``gen``'s device (the reference's ``jax.random.normal(k, shape, dt)
+    * std``)."""
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device).mul_(std)
+
+
+class Params(nn.Module):
+    """Named parameters and sub-modules, read like the reference's
+    parameter dicts: ``p["wq"]``, ``"wqkv" in p``."""
+
+    def __init__(self, **entries):
+        super().__init__()
+        for name, value in entries.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(name, nn.Parameter(value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(x, scale, eps: float):
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)            # (D/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+def _pad_heads_cols(w, nq, nq_pad, hd, nkv, axis=1):
+    """Zero-pad per-KV-group head blocks from nq to nq_pad heads, keeping
+    the group-major layout (head = kv * g + j); the padded lanes are exact
+    zero-saddles (their wo rows are zero too)."""
+    if nq_pad == nq:
+        return w
+    nkv = max(nkv, 1)
+    g, g_pad = nq // nkv, nq_pad // nkv
+    if axis == 1:                           # (d, nq*hd) columns
+        d = w.shape[0]
+        grouped = w.reshape(d, nkv, g, hd)
+        pad = w.new_zeros((d, nkv, g_pad - g, hd))
+        return torch.cat([grouped, pad], dim=2).reshape(d, nq_pad * hd)
+    d = w.shape[1]                          # (nq*hd, d) rows (wo)
+    grouped = w.reshape(nkv, g, hd, d)
+    pad = w.new_zeros((nkv, g_pad - g, hd, d))
+    return torch.cat([grouped, pad], dim=1).reshape(nq_pad * hd, d)
+
+
+def init_attention(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """``wq``/``wk``/``wv`` (or the fused ``wqkv``), optional biases, and
+    ``wo``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    nq_pad = cfg.padded_heads
+    s = 1.0 / math.sqrt(d)
+    dt = dtype_of(cfg)
+    wo = _pad_heads_cols(
+        normal(gen, (nq * hd, d), dt, s / math.sqrt(cfg.n_layers)),
+        nq, nq_pad, hd, nkv, axis=0)
+    wq = _pad_heads_cols(normal(gen, (d, nq * hd), dt, s), nq, nq_pad, hd,
+                         nkv)
+    zeros = lambda n: torch.zeros((n,), dtype=dt, device=gen.device)
+    if cfg.fused_proj:
+        p = {"wqkv": torch.cat([wq, normal(gen, (d, 2 * nkv * hd), dt, s)],
+                               dim=1), "wo": wo}
+        if cfg.qkv_bias:
+            p["bqkv"] = zeros((nq_pad + 2 * nkv) * hd)
+        return Params(**p)
+    p = {"wq": wq, "wk": normal(gen, (d, nkv * hd), dt, s),
+         "wv": normal(gen, (d, nkv * hd), dt, s), "wo": wo}
+    if cfg.qkv_bias:
+        p.update(bq=zeros(nq_pad * hd), bk=zeros(nkv * hd),
+                 bv=zeros(nkv * hd))
+    return Params(**p)
+
+
+def _project_qkv(p, x, cfg: ArchConfig, positions):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq = cfg.padded_heads
+    if "wqkv" in p:
+        qkv = x @ p["wqkv"]
+        if cfg.qkv_bias:
+            qkv = qkv + p["bqkv"]
+        q, k, v = qkv.split([nq * hd, cfg.n_kv_heads * hd,
+                             cfg.n_kv_heads * hd], dim=-1)
+    else:
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, nq, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attention(q, k, v, causal: bool = True, kv_positions=None,
+                  q_positions=None):
+    """Grouped-query attention.  q: (B,S,Hq,D), k/v: (B,T,Hkv,D)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, g, D)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k) / math.sqrt(D)
+    if causal:
+        if q_positions is None:
+            q_positions = torch.arange(S, device=q.device)
+        if kv_positions is None:
+            kv_positions = torch.arange(T, device=q.device)
+        mask = q_positions[:, None] >= kv_positions[None, :]
+        scores = torch.where(mask, scores, scores.new_tensor(-1e30))
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    return out.reshape(B, S, Hq * D)
+
+
+#: Sequence length above which the blockwise (flash-style) plain path is
+#: used instead of materializing the full (S, T) score matrix.
+CHUNKED_ATTN_THRESHOLD = 2048
+
+
+def chunked_attention(q, k, v, causal: bool = True,
+                      q_block: int = 1024, kv_block: int = 1024):
+    """Blockwise streaming-softmax attention, the plain path for long
+    sequences.
+
+    q: (B, S, Hq, D); k/v: (B, T, Hkv, D).  Never materializes more than a
+    (B, Hkv, g, q_block, kv_block) score tile; the running (max, denom, acc)
+    carry is the standard online-softmax recurrence.
+    """
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qb = math.gcd(q_block, S)
+    kb = math.gcd(kv_block, T)
+    nq, nk = S // qb, T // kb
+
+    qg = q.reshape(B, nq, qb, Hkv, g, D).float()
+    kc = k.reshape(B, nk, kb, Hkv, D).float()
+    vc = v.reshape(B, nk, kb, Hkv, D).float()
+    scale = 1.0 / math.sqrt(D)
+    zero = q.new_zeros((), dtype=torch.float32)
+    outs = []
+    for qi in range(nq):
+        qblk = qg[:, qi]                                  # (B, qb, Hkv, g, D)
+        m = torch.full((B, Hkv, g, qb), -math.inf, device=q.device)
+        l = torch.zeros((B, Hkv, g, qb), device=q.device)
+        acc = torch.zeros((B, Hkv, g, qb, D), device=q.device)
+        for ki in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kc[:, ki]) * scale
+            if causal:
+                qpos = qi * qb + torch.arange(qb, device=q.device)
+                kpos = ki * kb + torch.arange(kb, device=q.device)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s,
+                                zero - math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully-masked rows (m_new == -inf)
+            safe_m = torch.where(torch.isfinite(m_new), m_new, zero)
+            p = torch.exp(s - safe_m[..., None])
+            p = torch.where(torch.isfinite(s), p, zero)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), zero)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] \
+                + torch.einsum("bhgqk,bkhd->bhgqd", p, vc[:, ki])
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]   # (B, Hkv, g, qb, D)
+        outs.append(out.permute(0, 3, 1, 2, 4))            # (B, qb, Hkv, g, D)
+    out = torch.stack(outs, dim=1).reshape(B, S, Hq * D)
+    return out.to(q.dtype)
+
+
+def attention_block(p, x, cfg: ArchConfig, positions=None,
+                    use_kernel: bool = False):
+    """Full-sequence (training / prefill) attention.
+
+    ``cfg.attn_expand_kv`` is a sharding hint of the JAX package (repeat the
+    kv heads and pin the head axis to the model mesh axis); on one device it
+    changes nothing, so it is not acted on here.
+    """
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if use_kernel:
+        out = fa_ops.flash_attention(q, k, v, causal=True).reshape(B, S, -1)
+    elif S > CHUNKED_ATTN_THRESHOLD:
+        out = chunked_attention(q, k, v, causal=True)
+    else:
+        out = gqa_attention(q, k, v, causal=True)
+    return out @ p["wo"]
+
+
+# ---------------------------------------------------------------------- MLPs
+def init_mlp(cfg: ArchConfig, gen: torch.Generator,
+             d_ff: Optional[int] = None) -> Params:
+    """Gated MLP: ``w_gate``/``w_up`` (or the fused ``w_gateup``) and
+    ``w_down``."""
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    dt = dtype_of(cfg)
+    s = 1.0 / math.sqrt(d)
+    down = normal(gen, (f, d), dt,
+                  1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers))
+    if cfg.fused_proj:
+        return Params(w_gateup=normal(gen, (d, 2 * f), dt, s), w_down=down)
+    return Params(w_gate=normal(gen, (d, f), dt, s),
+                  w_up=normal(gen, (d, f), dt, s), w_down=down)
+
+
+def activation(cfg: ArchConfig, gate):
+    return F.gelu(gate, approximate="tanh") if cfg.mlp_act == "geglu" \
+        else F.silu(gate)
+
+
+def mlp_block(p, x, cfg: ArchConfig):
+    if "w_gateup" in p:
+        gate, up = (x @ p["w_gateup"]).chunk(2, dim=-1)
+    else:
+        gate, up = x @ p["w_gate"], x @ p["w_up"]
+    return (activation(cfg, gate) * up) @ p["w_down"]
+
+
+# ----------------------------------------------------------------- embedding
+def init_embedding(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """Table/head sized to ``padded_vocab``; padding logits are masked in
+    ``unembed``, padding rows are never gathered."""
+    dt = dtype_of(cfg)
+    v = cfg.padded_vocab
+    p = {"table": normal(gen, (v, cfg.d_model), dt, 0.02)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal(gen, (cfg.d_model, v), dt,
+                              1.0 / math.sqrt(cfg.d_model))
+    return Params(**p)
+
+
+def embed(p, tokens):
+    return p["table"][tokens]
+
+
+def unembed(p, x, vocab_size: Optional[int] = None):
+    logits = x @ p["lm_head"] if "lm_head" in p else x @ p["table"].T
+    v = logits.shape[-1]
+    if vocab_size is not None and vocab_size < v:
+        pad = torch.arange(v, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits

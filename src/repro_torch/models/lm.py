@@ -1,0 +1,113 @@
+"""Top-level language model: embedding/frontend + block stack + LM head.
+
+The forward parts of the JAX package's ``models/lm.py``.  One class covers
+all assigned families; the modality frontends (VLM patch embeddings, audio
+frame embeddings) are stubs — the backbone consumes precomputed embeddings
+provided in the batch.
+
+Batch contracts (all values tensors on the model's device):
+  * LM families:  {"tokens": (B, S) i32, "targets": (B, S) i32}
+  * vlm:   {"tokens": (B, S_text), "image_embeds": (B, S_img, F),
+            "targets": (B, S_text)}
+  * audio: {"frame_embeds": (B, S, F), "targets": (B, S, K) i32}
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from . import blocks, layers
+from .config import ArchConfig
+
+
+class LanguageModel(nn.Module):
+    """The model's parameters, drawn from ``generator`` on its device, and
+    its forward pass.  ``use_kernel`` runs attention and the SSM scan on the
+    CUDA kernels (forward only); ``moe_impl`` is ``"scatter"`` or
+    ``"dense"``."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 use_kernel: bool = False, moe_impl: str = "scatter"):
+        super().__init__()
+        self.cfg = cfg
+        self.use_kernel = use_kernel
+        self.moe_impl = moe_impl
+        gen = generator
+        dt = layers.dtype_of(cfg)
+        self.embed = layers.init_embedding(cfg, gen)
+        self.stack = blocks.init_stack(cfg, gen)
+        self.final_norm = nn.Parameter(
+            torch.ones((cfg.d_model,), dtype=dt, device=gen.device))
+        if cfg.frontend == "vision":
+            self.mm_proj = nn.Parameter(layers.normal(
+                gen, (cfg.frontend_dim, cfg.d_model), dt,
+                1.0 / math.sqrt(cfg.frontend_dim)))
+        elif cfg.frontend == "audio":
+            self.frame_proj = nn.Parameter(layers.normal(
+                gen, (cfg.frontend_dim, cfg.d_model), dt,
+                1.0 / math.sqrt(cfg.frontend_dim)))
+            self.lm_heads = nn.Parameter(layers.normal(
+                gen, (cfg.d_model, cfg.n_codebooks * cfg.vocab_size), dt,
+                1.0 / math.sqrt(cfg.d_model)))
+
+    # ------------------------------------------------------------- embedding
+    def _embed_inputs(self, batch):
+        cfg = self.cfg
+        dt = layers.dtype_of(cfg)
+        if cfg.frontend == "vision":
+            img = batch["image_embeds"].to(dt) @ self.mm_proj
+            txt = layers.embed(self.embed, batch["tokens"])
+            return torch.cat([img, txt], dim=1)
+        if cfg.frontend == "audio":
+            return batch["frame_embeds"].to(dt) @ self.frame_proj
+        return layers.embed(self.embed, batch["tokens"])
+
+    def _head(self, x):
+        cfg = self.cfg
+        x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
+        if cfg.frontend == "audio":
+            logits = x @ self.lm_heads
+            return logits.reshape(*x.shape[:-1], cfg.n_codebooks,
+                                  cfg.vocab_size)
+        return layers.unembed(self.embed, x,
+                              vocab_size=cfg.vocab_size
+                              if cfg.vocab_pad else None)
+
+    # --------------------------------------------------------------- forward
+    def forward(self, batch):
+        """Training-shape forward.  Returns (logits, aux_loss)."""
+        x = self._embed_inputs(batch)
+        x, aux = blocks.stack_apply(self.stack, x, self.cfg,
+                                    use_kernel=self.use_kernel,
+                                    moe_impl=self.moe_impl)
+        if self.cfg.frontend == "vision":
+            x = x[:, self.cfg.img_seq:]       # logits only over text positions
+        return self._head(x), aux
+
+    def loss(self, batch):
+        """Mean next-token cross-entropy (+0.01 * MoE aux loss)."""
+        logits, aux = self.forward(batch)
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+        return (lse - gold).mean() + 0.01 * aux
+
+    # ------------------------------------------------------------- counting
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE counts top-k of E experts)."""
+        cfg = self.cfg
+        total = 0
+        for module in self.modules():
+            experts = isinstance(module, layers.Params) and "router" in module
+            for name, p in module.named_parameters(recurse=False):
+                if experts and name in ("w_gate", "w_up", "w_down"):
+                    total += p.numel() // cfg.n_experts \
+                        * cfg.experts_per_token
+                else:
+                    total += p.numel()
+        return total

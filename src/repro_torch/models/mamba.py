@@ -1,0 +1,89 @@
+"""Mamba-1 (selective state-space) mixer — falcon-mamba / jamba layers.
+
+The forward parts of the JAX package's ``models/mamba.py``:
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
+    y_t = C_t . h_t + D * x_t
+with input-dependent (selective) dt/B/C, a depthwise causal conv front-end
+and a SiLU-gated output path.  ``use_kernel`` runs the recurrence on the
+CUDA kernel of ``kernels.mamba_scan``; the plain path is its sequential
+version (the reference's chunked, checkpointed scan computes the same
+recurrence; its chunks only bound the memory of the backward pass).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.mamba_scan import ops as ms_ops
+from ..kernels.mamba_scan.ref import mamba_scan_ref
+from .config import ArchConfig
+from .layers import Params, dtype_of, normal
+
+
+def dt_rank(cfg: ArchConfig) -> int:
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def init_mamba(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """``in_proj``, ``conv_w``/``conv_b``, ``x_proj``, ``dt_proj``/
+    ``dt_bias``, ``A_log``, ``D`` and ``out_proj``."""
+    d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    r = dt_rank(cfg)
+    dt = dtype_of(cfg)
+    dev = gen.device
+    s = 1.0 / math.sqrt(d)
+    # S4D-real initialization of A; dt bias such that softplus(bias) spans
+    # [1e-3, 1e-1] as in the reference implementation.
+    a = torch.arange(1, N + 1, dtype=torch.float32, device=dev)[None, :] \
+        .repeat(di, 1)
+    u = torch.rand((di,), generator=gen, dtype=torch.float32, device=dev)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                        + math.log(1e-3))
+    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))  # inverse softplus
+    return Params(
+        in_proj=normal(gen, (d, 2 * di), dt, s),
+        conv_w=normal(gen, (K, di), dt, 1.0 / math.sqrt(K)),
+        conv_b=torch.zeros((di,), dtype=dt, device=dev),
+        x_proj=normal(gen, (di, r + 2 * N), dt, 1.0 / math.sqrt(di)),
+        dt_proj=normal(gen, (r, di), dt, r ** -0.5),
+        dt_bias=dt_bias,
+        A_log=torch.log(a),                              # (di, N) f32
+        D=torch.ones((di,), dtype=torch.float32, device=dev),
+        out_proj=normal(gen, (di, d), dt,
+                        1.0 / math.sqrt(di) / math.sqrt(cfg.n_layers)))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv along time.  x: (B, L, di), w: (K, di)."""
+    K = w.shape[0]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + pad[:, k: k + x.shape[1], :] * w[k]
+    return out + b
+
+
+def _ssm_inputs(p, x, cfg: ArchConfig):
+    """x: (B, L, di) post-conv activations -> (dt, B_t, C_t) f32."""
+    r, N = dt_rank(cfg), cfg.ssm_state
+    proj = (x @ p["x_proj"]).float()                      # (B, L, r + 2N)
+    dt_low, Bt, Ct = proj.split([r, N, N], dim=-1)
+    pre = dt_low @ p["dt_proj"].float() + p["dt_bias"]
+    dt = torch.logaddexp(pre, pre.new_zeros(()))          # softplus
+    return dt, Bt, Ct
+
+
+def mamba_block(p, x, cfg: ArchConfig, use_kernel: bool = False):
+    """Full-sequence mixer.  x: (B, L, d) -> (B, L, d)."""
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)           # (B, L, di) each
+    xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
+    dt, Bt, Ct = _ssm_inputs(p, xi, cfg)
+    A = -torch.exp(p["A_log"])
+    if use_kernel:
+        y, _ = ms_ops.mamba_scan(xi.float(), dt, Bt, Ct, A, p["D"])
+    else:
+        y, _ = mamba_scan_ref(xi, dt, Bt, Ct, A, p["D"])
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"]

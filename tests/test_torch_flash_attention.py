@@ -1,0 +1,202 @@
+"""The port's flash-attention kernel: the plain version (``ref.py``) and the
+CPU dispatch of the wrapper against the JAX package's Pallas kernel
+(interpret mode), and — on a CUDA device only — the CUDA kernel against the
+plain version.
+
+Tolerances are the reference's own (``test_kernels.py``): float32 atol =
+rtol = 2e-5, bfloat16 3e-2.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.models.layers import chunked_attention
+
+F32 = dict(atol=2e-5, rtol=2e-5)
+BF16 = dict(atol=3e-2, rtol=3e-2)
+
+#: (B, S, T, Hq, Hkv, D, causal): the reference's five shapes.
+CASES = [
+    (1, 128, 128, 4, 4, 64, True),
+    (2, 256, 256, 8, 2, 64, True),      # GQA 4:1
+    (1, 256, 256, 16, 16, 128, True),   # MHA, wide head
+    (2, 128, 128, 8, 8, 64, False),     # bidirectional
+    (1, 384, 384, 6, 2, 64, True),      # non-pow2 heads, GQA 3:1
+]
+BLOCKS = [(64, 64), (128, 64), (64, 128)]
+
+
+@pytest.fixture
+def jax_ref():
+    """The JAX package's kernel wrapper (interpret mode) and its oracles —
+    imported here so the card-only tests below run where jax is absent."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import attention_ref as jax_attention
+    from repro.kernels.flash_attention import flash_attention as jax_flash
+    from repro.models.layers import chunked_attention as jax_chunked
+    return jnp, jax_flash, jax_attention, jax_chunked
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; decided inside the test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _qkv(B, S, T, Hq, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, Hq, D)), rng.normal(size=(B, T, Hkv, D)),
+            rng.normal(size=(B, T, Hkv, D)))
+
+
+def _torch(arrays, dtype=torch.float32, device="cpu"):
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+def _jax(jnp, arrays, dtype=None):
+    return [jnp.asarray(a, dtype or jnp.float32) for a in arrays]
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal", CASES)
+def test_ref_matches_reference_kernel(jax_ref, B, S, T, Hq, Hkv, D, causal):
+    jnp, jax_flash, _, _ = jax_ref
+    arrays = _qkv(B, S, T, Hq, Hkv, D, seed=S + Hq)
+    want = np.asarray(jax_flash(*_jax(jnp, arrays), causal=causal))
+    got = attention_ref(*_torch(arrays), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal", CASES)
+def test_cpu_dispatch_is_the_plain_version(jax_ref, B, S, T, Hq, Hkv, D,
+                                           causal):
+    jnp, jax_flash, jax_attention, _ = jax_ref
+    arrays = _qkv(B, S, T, Hq, Hkv, D, seed=S + Hq)
+    before = flash_attention.launches
+    got = flash_attention(*_torch(arrays), causal=causal)
+    assert flash_attention.launches == before      # no kernel on the CPU
+    assert torch.equal(got, attention_ref(*_torch(arrays), causal=causal))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_attention(*_jax(jnp, arrays),
+                                              causal=causal)), **F32)
+
+
+@pytest.mark.parametrize("bq,bk", BLOCKS)
+def test_block_shapes(jax_ref, bq, bk):
+    jnp, jax_flash, _, _ = jax_ref
+    arrays = _qkv(1, 256, 256, 4, 4, 64, seed=bq + 3 * bk)
+    want = np.asarray(jax_flash(*_jax(jnp, arrays), causal=True, block_q=bq,
+                                block_k=bk))
+    got = flash_attention(*_torch(arrays), causal=True, block_q=bq,
+                          block_k=bk)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+def test_bf16(jax_ref):
+    jnp, jax_flash, _, _ = jax_ref
+    arrays = _qkv(1, 128, 128, 4, 4, 64, seed=7)
+    want = jax_flash(*_jax(jnp, arrays, jnp.bfloat16), causal=True)
+    got = flash_attention(*_torch(arrays, torch.bfloat16), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+def test_chunked_attention_matches_reference(jax_ref):
+    """The model's blockwise plain path (above 2048 positions) agrees with
+    the reference's and with the quadratic oracle."""
+    jnp, _, jax_attention, jax_chunked = jax_ref
+    arrays = _qkv(2, 256, 256, 8, 2, 32, seed=11)
+    got = chunked_attention(*_torch(arrays), causal=True, q_block=64,
+                            kv_block=128)
+    want = jax_chunked(*_jax(jnp, arrays), causal=True, q_block=64,
+                       kv_block=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    oracle = np.asarray(jax_attention(*_jax(jnp, arrays), causal=True))
+    np.testing.assert_allclose(got.numpy(), oracle.reshape(2, 256, -1), **F32)
+
+
+@pytest.mark.parametrize("S,bq", [(256, 96), (100, 64)])
+def test_block_sizes_that_do_not_divide_fail_as_in_the_reference(jax_ref, S,
+                                                                 bq):
+    jnp, jax_flash, _, _ = jax_ref
+    arrays = _qkv(1, S, S, 2, 2, 16, seed=1)
+    with pytest.raises(AssertionError):
+        jax_flash(*_jax(jnp, arrays), causal=True, block_q=bq)
+    with pytest.raises(ValueError, match="divide"):
+        flash_attention(*_torch(arrays), causal=True, block_q=bq)
+
+
+def test_bad_shapes_and_grad_raise():
+    q, k, v = _torch(_qkv(1, 64, 64, 6, 4, 16))
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention(q, k, v)
+    q, k, v = _torch(_qkv(1, 64, 64, 4, 2, 16))
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, k.double(), v)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(q, k, v)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).shape == q.shape
+
+
+# ----------------------------------------------------------------- on a card
+#: (B, S, T, Hq, Hkv, D, causal, dtype) beyond the reference's shapes:
+#: ragged sequence lengths, S != T, every head width the kernel takes.
+CUDA_EXTRA = [
+    (2, 100, 100, 4, 2, 64, True, torch.float32),
+    (1, 64, 192, 4, 1, 32, True, torch.float32),
+    (1, 192, 64, 2, 2, 16, False, torch.float32),
+    (1, 130, 130, 2, 1, 256, True, torch.float32),
+    (2, 320, 320, 8, 2, 128, True, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal", CASES)
+def test_kernel_matches_plain(cuda, B, S, T, Hq, Hkv, D, causal):
+    q, k, v = _torch(_qkv(B, S, T, Hq, Hkv, D, seed=S + Hq), device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               attention_ref(q, k, v, causal).cpu().numpy(),
+                               **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq,bk", BLOCKS)
+def test_kernel_block_shapes(cuda, bq, bk):
+    q, k, v = _torch(_qkv(1, 256, 256, 4, 4, 64, seed=bq + 3 * bk),
+                     device=cuda)
+    got = flash_attention(q, k, v, causal=True, block_q=bq, block_k=bk)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               attention_ref(q, k, v).cpu().numpy(), **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal,dtype", CUDA_EXTRA + [
+    (1, 128, 128, 4, 4, 64, True, torch.bfloat16)])
+def test_kernel_other_shapes(cuda, B, S, T, Hq, Hkv, D, causal, dtype):
+    q, k, v = _torch(_qkv(B, S, T, Hq, Hkv, D, seed=S + D), dtype, cuda)
+    got = flash_attention(q, k, v, causal=causal, block_q=S, block_k=T)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = F32 if dtype == torch.float32 else BF16
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        attention_ref(q, k, v, causal).float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _torch(_qkv(1, 64, 64, 2, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention(q, k, v)
+    q, k, v = _torch(_qkv(1, 64, 64, 2, 2, 64), torch.float16, cuda)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        flash_attention(q, k, v)

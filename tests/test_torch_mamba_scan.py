@@ -1,0 +1,158 @@
+"""The port's selective-scan kernel: the plain version (``ref.py``), the
+CPU dispatch of the wrapper and the model's plain path against the JAX
+package's Pallas kernel (interpret mode) and oracles, and — on a CUDA
+device only — the CUDA kernel against the plain version.
+
+Tolerance is the reference's own (``test_kernels.py``): atol = rtol = 1e-4.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+#: (B, L, d, N, d_block, chunk): the reference's four shapes.
+CASES = [
+    (1, 64, 32, 8, 32, 64),
+    (2, 128, 64, 16, 16, 32),
+    (1, 96, 48, 4, 48, 96),      # single chunk, full width
+    (3, 256, 16, 8, 16, 64),
+]
+
+
+@pytest.fixture
+def jax_ref():
+    """The JAX package's kernel wrapper (interpret mode) and its oracles —
+    imported here so the card-only tests below run where jax is absent."""
+    import jax.numpy as jnp
+    from repro.kernels.mamba_scan import mamba_scan as jax_scan
+    from repro.kernels.mamba_scan import mamba_scan_ref as jax_scan_ref
+    from repro.models.mamba import selective_scan as jax_selective
+    return jnp, jax_scan, jax_scan_ref, jax_selective
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; decided inside the test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(B, L, d, N, seed=0, a_unit=False):
+    """x, dt, Bt, Ct, A, D as the reference's tests draw them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, L, d))
+    dt = np.abs(rng.normal(0.05, 0.02, size=(B, L, d)))
+    Bt = rng.normal(size=(B, L, N))
+    Ct = rng.normal(size=(B, L, N))
+    if a_unit:
+        A, D = -np.ones((d, N)), np.zeros((d,))
+    else:
+        A = -np.abs(rng.normal(1, 0.3, size=(d, N)))
+        D = rng.normal(size=(d,))
+    return x, dt, Bt, Ct, A, D
+
+
+def _torch(arrays, device="cpu"):
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in arrays]
+
+
+def _check(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("B,L,d,N,dblk,chunk", CASES)
+def test_ref_matches_reference_kernel(jax_ref, B, L, d, N, dblk, chunk):
+    jnp, jax_scan, _, _ = jax_ref
+    arrays = _inputs(B, L, d, N, seed=L + d)
+    want = jax_scan(*(jnp.asarray(a, jnp.float32) for a in arrays),
+                    d_block=dblk, chunk=chunk)
+    _check(mamba_scan_ref(*_torch(arrays)), want)
+
+
+@pytest.mark.parametrize("B,L,d,N,dblk,chunk", CASES)
+def test_cpu_dispatch_is_the_plain_version(jax_ref, B, L, d, N, dblk, chunk):
+    jnp, _, jax_scan_ref, _ = jax_ref
+    arrays = _inputs(B, L, d, N, seed=L + d)
+    before = mamba_scan.launches
+    y, h = mamba_scan(*_torch(arrays), d_block=dblk, chunk=chunk)
+    assert mamba_scan.launches == before           # no kernel on the CPU
+    yr, hr = mamba_scan_ref(*_torch(arrays))
+    assert torch.equal(y, yr) and torch.equal(h, hr)
+    _check((y, h), jax_scan_ref(*(jnp.asarray(a, jnp.float32)
+                                  for a in arrays)))
+
+
+def test_ref_matches_reference_selective_scan(jax_ref):
+    """mamba_scan_ref, the model's plain path, == the reference model's
+    chunked selective_scan and its oracle (the reference test's inputs:
+    A = -1, D = 0)."""
+    jnp, _, jax_scan_ref, jax_selective = jax_ref
+    arrays = _inputs(2, 64, 32, 8, seed=3, a_unit=True)
+    jarrays = [jnp.asarray(a, jnp.float32) for a in arrays]
+    got = mamba_scan_ref(*_torch(arrays))
+    _check(got, jax_selective(*jarrays, chunk=16))
+    _check(got, jax_scan_ref(*jarrays))
+
+
+def test_ref_carries_an_initial_state(jax_ref):
+    jnp, _, jax_scan_ref, _ = jax_ref
+    arrays = _inputs(2, 40, 24, 8, seed=4)
+    h0 = np.random.default_rng(5).normal(size=(2, 24, 8))
+    got = mamba_scan_ref(*_torch(arrays), h0=torch.as_tensor(h0).float())
+    _check(got, jax_scan_ref(*(jnp.asarray(a, jnp.float32) for a in arrays),
+                             h0=jnp.asarray(h0, jnp.float32)))
+
+
+@pytest.mark.parametrize("dblk,chunk", [(24, 64), (32, 48)])
+def test_blocks_that_do_not_divide_fail_as_in_the_reference(jax_ref, dblk,
+                                                            chunk):
+    jnp, jax_scan, _, _ = jax_ref
+    arrays = _inputs(1, 64, 32, 4, seed=6)
+    with pytest.raises(AssertionError):
+        jax_scan(*(jnp.asarray(a, jnp.float32) for a in arrays),
+                 d_block=dblk, chunk=chunk)
+    with pytest.raises(ValueError, match="divide"):
+        mamba_scan(*_torch(arrays), d_block=dblk, chunk=chunk)
+
+
+def test_bad_shapes_and_grad_raise():
+    x, dt, Bt, Ct, A, D = _torch(_inputs(1, 16, 8, 4))
+    with pytest.raises(ValueError, match="Bt and Ct"):
+        mamba_scan(x, dt, Bt[:, :, :3], Ct, A, D)
+    dt.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mamba_scan(x, dt, Bt, Ct, A, D)
+    with torch.inference_mode():
+        y, h = mamba_scan(x, dt, Bt, Ct, A, D)
+    assert y.shape == (1, 16, 8) and h.shape == (1, 8, 4)
+
+
+# ----------------------------------------------------------------- on a card
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,d,N,dblk,chunk", CASES + [
+    (2, 1000, 200, 16, 200, 1000),     # ragged chunks and channel blocks
+    (1, 130, 96, 1, 96, 130),          # one state
+])
+def test_kernel_matches_plain(cuda, B, L, d, N, dblk, chunk):
+    ins = _torch(_inputs(B, L, d, N, seed=L + d), device=cuda)
+    before = mamba_scan.launches
+    y, h = mamba_scan(*ins, d_block=dblk, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    _check((y, h), [t.cpu().numpy() for t in mamba_scan_ref(*ins)])
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, Bt, Ct, A, D = _torch(_inputs(1, 16, 8, 17), device=cuda)
+    with pytest.raises(ValueError, match="at most 16"):
+        mamba_scan(x, dt, Bt, Ct, A, D)
+    x, dt, Bt, Ct, A, D = _torch(_inputs(1, 16, 8, 4), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        mamba_scan(x, dt.double(), Bt, Ct, A, D)

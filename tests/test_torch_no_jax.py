@@ -29,7 +29,7 @@ def test_importing_every_port_module_loads_no_jax():
                           text=True, env=env, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout)
-    assert out["modules"] >= 42
+    assert out["modules"] >= 70
     assert out["bad"] == [], f"the port imported {out['bad']}"
 
 
@@ -40,7 +40,7 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax"
 
 def test_no_source_file_names_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 43
+    assert len(files) >= 71
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

@@ -9,8 +9,9 @@ failure exits non-zero and no result line is printed:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version;
   2. build    — ``nvcc`` builds ``csrc/sweep_bracket.cu``,
-                ``csrc/halo_exchange.cu``, ``csrc/flash_attention.cu`` and
-                ``csrc/mamba_scan.cu`` for sm_90a, all at once;
+                ``csrc/halo_exchange.cu``, ``csrc/flash_attention_sm90.cu``,
+                ``csrc/flash_attention.cu`` and ``csrc/mamba_scan.cu`` for
+                sm_90a, all at once, and logs each one's build time;
   3. kernels  — every CUDA kernel against its plain PyTorch version on the
                 card: the sweep kernels (f64 and f32, the reference's test
                 shapes) and the halo exchange (bit-exact; 1, 2, 3, 8 and 64
@@ -40,16 +41,22 @@ failure exits non-zero and no result line is printed:
                 the halo kernel (launches read from its wrapper), and one
                 traced solve with each; then the halo kernel's times at HPCG level
                 0's strips beside its plain version and two ``torch.roll``;
-  8. LM kernels — the flash-attention kernel against its plain version at
-                the JAX tests' shapes (f32 at 2e-5, three block shapes, bf16
-                at 3e-2, causal and bidirectional, GQA 4:1 and 3:1) and the
-                selective-scan kernel at the JAX tests' four shapes (1e-4);
+  8. LM kernels — the flash-attention kernels against their plain version:
+                the f32 kernel at the JAX tests' shapes (f32 at 2e-5, three
+                block shapes, bf16 at D = 16), the bf16 tensor-core kernel
+                at D = 64, 128 and 256 (3e-2, causal and bidirectional with
+                T != S, GQA 4:1 and 3:1, B = 2 with a ragged q tile), each
+                call's route read from the wrapper's per-route count; and
+                the selective-scan kernel at the JAX tests' four shapes
+                (1e-4), and over 4,096 steps against a float64
+                recurrence (1e-4);
   9. LM forward — ``jamba-v0.1-52b`` at its published widths, cut to one
                 pattern period (8 layers: 7 Mamba, 1 attention; MoE on odd
                 layers), bf16, weights drawn on the card from a seeded
                 generator, ``train_4k`` inputs cut to 2 x 4096 tokens:
-                ``forward`` and ``loss`` with the kernels on (1 flash and 7
-                scan launches per forward, read from the wrappers; finite
+                ``forward`` and ``loss`` with the kernels on (1 flash launch,
+                on the tensor-core route, and 7 scan launches per forward,
+                read from the wrappers; finite
                 logits of shape (2, 4096, 65536)); every kernel call of that
                 forward held against its plain version on the inputs the
                 forward fed it (flash at atol 4e-3 / rtol 1e-2 and a
@@ -57,8 +64,10 @@ failure exits non-zero and no result line is printed:
                 loss must agree within 1e-2 relative;
  10. LM times  — the flash kernel's device time at the forward's shape
                 beside its plain version and ``scaled_dot_product_attention``,
-                the scan kernel's beside its plain version, the forward's wall
-                time (tokens/s), and one traced forward;
+                the flash kernel after an L2 flush and after a GEMM, the
+                scan kernel's beside its plain version, the forward's wall
+                time (tokens/s), and one traced forward, with the SM clock
+                read before and after it and sampled during it;
  11. the ``kernels`` JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -123,6 +132,11 @@ FLASH_CASES = [(1, 128, 128, 4, 4, 64, True), (2, 256, 256, 8, 2, 64, True),
                (1, 256, 256, 16, 16, 128, True),
                (2, 128, 128, 8, 8, 64, False), (1, 384, 384, 6, 2, 64, True)]
 FLASH_BLOCKS = ((64, 64), (128, 64), (64, 128))
+#: bf16 cases of the tensor-core route at each head width it takes: GQA 3:1
+#: causal and 4:1 bidirectional with T != S, B = 2 and S = 192 (a ragged
+#: second 128-row q tile).
+FLASH_SM90_CASES = [c for D in (64, 128, 256) for c in (
+    (2, 192, 192, 6, 2, D, True), (2, 192, 320, 8, 2, D, False))]
 SCAN_CASES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),
               (3, 256, 16, 8)]
 BRACKET_CASES = [(1, 1, 4, 0, 3), (3, 5, 40, 17, 29), (16, 3, 128, 128, 128),
@@ -166,6 +180,48 @@ def trace(torch, fn, reps: int = 1) -> tuple:
     cuda_type = torch.autograd.DeviceType.CUDA
     return [e for e in prof.events()
             if getattr(e, "device_type", None) == cuda_type], wall
+
+
+def sm_clock() -> str:
+    """The card's SM clock and its maximum, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+class ClockSampler:
+    """Samples the SM clock (MHz) and power draw (W) every 20 ms with
+    ``nvidia-smi -lms`` while the ``with`` block runs; the sampler is
+    stopped on exit."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        time.sleep(0.5)               # nvidia-smi's first sample
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        self.samples = []
+        for line in out.splitlines():
+            try:
+                self.samples.append(tuple(float(f) for f in line.split(",")))
+            except ValueError:
+                pass
+        return False
+
+    def summary(self) -> str:
+        if not self.samples:
+            return "no samples"
+        clk = sorted(c for c, _ in self.samples)
+        pwr = sorted(w for _, w in self.samples)
+        return (f"{len(clk)} samples: SM clock min {clk[0]:.0f} / median "
+                f"{clk[len(clk) // 2]:.0f} / max {clk[-1]:.0f} MHz, power "
+                f"median {pwr[len(pwr) // 2]:.1f} / max {pwr[-1]:.1f} W")
 
 
 def busy_ms(events, name: str = "") -> float:
@@ -714,25 +770,34 @@ def phase_lm_kernels(torch, np, fa, ms):
     runs += [((1, 256, 256, 4, 4, 64, True), torch.float32, bq, bk)
              for bq, bk in FLASH_BLOCKS]
     runs.append(((1, 128, 128, 4, 4, 64, True), torch.bfloat16, 128, 128))
+    runs.append(((1, 128, 128, 4, 4, 16, True), torch.bfloat16, 128, 128))
+    runs += [(c, torch.bfloat16, c[1], c[2]) for c in FLASH_SM90_CASES]
     for (B, S, T, Hq, Hkv, D, causal), dtype, bq, bk in runs:
         q, k, v = qkv(B, S, T, Hq, Hkv, D, dtype, S + Hq + bq + bk)
+        path = fa.route(dtype, D)
         before = fa.flash_attention.launches
+        on_route = fa.flash_attention.route_launches[path]
         out = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                  block_k=bk)
         torch.cuda.synchronize()
         assert fa.flash_attention.launches == before + 1
+        assert fa.flash_attention.route_launches[path] == on_route + 1
         tol = TOL_FLASH["f32" if dtype == torch.float32 else "bf16"]
         err = hold(torch, out, fa.attention_ref(q, k, v, causal), tol)
-        log(f"kernel flash_attention {str(dtype)[6:]} B={B} S={S} T={T} "
-            f"Hq={Hq} Hkv={Hkv} D={D} causal={causal} blocks {bq}/{bk}: ok, "
-            f"max_abs_err={err:.3e}")
-    for B, L, d, N in SCAN_CASES:
+        log(f"kernel flash_attention [{path}] {str(dtype)[6:]} B={B} S={S} "
+            f"T={T} Hq={Hq} Hkv={Hkv} D={D} causal={causal} blocks "
+            f"{bq}/{bk}: ok, max_abs_err={err:.3e}")
+
+    def scan_inputs(B, L, d, N):
         rng = np.random.default_rng(L + d)
-        ins = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+        return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
             rng.normal(size=(B, L, d)),
             np.abs(rng.normal(0.05, 0.02, size=(B, L, d))),
             rng.normal(size=(B, L, N)), rng.normal(size=(B, L, N)),
             -np.abs(rng.normal(1, 0.3, size=(d, N))), rng.normal(size=(d,)))]
+
+    for B, L, d, N in SCAN_CASES:
+        ins = scan_inputs(B, L, d, N)
         before = ms.mamba_scan.launches
         y, h = ms.mamba_scan(*ins, d_block=d, chunk=L)
         torch.cuda.synchronize()
@@ -741,6 +806,19 @@ def phase_lm_kernels(torch, np, fa, ms):
         err = max(hold(torch, y, yr, TOL_SCAN), hold(torch, h, hr, TOL_SCAN))
         log(f"kernel mamba_scan f32 B={B} L={L} d={d} N={N}: ok, "
             f"max_abs_err={err:.3e}")
+    # Drift over 4,096 steps: the kernel (ex2.approx decays) held against a
+    # float64 recurrence.  The float32 plain version is no oracle here: its
+    # own rounding over such a run reaches the size of the bound.
+    ins = scan_inputs(2, 4096, 256, 16)
+    y, _ = ms.mamba_scan(*ins)
+    y64, _ = ms.mamba_scan_ref(*(t.double() for t in ins))
+    err = hold(torch, y.double(), y64, TOL_SCAN)
+    yr, _ = ms.mamba_scan_ref(*ins)
+    log(f"kernel mamba_scan f32 B=2 L=4096 d=256 N=16 against a float64 "
+        f"recurrence: ok, max_abs_err={err:.3e}; the float32 plain version "
+        f"{float((yr.double() - y64).abs().max()):.3e} from it, the kernel "
+        f"{float((y - yr).abs().max()):.3e} from the plain version (max |y| "
+        f"{float(y64.abs().max()):.2f})")
 
 
 class _Recorder:
@@ -800,6 +878,7 @@ def phase_lm(torch, fa, ms):
     try:
         with torch.inference_mode():
             fa.flash_attention.launches = 0
+            fa.flash_attention.route_launches = {"sm90": 0, "simt": 0}
             ms.mamba_scan.launches = 0
             t0 = time.perf_counter()
             logits, aux = model(batch)
@@ -807,13 +886,16 @@ def phase_lm(torch, fa, ms):
             fwd_s = time.perf_counter() - t0
             launches = {"flash_attention": fa.flash_attention.launches,
                         "mamba_scan": ms.mamba_scan.launches}
+            routes = dict(fa.flash_attention.route_launches)
     finally:
         layers.fa_ops, mamba_mod.ms_ops = fa_ops, ms_ops
     assert launches == want, launches
+    # the forward's attention took the bf16 tensor-core kernel
+    assert routes == {"sm90": want["flash_attention"], "simt": 0}, routes
     assert tuple(logits.shape) == (LM_BATCH, shape.seq_len, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
     log(f"lm: forward (kernels on, first call) {fwd_s:.3f} s; launches "
-        f"{launches}; logits {tuple(logits.shape)} {logits.dtype}, all "
+        f"{launches}, flash routes {routes}; logits {tuple(logits.shape)} {logits.dtype}, all "
         f"finite, max |logit| {float(logits.abs().max()):.4f}; aux "
         f"{float(aux):.6f}")
 
@@ -879,6 +961,10 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
     (q, k, v), kw, _ = rec["flash_attention"].calls[0]
     causal = kw.get("causal", True)
     B, S, Hq, D = q.shape
+    fa_build = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    fa_route = fa.route(q.dtype, D)
+    fa_kernel = fa_build.KERNELS[fa_route]
     T, Hkv = k.shape[1], k.shape[2]
     pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
     fa_ops = 4 * B * Hq * D * pairs
@@ -896,14 +982,28 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
                          .abs().max())
         del sdpa
         fa_ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal),
-                          reps=10, name="attn_kernel")
+                          reps=10, name=fa_kernel)
+        # the same call right after 128 MB of writes (which evict the 50 MB
+        # L2), and right after a 1.9 TFLOP bf16 GEMM, as in the forward
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=q.device)
+        fa_cold = device_ms(torch, lambda: (
+            flush.zero_(), fa.flash_attention(q, k, v, causal)), reps=10,
+            name=fa_kernel)
+        a = torch.randn(16384, 4096, dtype=torch.bfloat16, device=q.device)
+        w = torch.randn(4096, 14336, dtype=torch.bfloat16, device=q.device)
+        fa_gemm = device_ms(torch, lambda: (
+            a @ w, fa.flash_attention(q, k, v, causal)), reps=10,
+            name=fa_kernel)
+        del flush, a, w
         fa_plain = device_ms(torch, lambda: fa.attention_ref(q, k, v, causal),
                              reps=3)
         fa_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10)
     log(f"time [{card}]: flash_attention q {tuple(q.shape)} k/v "
         f"{tuple(k.shape)} {str(q.dtype)[6:]} causal, device time per call "
-        f"(profiler): kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, "
+        f"(profiler): {fa_kernel} {fa_ms:.4f} ms (after an L2 flush "
+        f"{fa_cold:.4f} ms, after a GEMM {fa_gemm:.4f} ms), plain "
+        f"{fa_plain:.4f} ms, "
         f"scaled_dot_product_attention {fa_lib:.4f} ms (max |sdpa - plain| "
         f"{sdpa_gap:.3e}); bound {fa_bound:.4f} ms ({fa_by}: {fa_ops:.4e} "
         f"operations, {fa_bytes} bytes)")
@@ -927,12 +1027,17 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
         f"{ms_plain:.4f} ms; bound {ms_bound:.4f} ms ({ms_by}: {ms_bytes} "
         f"bytes, {exps:.4e} exponentials, {ms_flops:.4e} float32 operations)")
 
-    with torch.inference_mode():
+    with torch.inference_mode(), ClockSampler() as clocks:
         fwd_s, _ = wall_s(torch, lambda: model(batch), 3)
         tokens = batch["tokens"].numel()
         log(f"time [{card}]: lm forward {tokens} tokens, kernels on: "
             f"{fwd_s:.4f} s (median of 3) = {tokens / fwd_s:.1f} tokens/s")
+        clk_before = sm_clock()
         events, wall = trace(torch, lambda: model(batch))
+        clk_after = sm_clock()
+    log(f"clocks [{card}]: SM clock, max (nvidia-smi) before the traced "
+        f"forward {clk_before}, after it {clk_after}; sampled over the 3 "
+        f"timed and the traced forward: {clocks.summary()}")
     busy = busy_ms(events)
     share = 100 * busy / 1e3 / wall
     by_name = {}
@@ -942,14 +1047,13 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"time [{card}]: lm forward traced (torch.profiler): wall "
         f"{wall:.4f} s, {len(events)} device events busy {busy:.3f} ms "
-        f"({share:.2f}%; idle {100 - share:.2f}%), attn_kernel "
-        f"{busy_ms(events, 'attn_kernel'):.3f} ms, scan_kernel "
+        f"({share:.2f}%; idle {100 - share:.2f}%), {fa_kernel} "
+        f"{busy_ms(events, fa_kernel):.3f} ms, scan_kernel "
         f"{busy_ms(events, 'scan_kernel'):.3f} ms; top device operations: "
         + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
     return [
         dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attention.cu",
+             source=str(fa_build.SOURCES[fa_route].relative_to(ROOT)),
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:30",
              launches=None, max_abs_err=errs[0], ms=fa_ms, plain_ms=fa_plain,
@@ -1004,11 +1108,14 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = (sb_build, hx_build, fa_build, ms_build)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(lambda m: m.build(), sources))
-    log(f"build: {', '.join(lib.path.name for lib in libs)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    builds = (sb_build.build, hx_build.build, lambda: fa_build.build("sm90"),
+              lambda: fa_build.build("simt"), ms_build.build)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda build: build(), builds))
+    log(f"build: {time.perf_counter() - t0:.2f} s for "
+        + ", ".join(f"{lib.path.name} ("
+                    + ("on disk" if lib.seconds is None
+                       else f"{lib.seconds:.2f} s") + ")" for lib in libs))
     for lib in libs:
         if lib.report:
             log("\n".join("build: " + ln for ln in

@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 import torch
 
@@ -34,13 +35,15 @@ SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 class Library:
-    """A loaded shared library, and the compiler's report if this process
-    built it (``None`` when an up-to-date library was already on disk)."""
+    """A loaded shared library, and the compiler's report and wall seconds
+    if this process built it (``None`` when an up-to-date library was
+    already on disk)."""
 
     def __init__(self, path: pathlib.Path, report: str | None,
-                 signatures: dict):
+                 seconds: float | None, signatures: dict):
         self.path = path
         self.report = report
+        self.seconds = seconds
         self._dll = ctypes.CDLL(str(path))
         self._fns = {}
         for base, (argtypes, dtypes) in signatures.items():
@@ -67,12 +70,13 @@ def _nvcc(what: str) -> str:
     return found
 
 
-def _compile(source: pathlib.Path) -> tuple[pathlib.Path, str | None]:
+def _compile(source: pathlib.Path) -> tuple:
     digest = hashlib.sha1(source.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     path = BUILD_DIR / f"lib{source.stem}-{digest}.so"
     if path.exists():
-        return path, None
+        return path, None, None
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -87,7 +91,7 @@ def _compile(source: pathlib.Path) -> tuple[pathlib.Path, str | None]:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+    return path, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
 def build(source: pathlib.Path, signatures: dict) -> Library:

@@ -2,14 +2,19 @@
 
 ``flash_attention`` keeps the reference's contract (``repro.kernels
 .flash_attention.ops``): the same signature, and block sizes that must
-divide S and T, so the same calls fail.  The CUDA kernel picks its own
-tiles (64 x 64), so ``block_q`` and ``block_k`` only shape those checks.
-For CPU tensors it runs the plain version in ``ref``; for CUDA tensors it
-launches the kernel or raises — it never falls back.  The kernel is
-forward-only, as in the JAX package: an input that requires grad raises.
+divide S and T, so the same calls fail.  The CUDA kernels pick their own
+tiles, so ``block_q`` and ``block_k`` only shape those checks.  For CPU
+tensors it runs the plain version in ``ref``.  For CUDA tensors ``route``
+picks the kernel from (dtype, head width) before the launch — bf16 at D in
+{64, 128, 256} to the tensor-core kernel ``"sm90"``, the rest to the f32
+kernel ``"simt"`` — and the wrapper launches it or raises: it never falls
+back, and a failed build or launch never changes the route.  The kernels
+are forward-only, as in the JAX package: an input that requires grad
+raises.
 
-``flash_attention.launches`` counts the kernel's launches (a plain
-integer; callers may reset it).
+``flash_attention.launches`` counts every kernel launch and
+``flash_attention.route_launches`` the launches of each route (plain
+integers; callers may reset them).
 """
 from __future__ import annotations
 
@@ -19,6 +24,20 @@ from . import flash_attention as _cuda
 from .ref import attention_ref
 
 _TYPES = (torch.float32, torch.bfloat16)
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route (``"sm90"`` or ``"simt"``) a CUDA call with this dtype and
+    head width takes; raises for a pair that no kernel takes."""
+    if dtype not in _TYPES:
+        raise ValueError(f"flash_attention takes float32/bfloat16, got "
+                         f"{dtype}")
+    for name in ("sm90", "simt"):
+        dtypes, dims = _cuda.TAKES[name]
+        if dtype in dtypes and head_dim in dims:
+            return name
+    raise ValueError(f"the kernels take head widths "
+                     f"{_cuda.TAKES['simt'][1]}, got {head_dim}")
 
 
 def _check(q, k, v, block_q: int, block_k: int) -> None:
@@ -59,12 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    if q.dtype not in _TYPES:
-        raise ValueError(f"flash_attention takes float32/bfloat16, got "
-                         f"{q.dtype}")
-    if q.shape[-1] not in _cuda.HEAD_DIMS:
-        raise ValueError(f"the kernel takes head widths {_cuda.HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
+    path = route(q.dtype, q.shape[-1])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -72,9 +86,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one kv position")
     with torch.cuda.device(dev):
-        _cuda.launch(q, k, v, out, causal)
+        _cuda.launch(q, k, v, out, causal, path)
     flash_attention.launches += 1
+    flash_attention.route_launches[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"sm90": 0, "simt": 0}

@@ -10,55 +10,138 @@
 //                 + (dt[b, t, c] * x[b, t, c]) * Bt[b, t, :]
 //   y[b, t, c]  = sum_n h[b, c, n] * Ct[b, t, n] + D[c] * x[b, t, c]
 // and returns y (B, L, d) and the final h (B, d, N).  The operations keep
-// the TPU kernel's order (exp of dt * A, then the update, then the sum over
-// states, then the D term), with expf, so that the plain version's 1e-4
-// bound holds over long sequences.
-//
-// Design.  The recurrence is sequential in time and independent across
-// (batch, channel).  The TPU kernel walks a (d_block, N) state tile per time
-// chunk on a (batch, channel block, time chunk) grid, carrying the state in
-// VMEM scratch.  Here four lanes share one channel, each holding four of its
-// N <= 16 states in registers (states past N stay zero), and a CTA of 32
-// channels walks the whole sequence itself: per 64-step chunk it stages x
-// and dt of its channels, and Bt and Ct (which every channel of a batch row
-// reads) in shared memory, steps through the chunk, reduces y over the four
-// lanes with two shuffles, and writes the chunk of y back coalesced.  Four
-// lanes per channel give B x d x 4 threads: 65,536 at the LM's width
-// (B 2, d 8192), where one thread per channel would leave the card's
-// schedulers with one warp each.
+// the TPU kernel's order (the decay of dt * A, then the update, then the
+// sum over states, then the D term).  The entry takes d a multiple of 4 and
+// N = 16: the wrapper pads other shapes with zeros (a padded state has
+// A = B = C = 0 and stays 0; a padded channel is never stored).
 //
 // What bounds it on an H100: at (B 2, L 4096, d 8192, N 16) it moves
 // 0.81 GB (x, dt read, y written: 0.24 ms at 3.35 TB/s) and takes 1.07e9
 // exponentials on the special-function units (16 per SM per clock: 0.26 ms
-// at 1.98 GHz), so the exponentials bound it, barely.  This first kernel
-// pays one expf per state per step with no reuse, and one warp-synchronous
-// reduction per step.
+// at 1.98 GHz).  The instructions around them come close as well: at 4.2e12
+// warp-instructions/s of issue, every instruction per state-step costs
+// 0.032 ms, so the walk has to stay near 8 per state-step, and enough warps
+// have to be in flight to hide the latency of each step's dependent chain.
+//
+// Design.  The recurrence is sequential in time and independent across
+// (batch, channel).  Four lanes share one channel, each holding four of its
+// 16 states in registers; a CTA of 128 threads owns 32 channels of one batch
+// row and walks the whole sequence, 32 steps (a chunk) at a time.
+//   - Loads: thread 0 fetches each chunk with four TMA loads (x and dt as
+//     32 steps x 32 channels, Bt and Ct as 32 steps x 16 states; zeros past
+//     L and d) into a two-chunk ring, each slot with an mbarrier that the
+//     copies complete by bytes.  The slot of chunk k + 2 is refilled as soon
+//     as chunk k is done with, so chunk k + 1 lands while chunk k is walked.
+//   - Per state-step the walk issues one multiply and one ex2.approx (A is
+//     scaled by log2(e) once, at load), one multiply of dt x by Bt, and two
+//     FMAs (the update and the y partial).  Per lane-step it adds two 16-byte
+//     loads (Bt, Ct), two 4-byte broadcast loads (x, dt, which TMA lands as
+//     rows of 32 channels; a 16-byte load of four steps would need a
+//     transposing pass that costs more than it saves) and one store of the
+//     lane's partial y.
+//   - y is reduced off the per-step path: after the walk the four partials
+//     of each (step, channel) are summed from shared memory with the D term,
+//     and the chunk of y is written coalesced.
+//   - 40 KB of shared memory and about 40 registers per thread let every
+//     CTA of the LM's grid (512 CTAs of 128 threads) be resident at once.
+//
+// ptxas (-Xptxas -v): see PERF.md.
 //
 // Each extern "C" entry allocates nothing, enqueues on the given stream and
 // returns a CUDA error code (0 on success) so the caller can raise.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kLanes = 4;                     // lanes per channel
 constexpr int kStates = 4;                    // states per lane
-constexpr int kMaxN = kLanes * kStates;       // 16
+constexpr int kN = kLanes * kStates;          // 16
 constexpr int kChannels = 32;                 // channels per CTA
 constexpr int kThreads = kChannels * kLanes;  // 128
-constexpr int kChunk = 64;                    // time steps staged at once
+constexpr int kChunk = 32;                    // time steps per TMA load
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct __align__(128) Slot {
+  float x[kChunk][kChannels];
+  float dt[kChunk][kChannels];
+  float b[kChunk][kN];
+  float c[kChunk][kN];
+};
+constexpr uint32_t kSlotBytes = sizeof(Slot);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Spin until the phase of ``bar`` with this parity has completed; a wait
+// of more than 2^33 clocks (about 4 s) means a lost arrival, and traps
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 33)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Chunk ``k`` of batch row ``b`` into ``slot`` (one thread).
+__device__ __forceinline__ void fetch(Slot* slot, uint64_t* bar,
+                                      const CUtensorMap* xm,
+                                      const CUtensorMap* dtm,
+                                      const CUtensorMap* bm,
+                                      const CUtensorMap* cm, int ch0, int k,
+                                      int b) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(kSlotBytes)
+      : "memory");
+  tma_load_3d(slot->x, xm, bar, ch0, k * kChunk, b);
+  tma_load_3d(slot->dt, dtm, bar, ch0, k * kChunk, b);
+  tma_load_3d(slot->b, bm, bar, 0, k * kChunk, b);
+  tma_load_3d(slot->c, cm, bar, 0, k * kChunk, b);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __global__ void __launch_bounds__(kThreads)
-scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-            const float* __restrict__ Bt, const float* __restrict__ Ct,
+scan_kernel(const __grid_constant__ CUtensorMap xm,
+            const __grid_constant__ CUtensorMap dtm,
+            const __grid_constant__ CUtensorMap bm,
+            const __grid_constant__ CUtensorMap cm,
             const float* __restrict__ A, const float* __restrict__ Dv,
-            float* __restrict__ y, float* __restrict__ h_out, int L, int d,
-            int N) {
-  __shared__ float xs[kChunk][kChannels];
-  __shared__ float dts[kChunk][kChannels];
-  __shared__ float ys[kChunk][kChannels];
-  __shared__ float4 bs[kChunk][kLanes];  // Bt[t, 4 * lane ..], 0 past N
-  __shared__ float4 cs[kChunk][kLanes];
+            float* __restrict__ y, float* __restrict__ h_out, int L, int d) {
+  __shared__ Slot ring[2];
+  __shared__ __align__(16) float part[kChunk][kThreads];  // partial y
+  __shared__ __align__(8) uint64_t full[2];
 
   const int b = blockIdx.y;
   const int ch0 = blockIdx.x * kChannels;
@@ -66,85 +149,117 @@ scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int lc = tid / kLanes;
   const int ln = tid % kLanes;
   const int ch = ch0 + lc;
-  const bool live = ch < d;
+  const int n_chunks = (L + kChunk - 1) / kChunk;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_u32(&full[s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < 2 && k < n_chunks; ++k)
+      fetch(&ring[k], &full[k], &xm, &dtm, &bm, &cm, ch0, k, b);
+  }
 
   float a[kStates], h[kStates];
 #pragma unroll
   for (int j = 0; j < kStates; ++j) {
-    const int n = ln * kStates + j;
-    a[j] = live && n < N ? A[(long long)ch * N + n] : 0.f;
+    a[j] = ch < d ? A[(long long)ch * kN + kStates * ln + j] * kLog2e : 0.f;
     h[j] = 0.f;
   }
-  const float dv = live ? Dv[ch] : 0.f;
+  // the reduction pass always serves channel ch0 + tid % 32
+  const int rc = tid % kChannels;
+  const float dv = ch0 + rc < d ? Dv[ch0 + rc] : 0.f;
+  float* yb = y + (long long)b * L * d + ch0 + rc;
+  __syncthreads();  // the barriers are initialised
 
-  const long long row = (long long)b * L;
-  const float* xb = x + row * d;
-  const float* dtb = dt + row * d;
-  const float* bb = Bt + row * N;
-  const float* cb = Ct + row * N;
-  float* yb = y + row * d;
-
-  for (int t0 = 0; t0 < L; t0 += kChunk) {
-    const int len = min(kChunk, L - t0);
-    __syncthreads();  // the previous chunk's ys are written out
-    for (int i = tid; i < kChunk * kChannels; i += kThreads) {
-      const int t = i / kChannels, cc = i % kChannels;
-      const bool ok = t < len && ch0 + cc < d;
-      const long long g = (long long)(t0 + t) * d + ch0 + cc;
-      xs[t][cc] = ok ? xb[g] : 0.f;
-      dts[t][cc] = ok ? dtb[g] : 0.f;
-    }
-    for (int i = tid; i < kChunk * kMaxN; i += kThreads) {
-      const int t = i / kMaxN, n = i % kMaxN;
-      const bool ok = t < len && n < N;
-      const long long g = (long long)(t0 + t) * N + n;
-      reinterpret_cast<float*>(bs)[i] = ok ? bb[g] : 0.f;
-      reinterpret_cast<float*>(cs)[i] = ok ? cb[g] : 0.f;
-    }
-    __syncthreads();
+  for (int k = 0; k < n_chunks; ++k) {
+    const int s = k & 1;
+    const Slot& sl = ring[s];
+    const int len = min(kChunk, L - k * kChunk);
+    mbar_wait(&full[s], (k >> 1) & 1);
 
 #pragma unroll 4
     for (int t = 0; t < len; ++t) {
-      const float xt = xs[t][lc];
-      const float dtt = dts[t][lc];
-      const float4 bv = bs[t][ln];
-      const float4 cv = cs[t][ln];
+      const float xt = sl.x[t][lc];
+      const float dtt = sl.dt[t][lc];
+      const float4 bv = *reinterpret_cast<const float4*>(&sl.b[t][4 * ln]);
+      const float4 cv = *reinterpret_cast<const float4*>(&sl.c[t][4 * ln]);
       const float dx = dtt * xt;
-      h[0] = expf(dtt * a[0]) * h[0] + dx * bv.x;
-      h[1] = expf(dtt * a[1]) * h[1] + dx * bv.y;
-      h[2] = expf(dtt * a[2]) * h[2] + dx * bv.z;
-      h[3] = expf(dtt * a[3]) * h[3] + dx * bv.w;
-      float part = h[0] * cv.x + h[1] * cv.y + h[2] * cv.z + h[3] * cv.w;
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (ln == 0) ys[t][lc] = part + dv * xt;
+      h[0] = ex2(dtt * a[0]) * h[0] + dx * bv.x;
+      h[1] = ex2(dtt * a[1]) * h[1] + dx * bv.y;
+      h[2] = ex2(dtt * a[2]) * h[2] + dx * bv.z;
+      h[3] = ex2(dtt * a[3]) * h[3] + dx * bv.w;
+      part[t][tid] = h[0] * cv.x + h[1] * cv.y + h[2] * cv.z + h[3] * cv.w;
     }
-    __syncthreads();
-    for (int i = tid; i < len * kChannels; i += kThreads) {
-      const int t = i / kChannels, cc = i % kChannels;
-      if (ch0 + cc < d) yb[(long long)(t0 + t) * d + ch0 + cc] = ys[t][cc];
+    __syncthreads();  // every partial of the chunk is written
+
+    for (int t = tid / kChannels; t < len; t += kThreads / kChannels) {
+      const float4 p = *reinterpret_cast<const float4*>(&part[t][4 * rc]);
+      if (ch0 + rc < d)
+        yb[(long long)(k * kChunk + t) * d] =
+            ((p.x + p.y) + (p.z + p.w)) + dv * sl.x[t][rc];
     }
+    __syncthreads();  // slot s and the partials are free
+    if (tid == 0 && k + 2 < n_chunks)
+      fetch(&ring[s], &full[s], &xm, &dtm, &bm, &cm, ch0, k + 2, b);
   }
 
-  if (live) {
+  if (ch < d) {
 #pragma unroll
-    for (int j = 0; j < kStates; ++j) {
-      const int n = ln * kStates + j;
-      if (n < N) h_out[((long long)b * d + ch) * N + n] = h[j];
-    }
+    for (int j = 0; j < kStates; ++j)
+      h_out[((long long)b * d + ch) * kN + kStates * ln + j] = h[j];
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// A (W, L, B) f32 tensor map over t (B, L, W), boxes of ``box_w`` x kChunk,
+// zeros outside; the encoder comes through cudaGetDriverEntryPoint.
+bool make_map(CUtensorMap* map, const float* t, int W, int L, int B,
+              int box_w) {
+  static EncodeTiled enc = nullptr;
+  if (enc == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return false;
+    enc = reinterpret_cast<EncodeTiled>(p);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)L * W * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_w, (cuuint32_t)kChunk, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(t),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
+// x, dt (B, L, d), Bt, Ct (B, L, 16), A (d, 16), D (d,) -> y (B, L, d),
+// h (B, d, 16); d a multiple of 4, every pointer 16-byte aligned.
 extern "C" int mamba_scan_f32(const float* x, const float* dt,
                               const float* Bt, const float* Ct,
                               const float* A, const float* Dv, float* y,
                               float* h, int B, int L, int d, int N,
                               cudaStream_t stream) {
-  if (N < 1 || N > kMaxN) return (int)cudaErrorInvalidValue;
+  if (N != kN || d % 4 != 0 || L < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, dtm, bm, cm;
+  if (!make_map(&xm, x, d, L, B, kChannels) ||
+      !make_map(&dtm, dt, d, L, B, kChannels) ||
+      !make_map(&bm, Bt, kN, L, B, kN) || !make_map(&cm, Ct, kN, L, B, kN))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((d + kChannels - 1) / kChannels, B);
-  scan_kernel<<<grid, kThreads, 0, stream>>>(x, dt, Bt, Ct, A, Dv, y, h, L,
-                                             d, N);
+  scan_kernel<<<grid, kThreads, 0, stream>>>(xm, dtm, bm, cm, A, Dv, y, h, L,
+                                             d);
   return (int)cudaGetLastError();
 }

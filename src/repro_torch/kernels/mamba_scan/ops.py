@@ -3,11 +3,13 @@
 ``mamba_scan`` keeps the reference's contract (``repro.kernels.mamba_scan
 .ops``): the same signature, x cast to float32, and ``d_block`` / ``chunk``
 that must divide d and L, so the same calls fail.  The CUDA kernel picks
-its own tiles (32 channels, 64-step chunks), so those two only shape the
-checks.  For CPU tensors it runs the plain version in ``ref``; for CUDA
-tensors it launches the kernel or raises — it never falls back.  The
-kernel is forward-only, as in the JAX package: an input that requires grad
-raises.
+its own tiles (32 channels, 32-step chunks), so those two only shape the
+checks.  It takes d a multiple of 4 and N = 16 (its TMA loads need rows of
+16-byte multiples): other shapes are padded with zeros here and the
+results cut back.  For CPU tensors it runs the plain version in ``ref``;
+for CUDA tensors it launches the kernel or raises — it never falls back.
+The kernel is forward-only, as in the JAX package: an input that requires
+grad raises.
 
 ``mamba_scan.launches`` counts the kernel's launches (a plain integer;
 callers may reset it).
@@ -15,6 +17,7 @@ callers may reset it).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import mamba_scan as _cuda
 from .ref import mamba_scan_ref
@@ -61,16 +64,32 @@ def mamba_scan(x, dt, Bt, Ct, A, D, d_block: int = 256, chunk: int = 256):
     if N > _cuda.MAX_STATES:
         raise ValueError(f"the kernel holds at most {_cuda.MAX_STATES} "
                          f"states per channel, got N={N}")
-    ins = [t.contiguous() for t in (x, dt, Bt, Ct, A, D)]
     Bsz, L, d = x.shape
-    y = torch.empty((Bsz, L, d), dtype=torch.float32, device=dev)
-    h = torch.empty((Bsz, d, N), dtype=torch.float32, device=dev)
-    if Bsz == 0:
-        return y, h
+    if Bsz * L * d == 0:
+        return (torch.empty((Bsz, L, d), dtype=torch.float32, device=dev),
+                torch.zeros((Bsz, d, N), dtype=torch.float32, device=dev))
+    pd, pn = -d % 4, _cuda.MAX_STATES - N
+    if pd:
+        x, dt = F.pad(x, (0, pd)), F.pad(dt, (0, pd))
+        A, D = F.pad(A, (0, 0, 0, pd)), F.pad(D, (0, pd))
+    if pn:
+        Bt, Ct, A = F.pad(Bt, (0, pn)), F.pad(Ct, (0, pn)), F.pad(A, (0, pn))
+    ins = [_aligned(t) for t in (x, dt, Bt, Ct, A, D)]
+    y = torch.empty((Bsz, L, d + pd), dtype=torch.float32, device=dev)
+    h = torch.empty((Bsz, d + pd, _cuda.MAX_STATES), dtype=torch.float32,
+                    device=dev)
     with torch.cuda.device(dev):
         _cuda.launch(*ins, y, h)
     mamba_scan.launches += 1
+    if pd or pn:
+        y, h = y[..., :d].contiguous(), h[:, :d, :N].contiguous()
     return y, h
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (TMA's rule)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 mamba_scan.launches = 0

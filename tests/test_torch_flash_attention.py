@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention.ops import route
 from repro_torch.models.layers import chunked_attention
 
 F32 = dict(atol=2e-5, rtol=2e-5)
@@ -143,6 +144,28 @@ def test_bad_shapes_and_grad_raise():
         assert flash_attention(q, k, v).shape == q.shape
 
 
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 256, "sm90"), (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 16, "simt"),
+    (torch.float32, 32, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt")])
+def test_route_table(dtype, D, want):
+    """bf16 at D in {64, 128, 256} goes to the tensor-core kernel, the rest
+    to the f32 kernel; decided from (dtype, D) alone."""
+    assert route(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype,D,match", [
+    (torch.float16, 64, "float32/bfloat16"),
+    (torch.float64, 128, "float32/bfloat16"),
+    (torch.float32, 48, "head widths"), (torch.bfloat16, 96, "head widths"),
+    (torch.bfloat16, 512, "head widths")])
+def test_route_refuses_what_no_kernel_takes(dtype, D, match):
+    with pytest.raises(ValueError, match=match):
+        route(dtype, D)
+
+
 # ----------------------------------------------------------------- on a card
 #: (B, S, T, Hq, Hkv, D, causal, dtype) beyond the reference's shapes:
 #: ragged sequence lengths, S != T, every head width the kernel takes.
@@ -200,3 +223,30 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _torch(_qkv(1, 64, 64, 2, 2, 64), torch.float16, cuda)
     with pytest.raises(ValueError, match="float32/bfloat16"):
         flash_attention(q, k, v)
+
+
+#: The tensor-core route: every head width it takes, causal and not, GQA
+#: 4:1 and 3:1, B = 2 with S = 192 (a ragged second 128-row q tile, where a
+#: map over a flattened B x S axis would read the next batch row), and
+#: T = 320 != S when not causal.
+SM90_CASES = [(D, causal, Hq, Hkv) for D in (64, 128, 256)
+              for causal in (True, False) for Hq, Hkv in ((8, 2), (6, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,causal,Hq,Hkv", SM90_CASES)
+def test_sm90_kernel_matches_plain(cuda, D, causal, Hq, Hkv):
+    B, S = 2, 192
+    T = S if causal else 320
+    q, k, v = _torch(_qkv(B, S, T, Hq, Hkv, D, seed=D + Hq + causal),
+                     torch.bfloat16, cuda)
+    assert route(q.dtype, D) == "sm90"
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, causal=causal, block_q=S, block_k=T)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["sm90"] == before["sm90"] + 1
+    assert flash_attention.route_launches["simt"] == before["simt"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        attention_ref(q, k, v, causal).float().cpu().numpy(), **BF16)

@@ -138,6 +138,7 @@ def test_bad_shapes_and_grad_raise():
 @pytest.mark.parametrize("B,L,d,N,dblk,chunk", CASES + [
     (2, 1000, 200, 16, 200, 1000),     # ragged chunks and channel blocks
     (1, 130, 96, 1, 96, 130),          # one state
+    (1, 50, 30, 5, 30, 50),            # d and N padded by the wrapper
 ])
 def test_kernel_matches_plain(cuda, B, L, d, N, dblk, chunk):
     ins = _torch(_inputs(B, L, d, N, seed=L + d), device=cuda)
@@ -156,3 +157,16 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     x, dt, Bt, Ct, A, D = _torch(_inputs(1, 16, 8, 4), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         mamba_scan(x, dt.double(), Bt, Ct, A, D)
+
+
+@pytest.mark.cuda
+def test_kernel_does_not_drift_over_a_long_sequence(cuda):
+    """4,096 steps at N = 16: the kernel's decays (ex2.approx of dt * A *
+    log2 e) stay within the bound of a float64 recurrence.  (The float32
+    plain version is no oracle over such a run: its own rounding reaches the
+    size of the bound.)"""
+    ins = _torch(_inputs(1, 4096, 64, 16, seed=9), device=cuda)
+    got = mamba_scan(*ins, d_block=64, chunk=4096)
+    torch.cuda.synchronize()
+    exact = mamba_scan_ref(*(t.double() for t in ins))
+    _check(got, [t.cpu().numpy() for t in exact])

@@ -15,8 +15,11 @@ failure exits non-zero and no result line is printed:
   3. kernels  — every CUDA kernel against its plain PyTorch version on the
                 card: the sweep kernels (f64 and f32, the reference's test
                 shapes) and the halo exchange (bit-exact; 1, 2, 3, 8 and 64
-                ranks, odd plane sizes, f32 and f64, strips read in place
-                from (n, nz, ny, nx) blocks, 50 calls in a row);
+                ranks, each on the "cluster" route where n <= 8 and on the
+                "flags" route, f32 and f64, strips read in place from
+                blocks with odd and 16-byte plane sizes and from rows whose
+                rank stride is no 16-byte multiple; 50 calls in a row per
+                route);
   4. pricing  — for each Fig. 7 stencil tile and each HPCG lattice
                 (nx = 16, 64, 128, 256; unpack halo buffers): memsim
                 ``collect`` -> ``compile_bundle`` -> ``price`` of 262,144
@@ -25,9 +28,12 @@ failure exits non-zero and no result line is printed:
                 must agree with the "torch" backend on every row and with
                 the host "numpy" backend on 16,384 rows (rtol 1e-9), and
                 scenario chunking must be bit-identical;
-  5. times    — CUDA-event medians of the sweep kernels, their plain
-                versions and ``index_add_``, and ``price()`` split into
-                host view, H2D, device pricing and D2H;
+  5. times    — the sweep kernels' device times (profiler; the bracket
+                kernel also after an L2 flush and by CUDA events with
+                enqueue) beside their plain versions and ``index_add_``;
+                ``price_grid_fused`` on 262,144 scenarios at once against
+                chunks of 65,536, bit for bit; ``price()`` split into host
+                view, H2D, device pricing and D2H;
   6. stencil  — the paper's Fig. 7 decomposition at full size: 8 x 8 ranks
                 of 4096^2 f32 tiles, 10 steps with each backend, held
                 against ``reference_step`` on the whole 32768^2 plane (atol
@@ -38,9 +44,12 @@ failure exits non-zero and no result line is printed:
                 (HPCG validation's largest lattice): ``apply_a`` against
                 ``reference_apply_a`` (rtol 1e-6), a 25-iteration PCG with
                 each backend, bit-identical, the message-free one through
-                the halo kernel (launches read from its wrapper), and one
-                traced solve with each; then the halo kernel's times at HPCG level
-                0's strips beside its plain version and two ``torch.roll``;
+                the halo kernel (launches and routes read from its wrapper:
+                all on the cluster route), and one traced solve with each;
+                then the halo kernel's device times at the strips of the
+                V-cycle's four levels, warm and after an L2 flush, beside
+                their bounds, and at level 0 its plain version and two
+                ``torch.roll``;
   8. LM kernels — the flash-attention kernels against their plain version:
                 the f32 kernel at the JAX tests' shapes (f32 at 2e-5, three
                 block shapes, bf16 at D = 16), the bf16 tensor-core kernel
@@ -94,6 +103,9 @@ TILES = (32, 128, 512, 1024, 2048, 4096)     # the paper's Fig. 7 tiles
 HPCG_NX = (16, 64, 128, 256)                 # HPCG lattices priced
 STENCIL_GRID, STENCIL_TILE, STENCIL_STEPS = (8, 8), 4096, 10   # Fig. 7
 HPCG_RANKS, HPCG_NX_FULL, HPCG_ITERS = 8, 256, 25
+HPCG_LEVEL_NX = (256, 128, 64, 32)          # the V-cycle's four levels
+# the halo kernel's two routes: halo_cluster_kernel and halo_flags_kernel
+HALO_KERNEL = "halo_"
 TOL_STENCIL = dict(rtol=1e-6, atol=1e-6)     # the JAX test's bound
 RTOL_APPLY_A = 1e-6
 HALO_RANKS = (1, 2, 3, 8, 64)
@@ -101,6 +113,8 @@ HALO_BLOCKS = ((3, 33, 31), (2, 129, 127))   # odd P = ny * nx
 HALO_CALLS_IN_A_ROW = 50
 RTOL_PATH = 1e-9
 DEVICE = "cuda"
+LEAD_SPINS = 256              # spin kernels at the start of every trace
+TRACE_TRIES = 8
 TOL = {"f64": dict(rtol=1e-12, atol=1e-9), "f32": dict(rtol=2e-5, atol=1e-2),
        "segsum": dict(rtol=1e-12, atol=1e-12)}
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and float64
@@ -168,10 +182,15 @@ def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
 def trace(torch, fn, reps: int = 1) -> tuple:
     """(device events, wall seconds) of ``reps`` calls of ``fn()`` under
     ``torch.profiler``: the card's kernels and copies, with their names and
-    durations."""
+    durations.  :data:`LEAD_SPINS` empty spin kernels run first, and are
+    left out: the profiler can lose the first device events of a trace."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(LEAD_SPINS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -179,7 +198,34 @@ def trace(torch, fn, reps: int = 1) -> tuple:
         wall = time.perf_counter() - t0
     cuda_type = torch.autograd.DeviceType.CUDA
     return [e for e in prof.events()
-            if getattr(e, "device_type", None) == cuda_type], wall
+            if getattr(e, "device_type", None) == cuda_type
+            and "spin_kernel" not in e.name], wall
+
+
+def steady_traces(torch, fn, reps: int = 1, name: str = "",
+                  want: int | None = None, count: int = 1) -> list:
+    """``count`` results of :func:`trace` that hold the same number of
+    device events named ``name`` (``want`` of them, if given).  Besides
+    the first events of a trace, the profiler now and then loses others,
+    or a whole trace; a trace that lost some would read low.  Raises after
+    :data:`TRACE_TRIES` traces."""
+    seen, groups = [], {}
+    for _ in range(TRACE_TRIES):
+        events, wall = trace(torch, fn, reps)
+        n = sum(name in e.name for e in events)
+        seen.append(n)
+        if n and (want is None or n == want):
+            group = groups.setdefault(n, [])
+            group.append((events, wall))
+            if len(group) == count:
+                if len(set(seen)) > 1:
+                    log(f"trace: the profiler kept {seen} device events "
+                        f"named {name!r} in {len(seen)} traces; kept the "
+                        f"{count} with {n}")
+                return group
+    raise RuntimeError(f"the profiler kept {seen} device events named "
+                       f"{name!r} in {TRACE_TRIES} traces"
+                       + (f", not {want}" if want is not None else ""))
 
 
 def sm_clock() -> str:
@@ -234,14 +280,13 @@ def busy_ms(events, name: str = "") -> float:
 def device_ms(torch, fn, reps: int = 100, name: str = "") -> float:
     """Device time per call of ``fn()`` in ms: the profiler's durations of
     its kernels and copies (of those named ``name``, if given), without the
-    host's enqueue time.  Raises when the trace holds none."""
+    host's enqueue time; the median of three traces that agree on the
+    count of those events (:func:`steady_traces`)."""
     fn()
     torch.cuda.synchronize()
-    events, _ = trace(torch, fn, reps)
-    total = busy_ms(events, name)
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no device time for {name!r}")
-    return total / reps
+    return statistics.median(
+        busy_ms(events, name) / reps
+        for events, _ in steady_traces(torch, fn, reps, name, count=3))
 
 
 def wall_s(torch, fn, reps: int) -> tuple:
@@ -424,8 +469,15 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
         *[(gg.lat, gg.w, gg.seg) for gg in (g["hit"], g["lfb"], g["miss"])],
         delta, cxl, C)
     err1 = max_abs_err(fused(), plain(), TOL["f64"])
-    k1_ms = cuda_ms(torch, fused)
-    k1_plain = cuda_ms(torch, plain)
+    # device time (the profiler's, no host enqueue), warm and right after
+    # 128 MB of writes (which evict the 50 MB L2); CUDA events around one
+    # call (enqueue included) beside it
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    k1_ms = device_ms(torch, fused, name="bracket_kernel")
+    k1_cold = device_ms(torch, lambda: (flush.zero_(), fused()), reps=50,
+                        name="bracket_kernel")
+    k1_enqueue = cuda_ms(torch, fused)
+    k1_plain = device_ms(torch, plain, reps=10)
     k1_bytes = 16 * (nh + nl + nm) + 3 * 4 * (C + 1) + 16 * S + 4 * 8 * S * C
     k1_ops = S * (4 * nh + 8 * nl + 4 * nm + 1)
     k1_bound = max(k1_bytes / HBM_BYTES_S, k1_ops / FP64_OPS_S) * 1e3
@@ -440,9 +492,9 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
     out_lib = torch.zeros((S, C), dtype=x.dtype, device=dev)
     lib2 = lambda: out_lib.index_add_(1, seg, x)
     err2 = max_abs_err({"x": k2()}, {"x": plain2()}, TOL["segsum"])
-    k2_ms = cuda_ms(torch, k2)
-    k2_plain = cuda_ms(torch, plain2)
-    k2_lib = cuda_ms(torch, lib2)
+    k2_ms = device_ms(torch, k2, reps=20, name="segsum_kernel")
+    k2_plain = device_ms(torch, plain2, reps=10)
+    k2_lib = device_ms(torch, lib2, reps=10)
     k2_bytes = 8 * S * nh + 8 * nh + 8 * S * C
     k2_ops = S * nh
     k2_bound = max(k2_bytes / HBM_BYTES_S, k2_ops / FP64_OPS_S) * 1e3
@@ -450,11 +502,27 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
         else "operations"
 
     log(f"time [{card}]: fused_bracket_segsum S={S} n_seg={C} "
-        f"n={nh}/{nl}/{nm}: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
-        f"bound {k1_bound:.4f} ms ({k1_by})")
-    log(f"time [{card}]: segment_sum ({S}, {nh}) -> {C}: kernel "
-        f"{k2_ms:.4f} ms, plain {k2_plain:.4f} ms, index_add_ "
-        f"{k2_lib:.4f} ms, bound {k2_bound:.4f} ms ({k2_by})")
+        f"n={nh}/{nl}/{nm}, device time per call (profiler): bracket_kernel "
+        f"{k1_ms:.5f} ms (after an L2 flush {k1_cold:.5f} ms), plain "
+        f"{k1_plain:.4f} ms; with enqueue (CUDA events, one call) "
+        f"{k1_enqueue:.4f} ms; bound {k1_bound:.5f} ms ({k1_by})")
+    log(f"time [{card}]: segment_sum ({S}, {nh}) -> {C}, device time per "
+        f"call (profiler): segsum_kernel {k2_ms:.4f} ms, plain "
+        f"{k2_plain:.4f} ms, index_add_ {k2_lib:.4f} ms, bound "
+        f"{k2_bound:.4f} ms ({k2_by})")
+
+    # scenario chunking is bit-identical on the device: the fused pricing
+    # of all S scenarios at once against the same scenarios in chunks
+    whole = sweep_mod._finalize(price_grid_fused(cb, view), S, C)
+    parts = [sweep_mod._finalize(price_grid_fused(cb, view._slice(sl)),
+                                 sl.stop - sl.start, C)
+             for sl in (slice(i, min(i + CHUNK, S))
+                        for i in range(0, S, CHUNK))]
+    for f in pt.MATRIX_FIELDS:
+        assert np.array_equal(np.concatenate([q[f] for q in parts]),
+                              whole[f]), f
+    log(f"kernel fused_bracket_segsum: price_grid_fused of {S} scenarios at "
+        f"once and in {len(parts)} chunks of {CHUNK}: bit-identical")
 
     # one price() call, split into its layers
     host_view_s, hview = wall_s(torch, lambda: sweep_mod._scenario_view(grid),
@@ -528,37 +596,58 @@ def phase_price_split(torch, pt, sweep_mod, price_grid_fused, grid, cb,
             f"so the card's busy share is not measured")
 
 
+def halo_layouts(torch, np, n, dtype, seed):
+    """(label, strip_lo, strip_hi) read in place: from (n, nz, ny, nx)
+    blocks with odd plane sizes, from blocks whose planes are 16-byte
+    multiples (the kernel's 16-byte units), and from rows of a wider array
+    whose rank stride is no 16-byte multiple."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in HALO_BLOCKS + ((2, 64, 48),):
+        b = torch.as_tensor(rng.normal(size=(n, *shape)), dtype=dtype,
+                            device=dev)
+        out.append((f"blocks {shape}", b[:, 0], b[:, -1]))
+    t = torch.as_tensor(rng.normal(size=(n, 3, 4097)), dtype=dtype,
+                        device=dev)
+    out.append(("rank stride 12291", t[:, 0, :4096], t[:, 1, 1:]))
+    return out
+
+
 def phase_halo_kernel(torch, np, hx):
     """The halo kernel against its plain version, bit for bit: every rank
-    count and odd plane size in f32 and f64 with strips read in place from
-    (n, nz, ny, nx) blocks, then many calls in a row on one stream."""
-    dev = torch.device(DEVICE)
+    count, layout and dtype on each route that takes it, then many calls in
+    a row on one stream per route."""
     for dtype in (torch.float32, torch.float64):
         for n in HALO_RANKS:
-            for shape in HALO_BLOCKS:
-                rng = np.random.default_rng(n * 7 + shape[1])
-                blocks = torch.as_tensor(rng.normal(size=(n, *shape)),
-                                         dtype=dtype, device=dev)
-                lo, hi = blocks[:, 0], blocks[:, -1]
-                before = hx.ring_halo_exchange.launches
-                got = hx.ring_halo_exchange(lo, hi)
-                torch.cuda.synchronize()
-                assert hx.ring_halo_exchange.launches == before + 1
-                for g, w in zip(got, hx.ring_halo_exchange_ref(lo, hi)):
-                    assert g.dtype == dtype and torch.equal(g, w), (n, shape)
+            routes = [r for r in hx.ROUTES
+                      if r != "cluster" or n <= hx.CLUSTER_MAX]
+            for label, lo, hi in halo_layouts(torch, np, n, dtype, n * 7):
+                want = hx.ring_halo_exchange_ref(lo, hi)
+                for route in routes:
+                    before = dict(hx.ring_halo_exchange.route_launches)
+                    got = hx.ring_halo_exchange(lo, hi, route=route)
+                    torch.cuda.synchronize()
+                    after = hx.ring_halo_exchange.route_launches
+                    assert after[route] == before[route] + 1, route
+                    for g, w in zip(got, want):
+                        assert g.dtype == dtype and torch.equal(g, w), \
+                            (n, label, route)
                 log(f"kernel ring_halo_exchange {str(dtype)[6:]} n={n} "
-                    f"blocks {shape} (P={shape[1] * shape[2]}, in place): "
-                    f"bit-exact")
-    blocks = torch.as_tensor(np.random.default_rng(9).normal(
-        size=(8, *HALO_BLOCKS[-1])), dtype=torch.float32, device=dev)
-    for i in range(HALO_CALLS_IN_A_ROW):
-        blocks = blocks + 1.0
-        got = hx.ring_halo_exchange(blocks[:, 0], blocks[:, -1])
-        want = hx.ring_halo_exchange_ref(blocks[:, 0], blocks[:, -1])
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), i
-    torch.cuda.synchronize()
-    log(f"kernel ring_halo_exchange: {HALO_CALLS_IN_A_ROW} calls in a row "
-        f"on one stream (n=8, rising epochs): bit-exact")
+                    f"{label} (P={lo[0].numel()}, in place), routes "
+                    f"{'/'.join(routes)}: bit-exact")
+    for route in hx.ROUTES:
+        blocks = torch.as_tensor(np.random.default_rng(9).normal(
+            size=(8, *HALO_BLOCKS[-1])), dtype=torch.float32, device=DEVICE)
+        for i in range(HALO_CALLS_IN_A_ROW):
+            blocks = blocks + 1.0
+            got = hx.ring_halo_exchange(blocks[:, 0], blocks[:, -1],
+                                        route=route)
+            want = hx.ring_halo_exchange_ref(blocks[:, 0], blocks[:, -1])
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), i
+        torch.cuda.synchronize()
+        log(f"kernel ring_halo_exchange [{route}]: {HALO_CALLS_IN_A_ROW} "
+            f"calls in a row on one stream (n=8): bit-exact")
 
 
 def device_allclose(torch, a, b, rtol: float, atol: float) -> float:
@@ -656,12 +745,13 @@ def phase_hpcg(torch, grid_mesh, hp, hx, card):
     b_norm = float(torch.linalg.vector_norm(b))
     solve = {k: hp.make_cg(grid, k, n_iter=HPCG_ITERS)
              for k in ("message_based", "message_free")}
-    results, times, launches = {}, {}, 0
+    results, times, launches, routes = {}, {}, 0, {}
     # in turns (based, free, free, based), so that neither backend alone
     # pays the allocator's first growth
     for backend in ("message_based", "message_free", "message_free",
                     "message_based"):
         hx.ring_halo_exchange.launches = 0
+        hx.ring_halo_exchange.route_launches = {r: 0 for r in hx.ROUTES}
         t0 = time.perf_counter()
         xs, res = solve[backend](b, torch.zeros_like(b))
         torch.cuda.synchronize()
@@ -669,8 +759,11 @@ def phase_hpcg(torch, grid_mesh, hp, hx, card):
         n_launch = hx.ring_halo_exchange.launches
         if backend == "message_free":
             launches = n_launch
+            routes = dict(hx.ring_halo_exchange.route_launches)
             assert launches > 0, "the message-free solve never launched " \
                 "the halo kernel"
+            # HPCG's ring of 8 takes the cluster route, every launch
+            assert routes == {"cluster": launches, "flags": 0}, routes
         else:
             assert n_launch == 0, n_launch
         assert xs.shape == shape and bool(torch.isfinite(xs).all())
@@ -683,7 +776,7 @@ def phase_hpcg(torch, grid_mesh, hp, hx, card):
             f"ranks x {HPCG_NX_FULL}^3 f32: residual norm {float(res):.6e} "
             f"(|b| {b_norm:.6e}), max |x - 1| "
             f"{float((xs - 1.0).abs().max()):.3e}, halo kernel launches "
-            f"{n_launch}")
+            f"{n_launch}" + (f" (routes {routes})" if n_launch else ""))
     for backend, ts in times.items():
         log(f"hpcg [{card}]: {backend} solve " + ", ".join(
             f"{t:.4f} s" for t in ts) + " (in turns: based, free, free, "
@@ -694,10 +787,14 @@ def phase_hpcg(torch, grid_mesh, hp, hx, card):
     del results, xa, xb
 
     for backend in ("message_based", "message_free"):
-        events, wall = trace(torch, lambda: solve[backend](
-            b, torch.zeros_like(b)))
-        busy, halo = busy_ms(events), busy_ms(events, "halo_kernel")
-        n_halo = sum("halo_kernel" in e.name for e in events)
+        # a trace that holds every halo launch of the solve; for the
+        # message-based solve, two traces that agree on the event count
+        events, wall = steady_traces(
+            torch, lambda: solve[backend](b, torch.zeros_like(b)),
+            **({"name": HALO_KERNEL, "want": launches}
+               if backend == "message_free" else {"count": 2}))[-1]
+        busy, halo = busy_ms(events), busy_ms(events, HALO_KERNEL)
+        n_halo = sum(HALO_KERNEL in e.name for e in events)
         share = 100 * busy / 1e3 / wall
         by_name = {}
         for e in events:
@@ -706,44 +803,64 @@ def phase_hpcg(torch, grid_mesh, hp, hx, card):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         log(f"hpcg [{card}]: {backend} solve traced (torch.profiler): wall "
             f"{wall:.4f} s, {len(events)} device events busy {busy:.3f} ms "
-            f"({share:.2f}%; idle {100 - share:.2f}%), halo_kernel {n_halo} "
-            f"launches {halo:.3f} ms ({100 * halo / max(busy, 1e-9):.3f}% of "
-            f"the busy time); top kernels: " + "; ".join(
+            f"({share:.2f}%; idle {100 - share:.2f}%), {HALO_KERNEL}* "
+            f"{n_halo} launches {halo:.3f} ms "
+            f"({100 * halo / max(busy, 1e-9):.3f}% of the busy time); top "
+            f"kernels: " + "; ".join(
                 f"{name[:48]} {ms:.1f} ms" for name, ms in top))
     return launches, hp.to_slabs(b, HPCG_RANKS)
 
 
 def phase_halo_times(torch, hx, blocks, card):
-    """The halo kernel at HPCG level 0's strips, beside its plain version
-    and two ``torch.roll`` calls: device time per call from the profiler
-    (the kernels alone), and CUDA-event time per call (enqueue included)."""
-    lo, hi = blocks[:, 0], blocks[:, -1]
-    got = hx.ring_halo_exchange(lo, hi)
-    want = hx.ring_halo_exchange_ref(lo, hi)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    assert err == 0.0 and all(torch.equal(g, w) for g, w in zip(got, want))
-    fns = {"kernel": (lambda: hx.ring_halo_exchange(lo, hi), "halo_kernel"),
-           "plain": (lambda: hx.ring_halo_exchange_ref(lo, hi), ""),
-           "torch.roll x2": (lambda: (torch.roll(hi, 1, 0),
-                                      torch.roll(lo, -1, 0)), "")}
-    dev = {k: device_ms(torch, fn, name=name)
-           for k, (fn, name) in fns.items()}
-    call = {k: cuda_ms(torch, fn, reps=100, warmup=10)
-            for k, (fn, _) in fns.items()}
-    n, p = lo.shape[0], lo[0].numel()
-    nbytes = 4 * n * p * lo.element_size()   # 2 strips read, 2 written
-    bound = nbytes / HBM_BYTES_S * 1e3
-    log(f"time [{card}]: halo_exchange {n} ranks x {tuple(lo.shape[1:])} "
-        f"f32, device time per call (profiler): " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in dev.items())
-        + "; per call with enqueue (CUDA events): " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in call.items())
-        + f"; bound {bound:.4f} ms (bytes: {nbytes})")
+    """The halo kernel at the strips of each HPCG level (8 ranks x 256^2,
+    128^2, 64^2, 32^2 f32; level 0 read in place from the solve's slabs),
+    on its route: device time per call from the profiler (the kernel
+    alone), warm and right after 128 MB of writes, beside its bound; at
+    level 0 also its plain version and two ``torch.roll`` calls, and the
+    CUDA-event time of one call (enqueue included)."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=blocks.device)
+    gen = torch.Generator(device=blocks.device).manual_seed(1)
+    level0 = None
+    for level, nx in enumerate(HPCG_LEVEL_NX):
+        b = blocks if level == 0 else torch.randn(
+            (HPCG_RANKS, nx, nx, nx), generator=gen, device=blocks.device)
+        lo, hi = b[:, 0], b[:, -1]
+        got = hx.ring_halo_exchange(lo, hi)
+        want = hx.ring_halo_exchange_ref(lo, hi)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        assert err == 0.0 and all(torch.equal(g, w)
+                                  for g, w in zip(got, want))
+        route = hx.route_for(lo.shape[0])
+        warm = device_ms(torch, lambda: hx.ring_halo_exchange(lo, hi),
+                         reps=200, name=HALO_KERNEL)
+        cold = device_ms(torch, lambda: (flush.zero_(),
+                                         hx.ring_halo_exchange(lo, hi)),
+                         reps=50, name=HALO_KERNEL)
+        n, p = lo.shape[0], lo[0].numel()
+        nbytes = 4 * n * p * lo.element_size()   # 2 strips read, 2 written
+        bound = nbytes / HBM_BYTES_S * 1e3
+        log(f"time [{card}]: halo_exchange level {level}, {n} ranks x "
+            f"{tuple(lo.shape[1:])} f32 [{route}], device time per call "
+            f"(profiler): {warm:.5f} ms, after an L2 flush {cold:.5f} ms; "
+            f"bound {bound:.5f} ms (bytes: {nbytes})")
+        if level == 0:
+            level0 = (lo, hi, err, warm, bound)
+        del b
+    lo, hi, err, warm, bound = level0
+    others = {"plain": lambda: hx.ring_halo_exchange_ref(lo, hi),
+              "torch.roll x2": lambda: (torch.roll(hi, 1, 0),
+                                        torch.roll(lo, -1, 0))}
+    dev = {k: device_ms(torch, fn) for k, fn in others.items()}
+    call = cuda_ms(torch, lambda: hx.ring_halo_exchange(lo, hi), reps=100,
+                   warmup=10)
+    log(f"time [{card}]: halo_exchange level 0, device time per call "
+        f"(profiler): " + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+        + f"; the kernel with enqueue (CUDA events) {call:.4f} ms")
     return dict(name="halo_exchange", route="cuda",
                 source="src/repro_torch/kernels/halo_exchange/csrc/"
                        "halo_exchange.cu",
                 replaces="src/repro/kernels/halo_exchange/halo_exchange.py:33",
-                launches=None, max_abs_err=err, ms=dev["kernel"],
+                launches=None, max_abs_err=err, ms=warm,
                 plain_ms=dev["plain"], bound_ms=bound, bound_by="bytes",
                 library_ms=dev["torch.roll x2"])
 

@@ -5,13 +5,16 @@ is exactly ``comm.message_free.exchange_planes_1d`` (the shared-window
 emulation, what the JAX package runs on every backend but its own chip).
 For CUDA tensors it is the CUDA kernel of ``csrc/halo_exchange.cu``, which
 writes each rank's boundary planes straight into its neighbours' receive
-windows under a flag handshake (what the JAX dispatcher does on the TPU).
+windows under a two-phase handshake (what the JAX dispatcher does on the TPU).
 The exchanged planes are copies either way, so the two give bit-identical
 results.  There is no fallback: a CUDA tensor launches the kernel or
 raises.
 
-``ring_halo_exchange.launches`` counts the kernel's launches (a plain
-integer; callers may reset it).
+``ring_halo_exchange.launches`` counts the kernel's launches and
+``ring_halo_exchange.route_launches`` each route's (plain integers; callers
+may reset them).  The route, the unit width and the chunking are chosen
+here before the launch, by the pure functions :func:`route_for`,
+:func:`vector_ok` and :func:`chunk_count`.
 """
 from __future__ import annotations
 
@@ -24,34 +27,76 @@ from . import halo_exchange as _cuda
 from .ref import ring_exchange_collective, ring_halo_exchange_ref
 
 _FLOATS = (torch.float32, torch.float64)
-#: Elements of one strip that one CTA moves at least (4 KiB in f32), so that
-#: the handshake is paid over enough bytes.
-MIN_CHUNK = 1024
+#: Threads per CTA in ``csrc/halo_exchange.cu``: a CTA moves at least one
+#: unit per thread of each strip.
+THREADS = 256
+#: Largest ring of the ``"cluster"`` route: a portable cluster holds 8 CTAs.
+CLUSTER_MAX = 8
+ROUTES = ("cluster", "flags")
 
-#: Co-resident CTA limit per (device index, dtype); handshake flags per
-#: (device index, stream, n, chunks) as ``[flags, epoch]``.  Launches on one
-#: stream run in order, so one flag buffer per stream is never shared by two
+#: SM count and the flags route's co-resident CTA limit per device index
+#: (the latter per (index, dtype, vec)); handshake flags per (device
+#: index, stream, n, chunks) as ``[flags, epoch]``.  Launches on one stream
+#: run in order, so one flag buffer per stream is never shared by two
 #: launches at once.
+_SMS: dict = {}
 _MAX_CTAS: dict = {}
 _FLAGS: dict = {}
+#: 8-byte flags per 128-byte line: each flag has a line of its own.
+_FLAG_STRIDE = 16
+
+
+def route_for(n: int) -> str:
+    """The handshake route for a ring of ``n`` ranks: one cluster of ``n``
+    CTAs per chunk up to :data:`CLUSTER_MAX`, global flags beyond."""
+    return "cluster" if n <= CLUSTER_MAX else "flags"
+
+
+def vector_ok(p: int, itemsize: int, strides, addresses) -> bool:
+    """Whether the exchange can move 16-byte units: the strip length (so
+    every window row), every rank stride (elements) and every base address
+    are 16-byte multiples."""
+    return (p * itemsize % 16 == 0
+            and all(s * itemsize % 16 == 0 for s in strides)
+            and all(a % 16 == 0 for a in addresses))
+
+
+def chunk_count(n: int, units: int, sms: int, max_ctas: int | None = None
+                ) -> int:
+    """CTAs per rank for a strip of ``units`` units: at most one per
+    :data:`THREADS` units, and ``n x chunks`` within one wave of ``sms``
+    SMs (at least one chunk).  ``max_ctas`` (the flags route) caps the grid
+    at the CTAs the card holds resident at once."""
+    chunks = max(1, min(math.ceil(units / THREADS), sms // n))
+    if max_ctas is not None:
+        if max_ctas < n:
+            raise RuntimeError(f"ring_halo_exchange: {n} ranks need {n} "
+                               f"CTAs resident at once; the card holds "
+                               f"{max_ctas}")
+        chunks = min(chunks, max_ctas // n)
+    return chunks
 
 
 def _rank_strip_contiguous(t: torch.Tensor) -> bool:
     return t[0].is_contiguous() if t.shape[0] else True
 
 
-def _chunks(n: int, p: int, dev: torch.device, dtype) -> int:
-    key = (dev.index, dtype)
+def _sms(dev: torch.device) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
+
+
+def _max_ctas(dev: torch.device, dtype, vec: bool) -> int:
+    key = (dev.index, dtype, vec)
     if key not in _MAX_CTAS:
-        _MAX_CTAS[key] = _cuda.max_ctas(dtype)
-    limit = _MAX_CTAS[key]
-    if limit < n:
-        raise RuntimeError(f"ring_halo_exchange: {n} ranks need {n} CTAs "
-                           f"resident at once; {dev} holds {limit}")
-    return max(1, min(math.ceil(p / MIN_CHUNK), limit // n))
+        _MAX_CTAS[key] = _cuda.max_ctas(dtype, vec)
+    return _MAX_CTAS[key]
 
 
-def ring_halo_exchange(strip_lo: torch.Tensor, strip_hi: torch.Tensor):
+def ring_halo_exchange(strip_lo: torch.Tensor, strip_hi: torch.Tensor,
+                       route: str | None = None):
     """Message-free ring exchange over stacked ranks.
 
     ``strip_lo`` / ``strip_hi``: ``(n, ...)`` float32/float64, each rank's
@@ -59,6 +104,8 @@ def ring_halo_exchange(strip_lo: torch.Tensor, strip_hi: torch.Tensor):
     between ranks, so ``blocks[:, 0]`` is read in place).  Returns
     (from_prev, from_next), contiguous ``(n, ...)``: ``from_prev[r] =
     strip_hi[r - 1]``, ``from_next[r] = strip_lo[r + 1]`` on a ring.
+    ``route`` picks the kernel's handshake (``"cluster"`` for n <=
+    :data:`CLUSTER_MAX`, or ``"flags"``); by default :func:`route_for`.
     """
     if strip_lo.shape != strip_hi.shape or strip_lo.dtype != strip_hi.dtype \
             or strip_lo.device != strip_hi.device:
@@ -69,6 +116,11 @@ def ring_halo_exchange(strip_lo: torch.Tensor, strip_hi: torch.Tensor):
                          f"{strip_hi.device}")
     if strip_lo.ndim < 1:
         raise ValueError("strips need a leading rank axis")
+    n = strip_lo.shape[0]
+    route = route_for(n) if route is None else route
+    if route not in ROUTES or (route == "cluster" and n > CLUSTER_MAX):
+        raise ValueError(f"no route {route!r} for {n} ranks: \"cluster\" "
+                         f"takes up to {CLUSTER_MAX}, \"flags\" any")
     dev = strip_lo.device
     if dev.type == "cpu":
         return ring_halo_exchange_ref(strip_lo, strip_hi)
@@ -80,28 +132,39 @@ def ring_halo_exchange(strip_lo: torch.Tensor, strip_hi: torch.Tensor):
     if not (_rank_strip_contiguous(strip_lo)
             and _rank_strip_contiguous(strip_hi)):
         raise ValueError("each rank's strip must be contiguous")
-    n = strip_lo.shape[0]
     recv_lo = torch.empty(strip_lo.shape, dtype=strip_lo.dtype, device=dev)
     recv_hi = torch.empty_like(recv_lo)
     p = recv_lo[0].numel() if n else 0
     if n == 0 or p == 0:
         return recv_lo, recv_hi
+    size = strip_lo.element_size()
+    vec = vector_ok(p, size, (strip_lo.stride(0), strip_hi.stride(0)),
+                    (strip_lo.data_ptr(), strip_hi.data_ptr()))
+    units = p * size // 16 if vec else p
     with torch.cuda.device(dev):
-        chunks = _chunks(n, p, dev, strip_lo.dtype)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        key = (dev.index, stream, n, chunks)
-        if key not in _FLAGS:
-            _FLAGS[key] = [torch.zeros(2 * n * chunks, dtype=torch.int64,
-                                       device=dev), 0]
-        state = _FLAGS[key]
-        state[1] += 1
-        _cuda.launch(strip_lo, strip_hi, recv_lo, recv_hi, state[0], chunks,
-                     state[1])
+        flags, epoch = None, 0
+        if route == "cluster":
+            chunks = chunk_count(n, units, _sms(dev))
+        else:
+            chunks = chunk_count(n, units, _sms(dev),
+                                 _max_ctas(dev, strip_lo.dtype, vec))
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            key = (dev.index, stream, n, chunks)
+            if key not in _FLAGS:
+                _FLAGS[key] = [torch.zeros(2 * n * chunks * _FLAG_STRIDE,
+                                           dtype=torch.int64, device=dev), 0]
+            state = _FLAGS[key]
+            state[1] += 1
+            flags, epoch = state
+        _cuda.launch(strip_lo, strip_hi, recv_lo, recv_hi, route, vec,
+                     chunks, flags, epoch)
     ring_halo_exchange.launches += 1
+    ring_halo_exchange.route_launches[route] += 1
     return recv_lo, recv_hi
 
 
 ring_halo_exchange.launches = 0
+ring_halo_exchange.route_launches = {r: 0 for r in ROUTES}
 
 
 def exchange_planes_1d(blocks: torch.Tensor):

@@ -8,10 +8,11 @@ kernel or raises — it never falls back.  ``<wrapper>.launches`` counts the
 kernel launches (a plain integer; callers may reset it).
 
 The kernels walk samples in CSR form.  :func:`csr_group` turns a packed
-``(lat, w, seg)`` group into that form once — offsets per segment, plus a
-stable permutation only where the ids are not already non-decreasing — so a
-caller that prices many grids (``CompiledBundle.tensors``) prepares it once
-and passes the :class:`CsrGroup` instead of the triple.
+``(lat, w, seg)`` group into that form once — offsets per segment, a
+stable permutation only where the ids are not already non-decreasing, and
+the samples in site order packed as ``(lat, w)`` pairs for the bracket
+kernel — so a caller that prices many grids (``CompiledBundle.tensors``)
+prepares it once and passes the :class:`CsrGroup` instead of the triple.
 """
 from __future__ import annotations
 
@@ -25,7 +26,11 @@ from .ref import bracket_segsum_ref, segment_sum_ref
 
 BRACKET_NAMES = ("hit_degraded", "lfb_mem", "lfb_half", "miss_congested")
 _FLOATS = (torch.float32, torch.float64)
-_MAX_SEG = 65535      # the kernels put the segment on grid axis y
+_MAX_SEG = 65535      # segsum_kernel puts the segment on grid axis y
+#: Bytes of (lat, w) pairs, over the three groups, that the bracket kernel
+#: keeps whole in shared memory (``kResidentBytes`` in csrc); a larger
+#: bundle takes its tiled path.
+RESIDENT_BYTES = 48 * 1024
 
 
 class CsrGroup(NamedTuple):
@@ -36,6 +41,8 @@ class CsrGroup(NamedTuple):
     seg: torch.Tensor               # (n,) int64 ids (the plain version's input)
     offsets: torch.Tensor           # (n_seg + 1,) int32
     perm: torch.Tensor | None       # (n,) int32 stable sort of seg, or None
+    pairs: torch.Tensor             # (n + n % 2, 2): (lat, w) in site order
+    bounds: torch.Tensor            # (n_seg, 2): (min, max) lat per site
 
 
 def _csr(seg: torch.Tensor, n_seg: int):
@@ -67,12 +74,48 @@ def csr_group(lat, w, seg, n_seg: int) -> CsrGroup:
                          f"{tuple(lat.shape)}, {tuple(w.shape)}, "
                          f"{tuple(seg.shape)}")
     seg, offsets, perm = _csr(seg, n_seg)
-    return CsrGroup(lat.contiguous(), w.contiguous(), seg, offsets, perm)
+    return CsrGroup(lat.contiguous(), w.contiguous(), seg, offsets, perm,
+                    site_pairs(lat, w, perm), site_bounds(lat, seg, n_seg))
+
+
+def site_pairs(lat: torch.Tensor, w: torch.Tensor,
+               perm: torch.Tensor | None) -> torch.Tensor:
+    """The samples in site order, ``(lat[perm], w[perm])`` row by row, in a
+    fresh ``(n + n % 2, 2)`` tensor of ``lat``'s dtype: an even row count,
+    so that every group's pairs are a whole number of 16-byte units (the
+    padding row is never read)."""
+    n = lat.numel()
+    pairs = lat.new_zeros((n + n % 2, 2))
+    if perm is None:
+        pairs[:n, 0], pairs[:n, 1] = lat, w
+    else:
+        idx = perm.long()
+        pairs[:n, 0], pairs[:n, 1] = lat[idx], w[idx]
+    return pairs
+
+
+def site_bounds(lat: torch.Tensor, seg: torch.Tensor,
+                n_seg: int) -> torch.Tensor:
+    """``(n_seg, 2)``: each site's least and greatest ``lat`` (``+inf`` and
+    ``-inf`` for a site without samples).  The bracket kernel reads them to
+    skip the per-term test where a site's terms all fall on one side."""
+    inf = torch.full((n_seg,), float("inf"), dtype=lat.dtype,
+                     device=lat.device)
+    lo = inf.scatter_reduce(0, seg, lat, "amin")
+    hi = (-inf).scatter_reduce(0, seg, lat, "amax")
+    return torch.stack([lo, hi], 1)
+
+
+def bracket_resident(groups) -> bool:
+    """Whether the bracket kernel keeps the groups' pairs whole in shared
+    memory (else it stages each site's pairs in tiles)."""
+    return sum(g.pairs.numel() * g.pairs.element_size()
+               for g in groups) <= RESIDENT_BYTES
 
 
 def _as_group(g, n_seg: int) -> CsrGroup:
     if isinstance(g, CsrGroup):
-        if g.offsets.numel() != n_seg + 1:
+        if g.offsets.numel() != n_seg + 1 or g.bounds.shape != (n_seg, 2):
             raise ValueError(f"CsrGroup prepared for "
                              f"{g.offsets.numel() - 1} segments, not {n_seg}")
         return g
@@ -119,13 +162,19 @@ def fused_bracket_segsum(hit, lfb, miss, delta, cxl_lat, n_seg: int) -> dict:
         _check_cuda(g.lat, dev, dt, name + " lat")
         _check_cuda(g.w, dev, dt, name + " w")
         _check_cuda(g.offsets, dev, torch.int32, name + " offsets")
-        if g.perm is not None:
-            _check_cuda(g.perm, dev, torch.int32, name + " perm")
-        args.append((g.lat, g.w, g.offsets, g.perm))
+        _check_cuda(g.pairs, dev, dt, name + " pairs")
+        _check_cuda(g.bounds, dev, dt, name + " bounds")
+        if g.pairs.shape != (g.lat.numel() + g.lat.numel() % 2, 2) \
+                or g.pairs.data_ptr() % 16:
+            raise ValueError(f"{name} pairs: expected a 16-byte aligned "
+                             f"(n + n % 2, 2) tensor from csr_group, got "
+                             f"{tuple(g.pairs.shape)}")
+        args.append((g.pairs, g.offsets, g.bounds))
     outs = [torch.empty((s, n_seg), dtype=dt, device=dev)
             for _ in BRACKET_NAMES]
     with torch.cuda.device(dev):
-        _cuda.launch_bracket(args, delta, cxl_lat, n_seg, outs)
+        _cuda.launch_bracket(args, delta, cxl_lat, n_seg,
+                             bracket_resident(groups), outs)
     fused_bracket_segsum.launches += 1
     return dict(zip(BRACKET_NAMES, outs))
 

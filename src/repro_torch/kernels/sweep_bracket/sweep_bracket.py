@@ -23,8 +23,10 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "sweep_bracket.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FLOATS = (torch.float64, torch.float32)
 _SIGNATURES = {
-    # 12 group pointers, delta, cxl, S, n_seg, 4 outputs, stream
-    "sweep_bracket": ([_P] * 14 + [_I, _I] + [_P] * 5, _FLOATS),
+    # (pairs, offsets, bounds, n) x 3, delta, cxl, S, n_seg, resident,
+    # 4 outputs, stream
+    "sweep_bracket": ([_P, _P, _P, _I] * 3 + [_P, _P, _I, _I, _I]
+                      + [_P] * 5, _FLOATS),
     # x, rows, n, offsets, perm, n_seg, out, stream
     "segsum": ([_P, _I, _I, _P, _P, _I, _P, _P], _FLOATS),
 }
@@ -36,16 +38,22 @@ def build() -> _build.Library:
 
 
 def launch_bracket(groups, delta: torch.Tensor, cxl: torch.Tensor,
-                   n_seg: int, outs) -> None:
+                   n_seg: int, resident: bool, outs) -> None:
     """Enqueue the fused bracket kernel on the current stream.  ``groups``
-    are three ``(lat, w, offsets, perm)`` tuples (``perm`` may be None);
-    ``outs`` four preallocated ``(S, n_seg)`` tensors."""
+    are three ``(pairs, offsets, bounds)`` tuples: ``(n, 2)`` (lat, w)
+    pairs in site order, 16-byte aligned, n even; ``(n_seg + 1,)`` int32
+    CSR offsets; ``(n_seg, 2)`` (min, max) lat per site.  ``resident``
+    keeps the pairs whole in shared memory (else the tiled path); ``outs``
+    four preallocated ``(S, n_seg)`` tensors."""
     lib = build()
-    args = [_build.ptr(t) for g in groups for t in g]
+    args = []
+    for pairs, offsets, bounds in groups:
+        args += [_build.ptr(pairs), _build.ptr(offsets), _build.ptr(bounds),
+                 pairs.shape[0]]
     stream = torch.cuda.current_stream(delta.device).cuda_stream
     rc = lib.fn("sweep_bracket", delta.dtype)(
         *args, _build.ptr(delta), _build.ptr(cxl), delta.shape[0], n_seg,
-        *(_build.ptr(o) for o in outs), stream)
+        int(resident), *(_build.ptr(o) for o in outs), stream)
     _build.check(rc, "sweep_bracket")
 
 

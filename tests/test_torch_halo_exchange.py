@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.comm import message_based, message_free
+from repro_torch.kernels.halo_exchange import ops
 from repro_torch.kernels.halo_exchange import (exchange_planes_1d,
                                                exchange_planes_1d_oracle,
                                                ring_exchange_collective,
@@ -105,6 +106,59 @@ def test_no_plain_version_off_the_cpu():
         ring_halo_exchange(torch.zeros(3, 4), torch.zeros(3, 5))
 
 
+@pytest.mark.parametrize("n,units,want", [
+    (8, 16384, 16),     # HPCG level 0 (8 x 256^2 f32 in 16-byte units)
+    (8, 4096, 16),      # level 1
+    (8, 1024, 4),       # level 2
+    (8, 256, 1),        # level 3
+    (1, 10**6, 132), (2, 10**6, 66), (3, 10**6, 44), (3, 300, 2),
+    (64, 10**6, 2), (200, 10**6, 1), (8, 1, 1),
+])
+def test_chunk_count_is_one_wave(n, units, want):
+    chunks = ops.chunk_count(n, units, 132)
+    assert chunks == want
+    assert n * chunks <= max(132, n)
+    assert chunks <= max(1, -(-units // ops.THREADS))
+
+
+def test_chunk_count_flags_route_stays_co_resident():
+    assert ops.chunk_count(64, 10**6, 132, max_ctas=1056) == 2
+    assert ops.chunk_count(64, 10**6, 132, max_ctas=100) == 1
+    with pytest.raises(RuntimeError, match="resident at once"):
+        ops.chunk_count(64, 10**6, 132, max_ctas=63)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 9, 64])
+def test_route_follows_the_ring(n):
+    assert ops.route_for(n) == ("cluster" if n <= ops.CLUSTER_MAX
+                                else "flags")
+
+
+@pytest.mark.parametrize("p,itemsize,strides,addresses,want", [
+    (65536, 4, (65536 * 256, 65536 * 256), (0, 65536 * 255 * 4), True),
+    (1023, 4, (1023 * 3,) * 2, (0, 4096), False),     # odd plane size
+    (4096, 4, (4097, 4097), (0, 4096), False),        # rank stride
+    (4096, 4, (4096, 4096), (0, 8), False),           # base address
+    (4096, 8, (4097, 4097), (0, 4096), False),
+    (2, 8, (2, 2), (16, 32), True),                   # f64: 16 B a strip
+    (1, 8, (1, 1), (16, 32), False),
+])
+def test_vector_units_need_16_byte_multiples(p, itemsize, strides,
+                                             addresses, want):
+    assert ops.vector_ok(p, itemsize, strides, addresses) is want
+
+
+def test_route_is_checked_before_the_dispatch():
+    blocks = torch.from_numpy(_strips(9, (3, 5, 7), seed=6))
+    with pytest.raises(ValueError, match="no route 'cluster' for 9 ranks"):
+        ring_halo_exchange(blocks[:, 0], blocks[:, -1], route="cluster")
+    with pytest.raises(ValueError, match="no route 'ring'"):
+        ring_halo_exchange(blocks[:, 0], blocks[:, -1], route="ring")
+    got = ring_halo_exchange(blocks[:, 0], blocks[:, -1], route="flags")
+    want = ring_halo_exchange_ref(blocks[:, 0], blocks[:, -1])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 # ------------------------------------------------- on the card only
 
 @pytest.mark.cuda
@@ -135,6 +189,58 @@ def test_kernel_many_calls_in_a_row(cuda, n):
         got = ring_halo_exchange(blocks[:, 0], blocks[:, -1])
         want = ring_halo_exchange_ref(blocks[:, 0], blocks[:, -1])
         assert all(torch.equal(g, w) for g, w in zip(got, want)), i
+
+
+def _layout(n, layout, dtype, device, seed):
+    """Strips ``(n, ...)`` read in place: from blocks with an odd plane
+    size, from blocks whose planes are 16-byte multiples (the vector path),
+    or rows of a wider array whose rank stride is no 16-byte multiple."""
+    if layout == "odd plane":
+        t = torch.as_tensor(_strips(n, (3, 33, 31), seed=seed), dtype=dtype,
+                            device=device)
+        return t[:, 0], t[:, -1]
+    if layout == "aligned":
+        t = torch.as_tensor(_strips(n, (2, 64, 48), seed=seed), dtype=dtype,
+                            device=device)
+        return t[:, 0], t[:, -1]
+    t = torch.as_tensor(_strips(n, (3, 4097), seed=seed), dtype=dtype,
+                        device=device)     # rank stride 12,291 elements
+    return t[:, 0, :4096], t[:, 1, 1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["odd plane", "aligned", "odd stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("route", ops.ROUTES)
+def test_kernel_each_route_matches_plain(cuda, route, n, dtype, layout):
+    lo, hi = _layout(n, layout, dtype, cuda, seed=n)
+    if route == "cluster" and n > ops.CLUSTER_MAX:
+        with pytest.raises(ValueError, match="no route"):
+            ring_halo_exchange(lo, hi, route=route)
+        return
+    before = dict(ring_halo_exchange.route_launches)
+    got = ring_halo_exchange(lo, hi, route=route)
+    torch.cuda.synchronize()
+    assert ring_halo_exchange.route_launches[route] == before[route] + 1
+    for g, w in zip(got, ring_halo_exchange_ref(lo, hi)):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["odd plane", "aligned"])
+@pytest.mark.parametrize("route", ops.ROUTES)
+def test_kernel_many_calls_in_a_row_per_route(cuda, route, layout):
+    """50 calls on one stream per route (the flags route reuses its flags
+    under rising epochs)."""
+    lo, hi = _layout(8, layout, torch.float32, cuda, seed=11)
+    for i in range(50):
+        lo, hi = lo + 1.0, hi - 1.0
+        got = ring_halo_exchange(lo, hi, route=route)
+        want = ring_halo_exchange_ref(lo, hi)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), i
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

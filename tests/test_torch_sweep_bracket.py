@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.sweep_bracket import ops
 from repro_torch.kernels.sweep_bracket import (BRACKET_NAMES, CsrGroup,
                                                bracket_segsum_ref, csr_group,
                                                fused_bracket_segsum,
@@ -151,6 +152,43 @@ def test_csr_group_permutes_only_unsorted_ids():
         csr_group(lat, w, torch.tensor([0, 0, 5, 1, 1, 1]), 5)
 
 
+@pytest.mark.parametrize("ids", [[0, 0, 2, 2, 2, 3], [1, 0, 1, 0, 0, 1],
+                                 [3, 1, 2, 0, 2], [2, 2, 2], []])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_csr_group_packs_site_order_pairs(ids, dtype):
+    """``pairs`` holds ``(lat[perm], w[perm])`` row by row (the identity
+    order for sorted ids) in ``lat``'s dtype, padded to an even count."""
+    n = len(ids)
+    rng = np.random.default_rng(n)
+    lat = torch.as_tensor(rng.uniform(1, 500, n), dtype=dtype)
+    w = torch.as_tensor(rng.uniform(0.1, 3, n), dtype=dtype)
+    g = csr_group(lat, w, torch.tensor(ids, dtype=torch.int64), 4)
+    perm = torch.arange(n) if g.perm is None else g.perm.long()
+    assert g.pairs.dtype == dtype and g.pairs.shape == (n + n % 2, 2)
+    assert torch.equal(g.pairs[:n, 0], lat[perm])
+    assert torch.equal(g.pairs[:n, 1], w[perm])
+    assert not g.pairs[n:].any()
+    sites = torch.as_tensor(ids, dtype=torch.int64)[perm]
+    assert bool((sites[1:] >= sites[:-1]).all())
+    for c in range(4):
+        at = lat[torch.as_tensor(ids, dtype=torch.int64) == c]
+        want = (at.min(), at.max()) if at.numel() else (np.inf, -np.inf)
+        assert g.bounds[c].tolist() == [float(want[0]), float(want[1])]
+
+
+def test_bracket_resident_follows_the_budget():
+    def groups(*ns, dtype=torch.float64):
+        return [csr_group(torch.ones(n, dtype=dtype),
+                          torch.ones(n, dtype=dtype),
+                          torch.zeros(n, dtype=torch.int64), 1) for n in ns]
+    budget = ops.RESIDENT_BYTES // 16      # float64 pairs that fit
+    assert ops.bracket_resident(groups(192, 64, 0))
+    assert ops.bracket_resident(groups(budget - 2, 2, 0))
+    assert not ops.bracket_resident(groups(budget - 2, 2, 1))
+    assert ops.bracket_resident(groups(budget, budget, dtype=torch.float32))
+    assert not ops.bracket_resident(groups(4000, 2500, 1000))
+
+
 def test_prepared_groups_and_padding_match_triples():
     """Zero-``w``, id-0 padding (the padded layout) and prepared CsrGroups
     give the triples' sums."""
@@ -207,3 +245,100 @@ def test_segment_sum_kernel_matches_plain_unsorted_ids(cuda):
     assert segment_sum.launches == before + 1
     ref = segment_sum_ref(xt.cpu(), torch.from_numpy(ids), 6)
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), **SEGSUM)
+
+
+def _groups_on(cuda, dtype, ns, n_seg, seed, unsorted=False):
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in ns:
+        lat, w, seg = _packed_group(rng, n, n_seg)
+        if unsorted:
+            seg = rng.permutation(seg)
+        out.append((torch.as_tensor(lat, dtype=dtype, device=cuda),
+                    torch.as_tensor(w, dtype=dtype, device=cuda),
+                    torch.as_tensor(seg, device=cuda)))
+    return out
+
+
+def _scenarios(cuda, dtype, S, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.uniform(-150.0, 400.0, (S, 1)), dtype=dtype,
+                            device=cuda),
+            torch.as_tensor(rng.uniform(150.0, 700.0, (S, 1)), dtype=dtype,
+                            device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("S,n_seg,ns,unsorted", [
+    (1000, 7, (4000, 2500, 1000), False),   # above the budget: tiled path
+    (777, 300, (900, 400, 300), False),     # n_seg = 300
+    (513, 4, (192, 64, 0), False),          # S one past the 512-row tile
+    (2049, 5, (300, 120, 60), True),        # unsorted ids
+    (600, 9, (5000, 0, 2100), True),        # tiled and unsorted
+])
+def test_bracket_kernel_paths_match_plain(cuda, dtype, S, n_seg, ns,
+                                          unsorted):
+    groups = _groups_on(cuda, dtype, ns, n_seg, seed=S + n_seg,
+                        unsorted=unsorted)
+    prepared = [csr_group(*g, n_seg) for g in groups]
+    assert ops.bracket_resident(prepared) == (sum(ns) < 3000)
+    d, x = _scenarios(cuda, dtype, S, seed=S)
+    before = fused_bracket_segsum.launches
+    out = fused_bracket_segsum(*prepared, d, x, n_seg)
+    torch.cuda.synchronize()
+    assert fused_bracket_segsum.launches == before + 1
+    ref = bracket_segsum_ref(*groups, d, x, n_seg)
+    tol = F64 if dtype == torch.float64 else F32
+    for k in ref:
+        assert out[k].shape == (S, n_seg) and out[k].dtype == dtype
+        np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].cpu().numpy(),
+                                   **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ns", [(192, 64, 0), (4000, 2500, 1000)])
+def test_bracket_kernel_rows_are_chunk_invariant(cuda, dtype, ns):
+    """A scenario's row is the same bits whether it is priced with all
+    others at once or in chunks of any size."""
+    groups = _groups_on(cuda, dtype, ns, 4, seed=3)
+    prepared = [csr_group(*g, 4) for g in groups]
+    d, x = _scenarios(cuda, dtype, 5000, seed=4)
+    whole = fused_bracket_segsum(*prepared, d, x, 4)
+    for chunk in (1024, 700, 1):
+        parts = [fused_bracket_segsum(*prepared, d[i:i + chunk],
+                                      x[i:i + chunk], 4)
+                 for i in range(0, 5000, chunk)] if chunk > 1 else [
+            fused_bracket_segsum(*prepared, d[i:i + 1], x[i:i + 1], 4)
+            for i in (0, 511, 512, 4999)]
+        for k in BRACKET_NAMES:
+            got = torch.cat([p[k] for p in parts])
+            want = whole[k] if chunk > 1 else whole[k][[0, 511, 512, 4999]]
+            assert torch.equal(got, want), (k, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [(400, 160, 40), (4000, 2500, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lo,hi", [(-1500.0, -600.0), (50.0, 900.0),
+                                   (-1500.0, 900.0)])
+def test_bracket_kernel_terms_all_kept_or_all_dropped(cuda, dtype, lo, hi,
+                                                      ns):
+    """Scenarios whose every term of a site is kept (the walk without the
+    per-term test), dropped (no walk), or mixed, side by side; with the
+    pairs resident and on the tiled path, where warps of one CTA that
+    take different walks still meet at the window's barriers."""
+    groups = _groups_on(cuda, dtype, ns, 6, seed=8)
+    prepared = [csr_group(*g, 6) for g in groups]
+    rng = np.random.default_rng(9)
+    d = torch.as_tensor(rng.uniform(lo, hi, (1500, 1)), dtype=dtype,
+                        device=cuda)
+    x = torch.as_tensor(rng.uniform(150.0, 700.0, (1500, 1)), dtype=dtype,
+                        device=cuda)
+    out = fused_bracket_segsum(*prepared, d, x, 6)
+    ref = bracket_segsum_ref(*groups, d, x, 6)
+    tol = F64 if dtype == torch.float64 else F32
+    for k in ref:
+        np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].cpu().numpy(),
+                                   **tol)

@@ -33,12 +33,28 @@ failure exits non-zero and no result line is printed:
                 enqueue) beside their plain versions and ``index_add_``;
                 ``price_grid_fused`` on 262,144 scenarios at once against
                 chunks of 65,536, bit for bit; ``price()`` split into host
-                view, H2D, device pricing and D2H;
-  6. stencil  — the paper's Fig. 7 decomposition at full size: 8 x 8 ranks
+                view, H2D, device pricing and D2H, and traced (two traces
+                that agree on their device events);
+  6. sweeps   — the deployment-scale sweeps through ``price()``, the
+                bracket kernel's launches counted around each: the same
+                262,144 scenarios from ``adaptive_sample`` (labels equal
+                ``ParamGrid.sample``'s; every bundle's result bit-identical;
+                the ArraySet's staged split and trace); the ten bundles in
+                one multi-bundle call (one launch, resident or tiled route
+                logged, within 1e-9 of the single calls; its wall time
+                beside theirs); the streaming "distributed:topk=64,refine=1"
+                top-k over 524,288 + 524,288 refined scenarios on the tile
+                4096 bundle, on 1 and 4 shards (one launch per chunk plus
+                the exact pass; indices, speedups and gains of the survivors
+                and the aggregates against the fused matrix pricing of every
+                scenario; scenarios/s); and ``ExecPlan(x64=False)`` (the
+                float32 kernel, within 1e-2 of float64 on gain_ns, and its
+                device time);
+  7. stencil  — the paper's Fig. 7 decomposition at full size: 8 x 8 ranks
                 of 4096^2 f32 tiles, 10 steps with each backend, held
                 against ``reference_step`` on the whole 32768^2 plane (atol
                 and rtol 1e-6) and bit-identical to each other;
-  7. HPCG     — the JAX test's case (4 ranks x 16^3, 30 iterations) on the
+  8. HPCG     — the JAX test's case (4 ranks x 16^3, 30 iterations) on the
                 card: converged (max |x - 1| < 1e-2), both backends bit-
                 identical and within 1e-4 of the CPU; then 8 ranks x 256^3
                 (HPCG validation's largest lattice): ``apply_a`` against
@@ -50,7 +66,7 @@ failure exits non-zero and no result line is printed:
                 V-cycle's four levels, warm and after an L2 flush, beside
                 their bounds, and at level 0 its plain version and two
                 ``torch.roll``;
-  8. LM kernels — the flash-attention kernels against their plain version:
+  9. LM kernels — the flash-attention kernels against their plain version:
                 the f32 kernel at the JAX tests' shapes (f32 at 2e-5, three
                 block shapes, bf16 at D = 16), the bf16 tensor-core kernel
                 at D = 64, 128 and 256 (3e-2, causal and bidirectional with
@@ -59,7 +75,7 @@ failure exits non-zero and no result line is printed:
                 the selective-scan kernel at the JAX tests' four shapes
                 (1e-4), and over 4,096 steps against a float64
                 recurrence (1e-4);
-  9. LM forward — ``jamba-v0.1-52b`` at its published widths, cut to one
+ 10. LM forward — ``jamba-v0.1-52b`` at its published widths, cut to one
                 pattern period (8 layers: 7 Mamba, 1 attention; MoE on odd
                 layers), bf16, weights drawn on the card from a seeded
                 generator, ``train_4k`` inputs cut to 2 x 4096 tokens:
@@ -71,14 +87,16 @@ failure exits non-zero and no result line is printed:
                 forward fed it (flash at atol 4e-3 / rtol 1e-2 and a
                 relative norm of 2^-7, scan at 1e-4); the same forward with the plain paths, whose
                 loss must agree within 1e-2 relative;
- 10. LM times  — the flash kernel's device time at the forward's shape
+ 11. LM times  — the flash kernel's device time at the forward's shape
                 beside its plain version and ``scaled_dot_product_attention``,
                 the flash kernel after an L2 flush and after a GEMM, the
                 scan kernel's beside its plain version, the forward's wall
                 time (tokens/s), and one traced forward, with the SM clock
-                read before and after it and sampled during it;
- 11. the ``kernels`` JSON line, the nvidia-smi line, and last
-     ``{"ok": true, "device": {...}}``.
+                read before and after it and sampled during it (two traces
+                that agree on their device events);
+ 12. the ``kernels`` JSON line (the bracket kernel's launches also by
+     path), the nvidia-smi line, and last ``{"ok": true, "device":
+     {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -153,6 +171,13 @@ FLASH_SM90_CASES = [c for D in (64, 128, 256) for c in (
     (2, 192, 192, 6, 2, D, True), (2, 192, 320, 8, 2, D, False))]
 SCAN_CASES = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),
               (3, 256, 16, 8)]
+# the sweeps phase: the streaming seed (2**19 scenarios; one refinement
+# round doubles it), its plan, the bundle it prices, and the reference's
+# float32 bound on gain_ns (tests/test_execplan.py)
+S_STREAM = 524_288
+STREAM_PLAN = "distributed:topk=64,refine=1"
+STREAM_TOPK, STREAM_TILE, STREAM_DEVICES = 64, 4096, 4
+RTOL_F32 = 1e-2
 BRACKET_CASES = [(1, 1, 4, 0, 3), (3, 5, 40, 17, 29), (16, 3, 128, 128, 128),
                  (7, 130, 200, 150, 90), (2, 4, 0, 0, 0), (2, 3, 640, 10, 5),
                  (0, 3, 10, 5, 2), (4, 0, 0, 0, 0)]
@@ -277,16 +302,36 @@ def busy_ms(events, name: str = "") -> float:
                if name in e.name) / 1e3
 
 
-def device_ms(torch, fn, reps: int = 100, name: str = "") -> float:
+def top_ops(events, n: int) -> list:
+    """The ``n`` device operations with the most summed time, as (name,
+    ms) pairs."""
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    return sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+
+
+def device_ms(torch, fn, reps: int = 100, name: str = "",
+              floor: float = 0.0) -> float:
     """Device time per call of ``fn()`` in ms: the profiler's durations of
     its kernels and copies (of those named ``name``, if given), without the
     host's enqueue time; the median of three traces that agree on the
-    count of those events (:func:`steady_traces`)."""
+    count of those events (:func:`steady_traces`).  A reading under
+    ``floor`` (the least time the card could take for the work) means the
+    traces lost time: they are taken again, up to three times, and the
+    last reading is logged as such."""
     fn()
     torch.cuda.synchronize()
-    return statistics.median(
-        busy_ms(events, name) / reps
-        for events, _ in steady_traces(torch, fn, reps, name, count=3))
+    for _ in range(3):
+        ms = statistics.median(
+            busy_ms(events, name) / reps
+            for events, _ in steady_traces(torch, fn, reps, name, count=3))
+        if ms >= floor:
+            return ms
+        log(f"trace: {name or 'the device events'} read {ms:.5f} ms a "
+            f"call, under the bound {floor:.5f} ms: the traces lost time")
+    return ms
 
 
 def wall_s(torch, fn, reps: int) -> tuple:
@@ -388,7 +433,7 @@ def phase_main_path(torch, np, pt, ms, sb, stencil, hpcg):
                                                    replace=False))
     host_grid = grid.subset(rows)
     launches = {"fused_bracket_segsum": 0, "segment_sum": 0}
-    bundles = {}
+    bundles, results = {}, {}
     for label, bundle in main_path_bundles(ms, stencil, hpcg):
         cb = pt.compile_bundle(bundle)
         bundles[label] = (bundle, cb)
@@ -409,6 +454,7 @@ def phase_main_path(torch, np, pt, ms, sb, stencil, hpcg):
             assert m.shape == (S_MAIN, cb.n_calls) and np.isfinite(m).all(), f
         sp = res.predicted_speedup()
         assert np.isfinite(sp).all() and (sp > 0).all()
+        results[label] = res
 
         unf = pt.price(cb, grid, plan=pt.ExecPlan("torch"))
         worst_t = 0.0
@@ -442,7 +488,7 @@ def phase_main_path(torch, np, pt, ms, sb, stencil, hpcg):
             f"min/median/max {sp.min():.6f}/{np.median(sp):.6f}/"
             f"{sp.max():.6f}; max rel diff vs torch {worst_t:.3e}, vs numpy "
             f"({S_HOST} rows) {worst_h:.3e}; chunk={CHUNK} bit-identical")
-    return grid, bundles, launches
+    return grid, bundles, results, launches
 
 
 def phase_times(torch, np, pt, sb, grid, bundles, card):
@@ -472,17 +518,17 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
     # device time (the profiler's, no host enqueue), warm and right after
     # 128 MB of writes (which evict the 50 MB L2); CUDA events around one
     # call (enqueue included) beside it
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    k1_ms = device_ms(torch, fused, name="bracket_kernel")
-    k1_cold = device_ms(torch, lambda: (flush.zero_(), fused()), reps=50,
-                        name="bracket_kernel")
-    k1_enqueue = cuda_ms(torch, fused)
-    k1_plain = device_ms(torch, plain, reps=10)
     k1_bytes = 16 * (nh + nl + nm) + 3 * 4 * (C + 1) + 16 * S + 4 * 8 * S * C
     k1_ops = S * (4 * nh + 8 * nl + 4 * nm + 1)
     k1_bound = max(k1_bytes / HBM_BYTES_S, k1_ops / FP64_OPS_S) * 1e3
     k1_by = "bytes" if k1_bytes / HBM_BYTES_S >= k1_ops / FP64_OPS_S \
         else "operations"
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    k1_ms = device_ms(torch, fused, name="bracket_kernel", floor=k1_bound)
+    k1_cold = device_ms(torch, lambda: (flush.zero_(), fused()), reps=50,
+                        name="bracket_kernel", floor=k1_bound)
+    k1_enqueue = cuda_ms(torch, fused)
+    k1_plain = device_ms(torch, plain, reps=10, floor=k1_bound)
 
     # kernel 2 where the unfused sweep would call it: the (S, n_hit) terms
     x = (t.hit_w * torch.maximum(t.hit_lat + delta, delta.new_zeros(())))
@@ -492,14 +538,15 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
     out_lib = torch.zeros((S, C), dtype=x.dtype, device=dev)
     lib2 = lambda: out_lib.index_add_(1, seg, x)
     err2 = max_abs_err({"x": k2()}, {"x": plain2()}, TOL["segsum"])
-    k2_ms = device_ms(torch, k2, reps=20, name="segsum_kernel")
-    k2_plain = device_ms(torch, plain2, reps=10)
-    k2_lib = device_ms(torch, lib2, reps=10)
     k2_bytes = 8 * S * nh + 8 * nh + 8 * S * C
     k2_ops = S * nh
     k2_bound = max(k2_bytes / HBM_BYTES_S, k2_ops / FP64_OPS_S) * 1e3
     k2_by = "bytes" if k2_bytes / HBM_BYTES_S >= k2_ops / FP64_OPS_S \
         else "operations"
+    k2_ms = device_ms(torch, k2, reps=20, name="segsum_kernel",
+                      floor=k2_bound)
+    k2_plain = device_ms(torch, plain2, reps=10, floor=k2_bound)
+    k2_lib = device_ms(torch, lib2, reps=10, floor=k2_bound)
 
     log(f"time [{card}]: fused_bracket_segsum S={S} n_seg={C} "
         f"n={nh}/{nl}/{nm}, device time per call (profiler): bracket_kernel "
@@ -536,7 +583,8 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
         f"{S / total_s:.1f} scenarios/s; host view {host_view_s:.4f} s, "
         f"H2D {h2d_s * 1e3:.3f} ms, device pricing {dev_ms:.4f} ms (kernel "
         f"{k1_ms:.4f} ms), D2H {d2h_s * 1e3:.3f} ms")
-    phase_price_split(torch, pt, sweep_mod, price_grid_fused, grid, cb, card)
+    phase_price_split(torch, pt, sweep_mod, price_grid_fused, grid, cb, card,
+                      "ParamGrid")
     return [
         dict(name="fused_bracket_segsum", route="cuda",
              source="src/repro_torch/kernels/sweep_bracket/csrc/sweep_bracket.cu",
@@ -551,22 +599,28 @@ def phase_times(torch, np, pt, sb, grid, bundles, card):
     ]
 
 
+def timed(torch, stages: dict, name: str, fn):
+    """``fn()`` ending in a synchronize; its wall seconds go to
+    ``stages[name]``."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    stages[name] = time.perf_counter() - t0
+    return out
+
+
 def phase_price_split(torch, pt, sweep_mod, price_grid_fused, grid, cb,
-                      card):
-    """One price() call taken apart in sequence, so that its stages add up
-    to the staged total, and one profiler trace of a whole price() call for
-    the card's busy time (kernels and copies) against the call's wall time."""
+                      card, label):
+    """One price() call over ``grid`` (a ParamGrid or an ArraySet, named by
+    ``label``) taken apart in sequence, so that its stages add up to the
+    staged total, and a profiler trace of a whole price() call for the
+    card's busy time (kernels and copies) against the call's wall time: the
+    second of two traces that agree on their count of device events, with
+    the bracket kernel in it (raises after :data:`TRACE_TRIES`)."""
     dev = torch.device(DEVICE)
     S, C = len(grid), cb.n_calls
     stages = {}
-
-    def stage(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = time.perf_counter() - t0
-        return out
-
+    stage = lambda name, fn: timed(torch, stages, name, fn)
     for _ in range(2):                     # the second pass is the one kept
         stages.clear()
         v = stage("host view", lambda: sweep_mod._scenario_view(grid))
@@ -576,24 +630,276 @@ def phase_price_split(torch, pt, sweep_mod, price_grid_fused, grid, cb,
         stage("result", lambda: pt.SweepResult(grid=grid, compiled=cb, **host))
     staged = sum(stages.values())
     total_s, _ = wall_s(torch, lambda: pt.price(cb, grid), 1)
-    log(f"time [{card}]: price() staged: " + ", ".join(
+    log(f"time [{card}]: price() {label} staged: " + ", ".join(
         f"{k} {s * 1e3:.3f} ms ({100 * s / staged:.1f}%)"
         for k, s in stages.items())
         + f"; staged sum {staged * 1e3:.3f} ms, price() right after "
         f"{total_s * 1e3:.3f} ms")
 
-    dev_events, traced_s = trace(torch, lambda: pt.price(cb, grid))
-    busy_us = busy_ms(dev_events) * 1e3
-    if dev_events:
-        log(f"time [{card}]: price() traced (torch.profiler): wall "
-            f"{traced_s * 1e3:.3f} ms, {len(dev_events)} device events "
-            f"(kernels and copies) busy {busy_us / 1e3:.3f} ms = "
-            f"{100 * busy_us / 1e3 / (traced_s * 1e3):.2f}% of the call; "
-            f"idle {100 - 100 * busy_us / 1e3 / (traced_s * 1e3):.2f}%")
-    else:
-        log(f"time [{card}]: price() traced (torch.profiler): wall "
-            f"{traced_s * 1e3:.3f} ms; the trace holds no device events, "
-            f"so the card's busy share is not measured")
+    dev_events, traced_s = steady_traces(torch, lambda: pt.price(cb, grid),
+                                         count=2)[-1]
+    n_kernel = sum("bracket_kernel" in e.name for e in dev_events)
+    assert n_kernel == 1, f"the price() trace holds {n_kernel} bracket kernels"
+    busy = busy_ms(dev_events)
+    log(f"time [{card}]: price() {label} traced (torch.profiler): wall "
+        f"{traced_s * 1e3:.3f} ms, {len(dev_events)} device events "
+        f"(kernels and copies, two traces agreeing) busy {busy:.3f} ms = "
+        f"{100 * busy / (traced_s * 1e3):.2f}% of the call; idle "
+        f"{100 - 100 * busy / (traced_s * 1e3):.2f}%")
+    return stages
+
+
+def traced_share(torch, fn, card, label) -> float:
+    """The card's busy share (%) of one call of ``fn`` under the profiler
+    (the second of two traces that agree on their device events), logged
+    with the call's top device operations."""
+    events, wall = steady_traces(torch, fn, count=2)[-1]
+    busy = busy_ms(events)
+    share = 100 * busy / (wall * 1e3)
+    log(f"time [{card}]: {label} traced (torch.profiler, two traces "
+        f"agreeing): wall {wall * 1e3:.3f} ms, {len(events)} device events "
+        f"busy {busy:.3f} ms = {share:.2f}%; idle {100 - share:.2f}%; top "
+        f"device operations: " + "; ".join(
+            f"{name[:56]} {ms:.3f} ms" for name, ms in top_ops(events, 5)))
+    return share
+
+
+def stream_split(torch, np, sweep_mod, sk, cb, seed, card) -> dict:
+    """The streaming call's steps taken apart on its first chunk: the
+    chunk's view and H2D, its pricing alone, its pricing with the on-card
+    reduction and the copy back (``price_topk_chunk``), and one refinement
+    round's host-side re-sampling; the second of two passes."""
+    dev = torch.device(DEVICE)
+    n = sk.DIST_CHUNK_DEFAULT
+    view = sweep_mod._scenario_view(seed)
+    valid, idx = np.ones(n, dtype=bool), np.arange(n)
+    points = [seed.label_at(i) for i in range(2 * STREAM_TOPK)]
+    stages = {}
+    stage = lambda name, fn: timed(torch, stages, name, fn)
+    for _ in range(2):
+        stages.clear()
+        vs = stage("chunk view + H2D", lambda: view._slice(slice(0, n))
+                   ._pad(n).to(dev))
+        stage("chunk pricing", lambda: sk.price_grid_fused(cb, vs))
+        stage("chunk pricing + reduction + D2H", lambda: sk.price_topk_chunk(
+            cb, vs, valid, idx, STREAM_TOPK))
+        stage("refine round", lambda: seed.refine(points, len(seed), seed=1))
+    log(f"time [{card}]: streaming steps (chunk of {n}): " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in stages.items()))
+    return dict(stages)
+
+
+def phase_sweeps(torch, np, pt, sb, grid, bundles, results, card):
+    """The deployment-scale sweeps, each through ``price()`` on the card
+    with the bracket kernel's launches counted from 0 around it: (a) the
+    main path's scenarios as an ArraySet, bit for bit the ParamGrid's
+    result for every bundle; (b) the ten bundles in one multi-bundle call,
+    within 1e-9 of the single calls; (c) the streaming top-k over
+    1,048,576 scenarios on 1 and 4 shards, against the fused matrix
+    pricing of the same scenarios; (d) a float32 plan, within 1e-2 of
+    float64.  Returns the launches per path and the bracket kernel's
+    times on the new shapes."""
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.core import sweep_kernel as sk
+    from repro_torch.kernels.sweep_bracket.ops import bracket_resident
+
+    dev = torch.device(DEVICE)
+    fused = sb.fused_bracket_segsum
+    launches, times = {}, {}
+    ranges = dict(cxl_lat_ns=(250, 700), cxl_atomic_lat_ns=(300, 800))
+
+    # (a) the main path's 262,144 scenarios as columns
+    t0 = time.perf_counter()
+    aset = pt.adaptive_sample(pt.ModelParams.multinode(), S_MAIN, seed=0,
+                              **ranges)
+    sample_s = time.perf_counter() - t0
+    assert aset.labels() == grid.labels(), "adaptive_sample != sample"
+    fused.launches = 0
+    for label, (_, cb) in bundles.items():
+        res = pt.price(cb, aset)
+        for f in pt.MATRIX_FIELDS:
+            assert np.array_equal(getattr(res, f),
+                                  getattr(results[label], f)), (label, f)
+    launches["price ArraySet"] = fused.launches
+    assert fused.launches == len(bundles), fused.launches
+    log(f"sweeps: adaptive_sample({S_MAIN}) {sample_s:.4f} s, labels equal "
+        f"ParamGrid.sample's; price() of the ArraySet bit-identical to the "
+        f"ParamGrid's for all {len(bundles)} bundles; bracket launches "
+        f"{launches['price ArraySet']}")
+    cb = bundles[f"stencil tile {STREAM_TILE}"][1]
+    times["ArraySet staged"] = phase_price_split(
+        torch, pt, sweep_mod, sk.price_grid_fused, aset, cb, card,
+        "ArraySet")
+
+    # (b) the ten bundles in one call: one super-bundle, one launch
+    labels = list(bundles)
+    cbs = [bundles[label][1] for label in labels]
+    sup = pt.concat_bundles(cbs)
+    groups = sup.tensors(dev).groups
+    route = "resident" if bracket_resident(groups.values()) else "tiled"
+    fused.launches = 0
+    t0 = time.perf_counter()
+    multi = pt.price(cbs, grid)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches["multi-bundle"] = fused.launches
+    assert fused.launches == 1, fused.launches
+    worst = 0.0
+    for label, r in zip(labels, multi):
+        for f in pt.MATRIX_FIELDS:
+            a, b = getattr(r, f), getattr(results[label], f)
+            np.testing.assert_allclose(a, b, rtol=RTOL_PATH, atol=0,
+                                       err_msg=f"{label} {f}")
+            worst = max(worst, rel_diff(np, a, b))
+    # in turns (multi, singles, ...), counting the segments the caching
+    # allocator took from CUDA (cudaMalloc) during each multi call; then three
+    # multi calls back to back
+    segments = lambda: torch.cuda.memory_stats().get("segment.all.allocated",
+                                                     0)
+    multi_t, single_t, new_segments = [], [], []
+    for _ in range(3):
+        before = segments()
+        multi_t.append(wall_s(torch, lambda: pt.price(cbs, aset), 1)[0])
+        new_segments.append(segments() - before)
+        single_t.append(sum(wall_s(torch, lambda cb=cb: pt.price(cb, aset),
+                                   1)[0] for cb in cbs))
+    back_t = [wall_s(torch, lambda: pt.price(cbs, aset), 1)[0]
+              for _ in range(3)]
+    multi_s = statistics.median(multi_t)
+    single_s = statistics.median(single_t)
+    view = sweep_mod._scenario_view(aset).to(dev)
+    delta, cxl = view.cxl_lat_ns - view.mem_lat_ns, view.cxl_lat_ns
+    call = lambda: fused(groups["hit"], groups["lfb"], groups["miss"], delta,
+                         cxl, sup.n_calls)
+    err = max_abs_err(call(), sb.bracket_segsum_ref(
+        *[(g.lat, g.w, g.seg) for g in groups.values()], delta, cxl,
+        sup.n_calls), TOL["f64"])
+    times["multi kernel"] = device_ms(torch, call, reps=20,
+                                      name="bracket_kernel")
+    times["multi wall"], times["singles wall"] = multi_s, single_s
+    times["multi busy"] = traced_share(torch, lambda: pt.price(cbs, aset),
+                                       card, "multi-bundle price() of the "
+                                       "ArraySet")
+    log(f"sweeps: price() of the {len(cbs)} bundles in one call: "
+        f"{sup.n_calls} sites, samples hit/lfb/miss {len(sup.hit_lat)}/"
+        f"{len(sup.lfb_lat)}/{len(sup.miss_lat)}, bracket route {route}, "
+        f"launches {launches['multi-bundle']}; max rel diff vs the single "
+        f"calls {worst:.3e} (rtol {RTOL_PATH}); first call (ParamGrid) "
+        f"{first_s:.4f} s")
+    turns = lambda ts: ", ".join(f"{t:.4f}" for t in ts)
+    log(f"time [{card}]: multi-bundle price() of the ArraySet {multi_s:.4f} "
+        f"s (median of 3, in turns: {turns(multi_t)}) against "
+        f"{single_s:.4f} s for the {len(cbs)} single calls "
+        f"({turns(single_t)}); new allocator segments in each multi call "
+        f"{new_segments}; multi back to back {turns(back_t)} s; "
+        f"bracket_kernel on the super-bundle ({route}, "
+        f"S={S_MAIN}, n_seg={sup.n_calls}) {times['multi kernel']:.5f} ms "
+        f"device time (profiler), max_abs_err vs plain {err:.3e}")
+
+    # (c) the streaming top-k: 524,288 seed scenarios + one refined round
+    seed = pt.adaptive_sample(pt.ModelParams.multinode(), S_STREAM, seed=1,
+                              mpi_transfer=["hockney", "loggp"], **ranges)
+    n_chunks = 2 * -(-S_STREAM // sk.DIST_CHUNK_DEFAULT)
+    runs = {}
+    for devices in (1, STREAM_DEVICES):
+        plan = STREAM_PLAN + (f",devices={devices}" if devices > 1 else "")
+        fused.launches = 0
+        t0 = time.perf_counter()
+        res = pt.price(cb, seed, plan=plan)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[f"streaming devices={devices}"] = fused.launches
+        assert fused.launches == n_chunks + 1, (devices, fused.launches)
+        assert len(res.scenarios) == 2 * S_STREAM == res.aggregates.count
+        assert res.shard_rows == sk.DIST_CHUNK_DEFAULT // devices, \
+            res.shard_rows
+        assert len(res) == STREAM_TOPK
+        runs[devices] = res
+        times[f"streaming devices={devices}"] = dt
+        log(f"time [{card}]: price(plan={plan!r}) over "
+            f"{len(res.scenarios)} scenarios: {dt:.4f} s = "
+            f"{len(res.scenarios) / dt:.1f} scenarios/s; bracket launches "
+            f"{fused.launches} ({n_chunks} chunks + the exact pass), "
+            f"shard_rows {res.shard_rows}")
+    times["streaming busy"] = traced_share(
+        torch, lambda: pt.price(cb, seed, plan=STREAM_PLAN), card,
+        f"price(plan={STREAM_PLAN!r})")
+    times["streaming staged"] = stream_split(torch, np, sweep_mod, sk, cb,
+                                             seed, card)
+    res = runs[1]
+    t0 = time.perf_counter()
+    full = pt.price(cb, res.scenarios)
+    full_s = time.perf_counter() - t0
+    sp = full.predicted_speedup()
+    want = full.topk(STREAM_TOPK)
+    assert np.array_equal(np.sort(res.indices), np.sort(want))
+    np.testing.assert_allclose(res.speedups, sp[res.indices], rtol=RTOL_PATH,
+                               atol=0)
+    np.testing.assert_allclose(res.result.gain_ns, full.gain_ns[res.indices],
+                               rtol=RTOL_PATH, atol=0)
+    agg, ragg = res.aggregates, pt.SweepAggregates.from_result(full)
+    assert agg.count == ragg.count
+    assert np.array_equal(agg.hist, ragg.hist)
+    assert np.array_equal(agg.n_beneficial, ragg.n_beneficial)
+    np.testing.assert_allclose(
+        [agg.speedup_mean, agg.speedup_min, agg.speedup_max],
+        [ragg.speedup_mean, ragg.speedup_min, ragg.speedup_max],
+        rtol=RTOL_PATH)
+    np.testing.assert_allclose(agg.gain_sum, ragg.gain_sum, rtol=RTOL_PATH)
+    r4 = runs[STREAM_DEVICES]
+    assert np.array_equal(r4.indices, res.indices)
+    for k, col in res.scenarios.columns.items():
+        assert np.array_equal(r4.scenarios.columns[k], col), k
+    log(f"sweeps: streaming top-{STREAM_TOPK} against the fused matrix "
+        f"pricing of all {len(res.scenarios)} scenarios ({full_s:.3f} s): "
+        f"indices equal as sets, in the same order "
+        f"{np.array_equal(res.indices, want)}; speedups {res.speedups[0]:.6f}"
+        f"..{res.speedups[-1]:.6f}; hist and n_beneficial exact; "
+        f"{STREAM_DEVICES} shards: the same refined scenarios and indices")
+
+    # (d) float32 pricing: the kernel's float instantiation
+    plan32 = pt.ExecPlan(x64=False)
+    label = f"stencil tile {STREAM_TILE}"
+    seen = []
+
+    def wrapped(*args):              # the dtype the wrapper is handed
+        seen.append(args[3].dtype)
+        return fused(*args)
+
+    sk.fused_bracket_segsum, kept = wrapped, sk.fused_bracket_segsum
+    try:
+        fused.launches = 0
+        f32 = pt.price(cb, grid, plan=plan32)
+        torch.cuda.synchronize()
+        launches["price x64=0"] = fused.launches
+    finally:
+        sk.fused_bracket_segsum = kept
+    assert fused.launches == 1 and seen == [torch.float32], (fused.launches,
+                                                              seen)
+    ref64 = results[label].gain_ns
+    err32 = float(np.max(np.abs(f32.gain_ns - ref64)
+                         / np.maximum(np.abs(ref64), 1.0)))
+    assert err32 < RTOL_F32, err32
+    v32 = sweep_mod._scenario_view(aset).to(dev, torch.float32)
+    g32 = cb.tensors(dev, torch.float32).groups
+    d32, x32 = v32.cxl_lat_ns - v32.mem_lat_ns, v32.cxl_lat_ns
+    times["f32 kernel"] = device_ms(
+        torch, lambda: fused(g32["hit"], g32["lfb"], g32["miss"], d32, x32,
+                             cb.n_calls), name="bracket_kernel")
+    events, _ = steady_traces(torch, lambda: pt.price(cb, aset, plan=plan32),
+                              name="bracket_kernel", want=1)[0]
+    names = sorted({e.name for e in events if "bracket_kernel" in e.name})
+    times["f32 price"], _ = wall_s(torch, lambda: pt.price(cb, aset,
+                                                           plan=plan32), 3)
+    times["f64 price"], _ = wall_s(torch, lambda: pt.price(cb, aset), 3)
+    log(f"sweeps: price(x64=False) tile {STREAM_TILE}: bracket launches "
+        f"{launches['price x64=0']} on float32 inputs, kernel {names}; max "
+        f"|gain_ns f32 - f64| / max(|f64|, 1) {err32:.3e} (bound {RTOL_F32})")
+    log(f"time [{card}]: bracket_kernel float32 S={S_MAIN} n_seg="
+        f"{cb.n_calls} {times['f32 kernel']:.5f} ms device time (profiler); "
+        f"price() of the ArraySet float32 {times['f32 price']:.4f} s, "
+        f"float64 {times['f64 price']:.4f} s (medians of 3)")
+    return launches, times
 
 
 def halo_layouts(torch, np, n, dtype, seed):
@@ -796,11 +1102,7 @@ def phase_hpcg(torch, grid_mesh, hp, hx, card):
         busy, halo = busy_ms(events), busy_ms(events, HALO_KERNEL)
         n_halo = sum(HALO_KERNEL in e.name for e in events)
         share = 100 * busy / 1e3 / wall
-        by_name = {}
-        for e in events:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        top = top_ops(events, 4)
         log(f"hpcg [{card}]: {backend} solve traced (torch.profiler): wall "
             f"{wall:.4f} s, {len(events)} device events busy {busy:.3f} ms "
             f"({share:.2f}%; idle {100 - share:.2f}%), {HALO_KERNEL}* "
@@ -831,14 +1133,14 @@ def phase_halo_times(torch, hx, blocks, card):
         assert err == 0.0 and all(torch.equal(g, w)
                                   for g, w in zip(got, want))
         route = hx.route_for(lo.shape[0])
-        warm = device_ms(torch, lambda: hx.ring_halo_exchange(lo, hi),
-                         reps=200, name=HALO_KERNEL)
-        cold = device_ms(torch, lambda: (flush.zero_(),
-                                         hx.ring_halo_exchange(lo, hi)),
-                         reps=50, name=HALO_KERNEL)
         n, p = lo.shape[0], lo[0].numel()
         nbytes = 4 * n * p * lo.element_size()   # 2 strips read, 2 written
         bound = nbytes / HBM_BYTES_S * 1e3
+        warm = device_ms(torch, lambda: hx.ring_halo_exchange(lo, hi),
+                         reps=200, name=HALO_KERNEL, floor=bound)
+        cold = device_ms(torch, lambda: (flush.zero_(),
+                                         hx.ring_halo_exchange(lo, hi)),
+                         reps=50, name=HALO_KERNEL, floor=bound)
         log(f"time [{card}]: halo_exchange level {level}, {n} ranks x "
             f"{tuple(lo.shape[1:])} f32 [{route}], device time per call "
             f"(profiler): {warm:.5f} ms, after an L2 flush {cold:.5f} ms; "
@@ -850,7 +1152,7 @@ def phase_halo_times(torch, hx, blocks, card):
     others = {"plain": lambda: hx.ring_halo_exchange_ref(lo, hi),
               "torch.roll x2": lambda: (torch.roll(hi, 1, 0),
                                         torch.roll(lo, -1, 0))}
-    dev = {k: device_ms(torch, fn) for k, fn in others.items()}
+    dev = {k: device_ms(torch, fn, floor=bound) for k, fn in others.items()}
     call = cuda_ms(torch, lambda: hx.ring_halo_exchange(lo, hi), reps=100,
                    warmup=10)
     log(f"time [{card}]: halo_exchange level 0, device time per call "
@@ -1099,23 +1401,24 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
                          .abs().max())
         del sdpa
         fa_ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal),
-                          reps=10, name=fa_kernel)
+                          reps=10, name=fa_kernel, floor=fa_bound)
         # the same call right after 128 MB of writes (which evict the 50 MB
         # L2), and right after a 1.9 TFLOP bf16 GEMM, as in the forward
         flush = torch.empty(128 << 20, dtype=torch.uint8, device=q.device)
         fa_cold = device_ms(torch, lambda: (
             flush.zero_(), fa.flash_attention(q, k, v, causal)), reps=10,
-            name=fa_kernel)
+            name=fa_kernel, floor=fa_bound)
         a = torch.randn(16384, 4096, dtype=torch.bfloat16, device=q.device)
         w = torch.randn(4096, 14336, dtype=torch.bfloat16, device=q.device)
         fa_gemm = device_ms(torch, lambda: (
             a @ w, fa.flash_attention(q, k, v, causal)), reps=10,
-            name=fa_kernel)
+            name=fa_kernel, floor=fa_bound)
         del flush, a, w
         fa_plain = device_ms(torch, lambda: fa.attention_ref(q, k, v, causal),
-                             reps=3)
+                             reps=3, floor=fa_bound)
         fa_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10)
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10,
+            floor=fa_bound)
     log(f"time [{card}]: flash_attention q {tuple(q.shape)} k/v "
         f"{tuple(k.shape)} {str(q.dtype)[6:]} causal, device time per call "
         f"(profiler): {fa_kernel} {fa_ms:.4f} ms (after an L2 flush "
@@ -1137,8 +1440,9 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
     with torch.inference_mode():
         args = (x, dt, Bt, Ct, A, D_)
         ms_ms = device_ms(torch, lambda: ms.mamba_scan(*args), reps=10,
-                          name="scan_kernel")
-        ms_plain = device_ms(torch, lambda: ms.mamba_scan_ref(*args), reps=1)
+                          name="scan_kernel", floor=ms_bound)
+        ms_plain = device_ms(torch, lambda: ms.mamba_scan_ref(*args), reps=1,
+                             floor=ms_bound)
     log(f"time [{card}]: mamba_scan x {tuple(x.shape)} N={N} f32, device "
         f"time per call (profiler): kernel {ms_ms:.4f} ms, plain "
         f"{ms_plain:.4f} ms; bound {ms_bound:.4f} ms ({ms_by}: {ms_bytes} "
@@ -1150,19 +1454,20 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
         log(f"time [{card}]: lm forward {tokens} tokens, kernels on: "
             f"{fwd_s:.4f} s (median of 3) = {tokens / fwd_s:.1f} tokens/s")
         clk_before = sm_clock()
-        events, wall = trace(torch, lambda: model(batch))
+        events, wall = steady_traces(torch, lambda: model(batch),
+                                     count=2)[-1]
         clk_after = sm_clock()
     log(f"clocks [{card}]: SM clock, max (nvidia-smi) before the traced "
         f"forward {clk_before}, after it {clk_after}; sampled over the 3 "
         f"timed and the traced forward: {clocks.summary()}")
+    n_fa = sum(fa_kernel in e.name for e in events)
+    n_scan = sum("scan_kernel" in e.name for e in events)
+    assert (n_fa, n_scan) == (1, 7), (n_fa, n_scan)
     busy = busy_ms(events)
     share = 100 * busy / 1e3 / wall
-    by_name = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) \
-            + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"time [{card}]: lm forward traced (torch.profiler): wall "
+    top = top_ops(events, 6)
+    log(f"time [{card}]: lm forward traced (torch.profiler, two traces "
+        f"agreeing): wall "
         f"{wall:.4f} s, {len(events)} device events busy {busy:.3f} ms "
         f"({share:.2f}%; idle {100 - share:.2f}%), {fa_kernel} "
         f"{busy_ms(events, fa_kernel):.3f} ms, scan_kernel "
@@ -1244,18 +1549,28 @@ def main() -> int:
     phase_lm_kernels(torch, np, fa, ms_k)
 
     # 4. pricing path
-    grid, bundles, launches = phase_main_path(torch, np, pt, ms, sb,
-                                              stencil, hpcg)
+    grid, bundles, results, launches = phase_main_path(torch, np, pt, ms, sb,
+                                                       stencil, hpcg)
 
     # 5. times of the sweep kernels and of price()
     kernels = phase_times(torch, np, pt, sb, grid, bundles, card)
-    del grid, bundles
+
+    # 6. the deployment-scale sweeps
+    t0 = time.perf_counter()
+    by_path, _ = phase_sweeps(torch, np, pt, sb, grid, bundles, results,
+                              card)
+    log(f"sweeps: phase {time.perf_counter() - t0:.1f} s")
+    kernels[0]["launches_by_path"] = {
+        "price": launches["fused_bracket_segsum"], **by_path}
+    launches["fused_bracket_segsum"] = sum(
+        kernels[0]["launches_by_path"].values())
+    del grid, bundles, results
     torch.cuda.empty_cache()
 
-    # 6. the stencil at full size
+    # 7. the stencil at full size
     phase_stencil(torch, grid_mesh, st, card)
 
-    # 7. HPCG: the JAX test's case, then full size, then the halo kernel's
+    # 8. HPCG: the JAX test's case, then full size, then the halo kernel's
     #    times at its strips
     phase_hpcg_small(torch, grid_mesh, hp)
     launches["halo_exchange"], blocks = phase_hpcg(torch, grid_mesh, hp, hx,
@@ -1264,7 +1579,7 @@ def main() -> int:
     del blocks
     torch.cuda.empty_cache()
 
-    # 8./9. the LM forward at full width, 10. its times
+    # 9./10. the LM forward at full width, 11. its times
     model, batch, lm_launches, rec, errs = phase_lm(torch, fa, ms_k)
     launches.update(lm_launches)
     kernels += phase_lm_times(torch, F, fa, ms_k, model, batch, rec, errs,
@@ -1273,7 +1588,7 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    # 11. result lines
+    # 12. result lines
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

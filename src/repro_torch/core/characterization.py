@@ -6,18 +6,20 @@ cache-latency (CLAT) and Compute — each weighted in [0, 1] with all weights
 summing to 1.  Metrics come from the PAPI counter analog (``CounterSet``).
 
 The PyTorch counterpart of ``repro.core.characterization``.  The weights are
-float64 tensors: 0-d in the scalar per-call path, ``(n_scenarios, 1)`` in
-the sweep, on whatever device the swept parameters live.  Python-scalar
-operands of ``clamp`` / ``maximum`` / ``where`` are lifted with
-:func:`as_f64` onto the device of the tensors they meet, always in float64
-(``torch.as_tensor(0.5)`` alone would be float32, and ``torch.maximum``
-takes no scalar operand).
+tensors: 0-d float64 in the scalar per-call path, ``(n_scenarios, 1)`` (or
+``(n_scenarios, n_calls)`` when the counters are per-call columns) in the
+sweep, on whatever device and in whatever float dtype the swept parameters
+live.  Python-scalar operands of ``clamp`` / ``maximum`` / ``where`` are
+lifted with :func:`as_float` onto the device and dtype of the tensors they
+meet, float64 when they meet none (``torch.as_tensor(0.5)`` alone would be
+float32, and ``torch.maximum`` takes no scalar operand).
 """
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .params import CACHE_LINE_BYTES, ModelParams
@@ -39,22 +41,34 @@ FIRST_LOAD_CATEGORIES = (Category.MBW, Category.MLAT, Category.COMPUTE)
 ALL_CATEGORIES = tuple(Category)
 
 
-def as_f64(*xs) -> tuple:
-    """Each operand as a float64 tensor, all on the device of the first
-    tensor among them (the CPU when all are Python numbers)."""
-    dev = next((x.device for x in xs if isinstance(x, torch.Tensor)),
-               torch.device("cpu"))
-    return tuple(torch.as_tensor(x, dtype=torch.float64, device=dev)
-                 for x in xs)
+def as_float(*xs) -> tuple:
+    """Each operand as a tensor on the device and in the float dtype of the
+    first floating tensor among them (float64 on the CPU when there is
+    none: the scalar path)."""
+    first = next((x for x in xs if isinstance(x, torch.Tensor)
+                  and x.is_floating_point()), None)
+    dev = first.device if first is not None else torch.device("cpu")
+    dtype = first.dtype if first is not None else torch.float64
+    return tuple(torch.as_tensor(x, dtype=dtype, device=dev) for x in xs)
+
+
+def _at_least(x, lo: float):
+    """``max(x, lo)`` for a Python number, elementwise for a tensor or a
+    NumPy array (per-call counters of a multi-bundle sweep)."""
+    if isinstance(x, torch.Tensor):
+        return x.clamp(min=lo)
+    if isinstance(x, np.ndarray):
+        return np.maximum(x, lo)
+    return max(x, lo)
 
 
 def quadratic_weight(val, lower, upper) -> torch.Tensor:
     """Paper Eq. 3: 0 below ``lower``, 1 above ``upper``, quadratic between.
 
-    Operands may be Python numbers or float64 tensors (broadcasting); the
-    result is a float64 tensor.
+    Operands may be Python numbers or float tensors (broadcasting); the
+    result is a tensor in the tensors' dtype (float64 for numbers alone).
     """
-    val, lower, upper = as_f64(val, lower, upper)
+    val, lower, upper = as_float(val, lower, upper)
     t = ((val - lower) / (upper - lower)).clamp(0.0, 1.0)
     return t * t
 
@@ -80,12 +94,13 @@ class Metrics:
           throughput (L1_LDM x line) as fractions of the respective cache BW.
         * CLAT: fraction of LDs that reach L2 = PAPI_L1_LDM / PAPI_LD_INS.
 
-        The counters are Python numbers (one run); ``p``'s fields are
-        Python numbers (scalar path) or float64 tensors (sweep), and every
-        expression is elementwise, so both flow through identically.
+        The counters are Python numbers (one run) or per-call tensors (a
+        multi-bundle sweep); ``p``'s fields are Python numbers (scalar
+        path) or tensors (sweep), and every expression is elementwise, so
+        all of them flow through identically.
         """
-        wall = max(c.wall_time_ns, 1e-9)
-        lds = max(c.ld_ins, 1.0)
+        wall = _at_least(c.wall_time_ns, 1e-9)
+        lds = _at_least(c.ld_ins, 1.0)
         mem_bytes = c.imc_reads * CACHE_LINE_BYTES
         return Metrics(
             mem_throughput_frac=(mem_bytes / wall) / p.peak_mem_bw_Bpns,
@@ -131,13 +146,13 @@ def normalize(weights: dict, p: ModelParams,
     divided by the sum (Compute = 0).
     """
     cats = [c for c in categories if c is not Category.COMPUTE]
-    vals = as_f64(*(weights.get(c, 0.0) for c in cats))
+    vals = as_float(*(weights.get(c, 0.0) for c in cats))
     w = {c: v.clamp(min=0.0) for c, v in zip(cats, vals)}
     s = sum(w.values())
     over = s >= 1.0
     safe = torch.where(over, s, torch.ones_like(s))  # no 0/0 in the dead branch
     rem = (1.0 - s).clamp(min=0.0)
-    rem, cap = as_f64(rem, p.compute_max_weight)
+    rem, cap = as_float(rem, p.compute_max_weight)
     compute = torch.where(over, torch.zeros_like(s), torch.minimum(rem, cap))
     excess = rem - compute
     out = {c: torch.where(over, w[c] / safe, w[c] + excess / len(cats))

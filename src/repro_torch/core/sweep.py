@@ -13,6 +13,10 @@ the backend-pluggable executors of ``sweep_kernel``:
     result = price(cb, grid, plan="numpy")            # the host
     result.predicted_speedup()                        # per-scenario view
 
+    multi = price([cb_a, cb_b], grid)                 # MANY bundles, ONE pass
+    multi["bundle1"].predicted_speedup()              # per-bundle SweepResult
+    multi.predicted_speedup(weights={"bundle1": 8})   # deployment-level mix
+
 Division of labour, as in the reference:
 
   * THIS module owns the data model — ``ParamGrid`` (factorial
@@ -20,8 +24,11 @@ Division of labour, as in the reference:
     :meth:`ParamGrid.sample`, paired :meth:`ParamGrid.zip`, union
     :meth:`ParamGrid.concat`, numeric axes over any ``ModelParams`` field
     plus the categorical ``mpi_transfer=`` / ``free_transfer=`` axes),
-    ``compile_bundle`` / ``CompiledBundle``, ``SweepResult`` and the
-    execution core ``_sweep_plan`` that ``price`` drives.
+    ``compile_bundle`` / ``CompiledBundle`` / ``concat_bundles``, the
+    results (``SweepResult``, ``MultiSweepResult``, ``TopKSweepResult``)
+    and the execution cores ``_sweep_plan`` / ``_sweep_plan_many`` that
+    ``price`` drives.  The array-backed ``ArraySet`` and the streaming
+    executor live in ``adaptive``.
   * ``execplan`` owns HOW a sweep executes (``ExecPlan``, the backend
     registry).
   * ``sweep_kernel.price_grid`` owns the evaluation.
@@ -29,7 +36,8 @@ Division of labour, as in the reference:
 Scenario sets and views are built on the host with NumPy (the scenario
 draws use ``np.random.default_rng``, so a grid is identical to the
 reference's for the same seed); ``_ParamArrays.to`` moves a view to the
-pricing device.  Results come back to the host as float64 NumPy matrices.
+pricing device in the plan's float dtype.  Results come back to the host
+as float64 NumPy matrices.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ import torch
 
 from ..kernels.sweep_bracket import csr_group
 from .access import SampleArrays, prefetch_hit_fraction
-from .execplan import ExecPlan, resolve_backend
+from .execplan import ExecPlan, is_streaming, resolve_backend
 from .params import ModelParams, Thresholds
 from .predictor import CallPrediction
 from .sweep_kernel import MATRIX_FIELDS, SPEEDUP_HIST_EDGES
@@ -81,8 +89,9 @@ class _ParamArrays:
     (each built from these same ``(S, 1)`` fields) and an ``(S, 1)``
     integer code selecting one candidate per scenario.
 
-    Built on the host with NumPy arrays; :meth:`to` gives the same view
-    with float64 / int32 tensors on a device.
+    Built on the host with NumPy arrays — from ``ModelParams`` points, or
+    from columns with :meth:`from_columns`; :meth:`to` gives the same view
+    with float / int32 tensors on a device.
     """
 
     def __init__(self, params, cat=None):
@@ -104,6 +113,47 @@ class _ParamArrays:
             setattr(self, axis + "_models",
                     tuple(TRANSFER_MODELS[n](self) for n in cands))
 
+    @classmethod
+    def from_columns(cls, base: ModelParams, n: int, columns,
+                     cat=None) -> "_ParamArrays":
+        """A view over ``n`` scenarios from COLUMN ARRAYS instead of ``n``
+        ``ModelParams`` instances (what :class:`~repro_torch.core.adaptive.
+        ArraySet` builds).
+
+        Varied numeric fields come from ``columns`` (``{field: (n,)
+        array}``) as ``(n, 1)``; every other field broadcasts from ``base``
+        as ``(1, 1)``.  ``cat`` maps a categorical axis to ``(codes,
+        choices)``: an ``(n,)`` integer column into the static ``choices``
+        tuple.  ``mem_lat_ns`` is always full length: it carries the
+        scenario count that ``_slice`` and ``_pad`` read.
+        """
+        self = object.__new__(cls)
+        for f in dataclasses.fields(ModelParams):
+            v = getattr(base, f.name)
+            if f.name in columns:
+                col = np.asarray(columns[f.name], dtype=np.float64)
+                setattr(self, f.name, col.reshape(n, 1))
+            elif isinstance(v, Thresholds):
+                setattr(self, f.name, _ThresholdView(
+                    np.array([[v.lower]], dtype=np.float64),
+                    np.array([[v.upper]], dtype=np.float64)))
+            else:
+                setattr(self, f.name, np.array([[v]], dtype=np.float64))
+        if self.mem_lat_ns.shape[0] != n:
+            self.mem_lat_ns = np.full((n, 1), float(base.mem_lat_ns))
+        cat = cat or {}
+        for axis, default in CATEGORICAL_AXES.items():
+            if axis in cat:
+                codes, choices = cat[axis]
+                code = np.asarray(codes, dtype=np.int32).reshape(n, 1)
+                choices = tuple(choices)
+            else:
+                code, choices = np.zeros((1, 1), dtype=np.int32), (default,)
+            setattr(self, axis + "_code", code)
+            setattr(self, axis + "_models",
+                    tuple(TRANSFER_MODELS[nm](self) for nm in choices))
+        return self
+
     def _map(self, fn) -> "_ParamArrays":
         out = object.__new__(_ParamArrays)
         out.__dict__.update(
@@ -116,20 +166,59 @@ class _ParamArrays:
         return self._map(lambda a: a[sl] if a.ndim >= 1 and a.shape[0] == n
                          else a)
 
-    def to(self, device) -> "_ParamArrays":
-        """The view with every array leaf as a tensor on ``device`` (float64
-        fields, int32 codes).  A leaf shared by several fields — a transfer
-        model's field is the view's own array — is copied once."""
+    def _pad(self, n_pad: int) -> "_ParamArrays":
+        """Edge-pad every host leaf that carries the scenario axis up to
+        ``n_pad`` scenarios: the padded rows are copies of the last
+        scenario, which the streaming executor masks out of every
+        reduction."""
+        n = self.mem_lat_ns.shape[0]
+        if n_pad <= n:
+            return self
+        if n == 0:
+            raise ValueError("cannot pad an empty view (0 scenarios)")
+        return self._map(lambda a: pad_to_multiple(a, n_pad)
+                         if a.ndim >= 1 and a.shape[0] == n else a)
+
+    def to(self, device, dtype=torch.float64) -> "_ParamArrays":
+        """The view with every array leaf as a tensor on ``device``: float
+        fields in ``dtype``, the int32 codes as they are.  A leaf shared by
+        several fields — a transfer model's field is the view's own array —
+        is copied once."""
         device = torch.device(device)
         memo = {}
 
         def move(a):
             key = id(a)
             if key not in memo:
-                memo[key] = (a, torch.as_tensor(a, device=device))
+                floating = a.dtype.is_floating_point \
+                    if isinstance(a, torch.Tensor) else a.dtype.kind == "f"
+                memo[key] = (a, torch.as_tensor(
+                    a, device=device, dtype=dtype if floating else None))
             return memo[key][1]
 
         return self._map(move)
+
+
+def padded_size(n: int, n_shards: int) -> int:
+    """Smallest multiple of ``n_shards`` that holds ``n`` rows (minimum
+    one row per shard, so a shard is never zero-sized)."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    return max(1, -(-n // n_shards)) * n_shards
+
+
+def pad_to_multiple(a, n_pad: int, axis: int = 0):
+    """Edge-pad ``a`` along ``axis`` up to ``n_pad`` rows (no-op when
+    already long enough).  Edge mode keeps padding rows finite and
+    physically plausible, so masked lanes never poison a reduction with
+    NaN or inf."""
+    a = np.asarray(a)
+    k = n_pad - a.shape[axis]
+    if k <= 0:
+        return a
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, k)
+    return np.pad(a, pad, mode="edge")
 
 
 def _map_leaves(val, fn):
@@ -382,6 +471,17 @@ class ParamGrid:
             rows=tuple(tuple(self.label_at(i).items()) for i in idx),
             ranges=self.ranges)
 
+    def refine(self, points, n: int, *, seed: int = 0,
+               shrink: float = 0.25):
+        """``n`` new scenarios re-sampled around ``points`` (label dicts,
+        e.g. ``[grid.label_at(i) for i in frontier]``) within the ranges
+        recorded by :meth:`sample`, as an array-backed
+        :class:`~repro_torch.core.adaptive.ArraySet` (see
+        ``ArraySet.refine``)."""
+        from .adaptive import as_array_set
+        return as_array_set(self).refine(points, n, seed=seed,
+                                         shrink=shrink)
+
     def view(self) -> _ParamArrays:
         return _ParamArrays(self.params, dict(self.cat))
 
@@ -426,6 +526,8 @@ class BundleTensors:
     unpack: torch.Tensor        # bool
     traffic: SiteTraffic        # fields are (n_calls,) tensors
     groups: dict                # "hit" | "lfb" | "miss" -> ops.CsrGroup
+    counters: CounterSet        # the bundle's; per-call arrays as tensors
+    sampling_period: object     # float, or an (n_calls,) tensor
 
 
 @dataclass(frozen=True)
@@ -457,8 +559,9 @@ class CompiledBundle:
     accesses_per_element: np.ndarray
     prefetch_frac: np.ndarray
     unpack: np.ndarray          # bool
-    counters: object            # CounterSet (whole-run, scenario-independent)
-    sampling_period: float
+    counters: object            # CounterSet: whole-run numbers, or per-call
+    #                             (n_calls,) arrays in a super-bundle
+    sampling_period: object     # float, or (n_calls,) in a super-bundle
     baseline_runtime_ns: float
 
     @property
@@ -503,7 +606,9 @@ class CompiledBundle:
         (device, dtype) and cached on the bundle, so pricing many grids
         uploads the bundle once.  Includes each sample group in the fused
         kernel's CSR form (offsets, and a stable permutation only where the
-        ids are unsorted)."""
+        ids are unsorted).  Counters and the sampling period stay Python
+        numbers where they are scalars; the per-call arrays of a
+        :func:`concat_bundles` super-bundle come as tensors."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -531,6 +636,11 @@ class CompiledBundle:
                 grp: csr_group(kw[grp + "_lat"], kw[grp + "_w"],
                                kw[grp + "_seg"], self.n_calls)
                 for grp in _GROUPS}
+            per_call = lambda v: f(v) if isinstance(v, np.ndarray) else v
+            kw["counters"] = dataclasses.replace(self.counters, **{
+                fld.name: per_call(getattr(self.counters, fld.name))
+                for fld in dataclasses.fields(self.counters)})
+            kw["sampling_period"] = per_call(self.sampling_period)
             out = BundleTensors(**kw)
             cache[key] = out
         return out
@@ -809,6 +919,46 @@ class SweepAggregates:
             gain_sum=gain.sum(axis=0, dtype=np.float64))
 
 
+@dataclass(frozen=True)
+class TopKSweepResult:
+    """What a STREAMING sweep returns: the ``k`` best scenarios with full
+    per-call detail, plus exact whole-sweep aggregates — never the
+    ``(S, n_calls)`` matrices.
+
+    ``indices`` are global scenario indices into ``scenarios`` (the full
+    set evaluated, refined rounds included), best speedup first with ties
+    toward the lower index — the order ``SweepResult.topk`` gives.
+    ``result`` is an exact matrix-backend re-evaluation of exactly those
+    scenarios (``result.grid == scenarios.subset(indices)``).
+    ``shard_rows`` is the peak per-shard scenario-row allocation the
+    streaming pass needed.
+    """
+
+    scenarios: object
+    indices: np.ndarray
+    speedups: np.ndarray
+    result: SweepResult
+    aggregates: SweepAggregates
+    plan: object
+    shard_rows: int
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def labels(self) -> list:
+        """Varied-axis labels of the surviving scenarios, best first."""
+        return self.result.grid.labels()
+
+    def summary_rows(self, replaced=None) -> list:
+        return self.result.summary_rows(replaced)
+
+    def best_scenario(self) -> int:
+        """Global index of the best scenario in :attr:`scenarios`."""
+        if len(self.indices) == 0:
+            raise ValueError("best_scenario() on an empty sweep")
+        return int(self.indices[0])
+
+
 def _chunk_slices(n: int, chunk: int):
     for lo in range(0, n, chunk):
         yield slice(lo, min(lo + chunk, n))
@@ -833,44 +983,66 @@ def _scenario_view(grid, mpi_transfer=None, free_transfer=None):
     return v
 
 
-def _finalize(part: dict, s: int, c: int) -> dict:
+def _finalize(part: dict, s: int, c: int, lo: int = 0,
+              hi: int | None = None) -> dict:
     """One executor output (device tensors, merely broadcastable to
-    ``(s, c)``) as float64 ``(s, c)`` host matrices."""
+    ``(s, c)``) as float64 host matrices of its columns ``lo:hi``, cut on
+    the device before the copy."""
     out = {}
     for f in MATRIX_FIELDS:
         t = torch.as_tensor(part[f], dtype=torch.float64)
-        out[f] = t.expand(s, c).contiguous().cpu().numpy()
+        out[f] = t.expand(s, c)[:, lo:hi].contiguous().cpu().numpy()
+    return out
+
+
+def _resolve(plan: ExecPlan | None):
+    """``(plan, executor)``; a plan whose device is CUDA raises here when
+    no CUDA device is present, even for an empty sweep."""
+    plan = plan if plan is not None else ExecPlan()
+    run = resolve_backend(plan.backend)
+    if plan.backend != "numpy":
+        plan.torch_device()
+    return plan, run
+
+
+def _matrices(cb: CompiledBundle, grid, plan: ExecPlan, run, cols,
+              mpi_transfer=None, free_transfer=None) -> list:
+    """Price ``grid`` with the matrix executor ``run``; one dict of host
+    ``(S, hi - lo)`` matrices per column range ``(lo, hi)`` of ``cols``.
+    Scenario-axis chunking is bit-identical (every row is computed
+    independently)."""
+    S, C = len(grid), cb.n_calls
+    if S == 0 or C == 0:
+        return [{f: np.zeros((S, hi - lo)) for f in MATRIX_FIELDS}
+                for lo, hi in cols]
+    v = _scenario_view(grid, mpi_transfer, free_transfer)
+    chunk = plan.chunk_scenarios
+    if chunk is None or chunk >= S:
+        part = run(cb, v, plan)
+        return [_finalize(part, S, C, lo, hi) for lo, hi in cols]
+    out = [{f: np.empty((S, hi - lo), dtype=np.float64)
+            for f in MATRIX_FIELDS} for lo, hi in cols]
+    for sl in _chunk_slices(S, chunk):
+        part = run(cb, v._slice(sl), plan)
+        for mats, (lo, hi) in zip(out, cols):
+            for f, m in _finalize(part, sl.stop - sl.start, C, lo,
+                                  hi).items():
+                mats[f][sl] = m
     return out
 
 
 def _sweep_plan(cb: CompiledBundle, grid, plan: ExecPlan | None,
                 mpi_transfer=None, free_transfer=None) -> SweepResult:
     """The execution core behind ``price()``: one compiled bundle, one
-    :class:`ScenarioSet`, one :class:`ExecPlan`.  Scenario-axis chunking
-    wraps any backend with bit-identical results (every scenario row is
-    computed independently)."""
-    plan = plan if plan is not None else ExecPlan()
-    run = resolve_backend(plan.backend)
-    if plan.backend != "numpy":
-        plan.torch_device()            # no CUDA device: raise, even if empty
-    S, C = len(grid), cb.n_calls
-
-    if S == 0 or C == 0:
-        mats = {f: np.zeros((S, C)) for f in MATRIX_FIELDS}
-    else:
-        v = _scenario_view(grid, mpi_transfer, free_transfer)
-        chunk = plan.chunk_scenarios
-        if chunk is None or chunk >= S:
-            mats = _finalize(run(cb, v, plan), S, C)
-        else:
-            mats = {f: np.empty((S, C), dtype=np.float64)
-                    for f in MATRIX_FIELDS}
-            for sl in _chunk_slices(S, chunk):
-                part = _finalize(run(cb, v._slice(sl), plan),
-                                 sl.stop - sl.start, C)
-                for f in MATRIX_FIELDS:
-                    mats[f][sl] = part[f]
-
+    :class:`ScenarioSet`, one :class:`ExecPlan`.  A MATRIX backend gives a
+    full :class:`SweepResult`; a STREAMING backend (``is_streaming``) owns
+    its whole execution and returns its own result (a
+    :class:`TopKSweepResult`)."""
+    plan, run = _resolve(plan)
+    if is_streaming(plan.backend):
+        return run(cb, grid, plan, mpi_transfer, free_transfer)
+    mats, = _matrices(cb, grid, plan, run, [(0, cb.n_calls)], mpi_transfer,
+                      free_transfer)
     return SweepResult(grid=grid, compiled=cb, **mats)
 
 
@@ -886,3 +1058,206 @@ def sweep_run(bundle, grid: ParamGrid, mpi_transfer=None, free_transfer=None,
         plan = ExecPlan.parse(plan)
     cb = bundle if isinstance(bundle, CompiledBundle) else compile_bundle(bundle)
     return _sweep_plan(cb, grid, plan, mpi_transfer, free_transfer)
+
+
+# --------------------------------------------------------------------------
+# Multi-bundle sweeps: many compiled bundles, one batched evaluation
+# --------------------------------------------------------------------------
+
+def concat_bundles(bundles) -> CompiledBundle:
+    """Pack several ``CompiledBundle``\\ s into ONE super-bundle.
+
+    The packed sample groups are concatenated with their segment ids /
+    starts offset by the running call count, so one bracket pass prices
+    every call-site of every bundle.  Per-bundle scalars that enter the
+    pricing — the counter set and the sampling period — become
+    ``(n_calls,)`` arrays (each bundle's value repeated over its
+    call-sites); the pricing is elementwise in them, so each column prices
+    exactly as it does in a per-bundle run.  ``baseline_runtime_ns`` is
+    the SUM of the parts.
+    """
+    bundles = list(bundles)
+    if not bundles:
+        raise ValueError("concat_bundles needs at least one bundle")
+    reps = np.array([cb.n_calls for cb in bundles], dtype=np.int64)
+
+    def rep_counter(field):
+        vals = np.array([getattr(cb.counters, field) for cb in bundles],
+                        dtype=np.float64)
+        return np.repeat(vals, reps)
+
+    def cat(field, dtype=None):
+        out = np.concatenate([getattr(cb, field) for cb in bundles])
+        return out.astype(dtype) if dtype is not None else out
+
+    call_off = np.cumsum([0] + [cb.n_calls for cb in bundles[:-1]])
+    groups = {}
+    for grp in _GROUPS:
+        samp_off = np.cumsum([0] + [len(getattr(cb, grp + "_lat"))
+                                    for cb in bundles[:-1]])
+        groups.update({
+            grp + "_lat": cat(grp + "_lat"), grp + "_w": cat(grp + "_w"),
+            grp + "_counts": cat(grp + "_counts", np.int64),
+            grp + "_starts": np.concatenate(
+                [getattr(cb, grp + "_starts") + off
+                 for cb, off in zip(bundles, samp_off)]).astype(np.int64),
+            grp + "_seg": np.concatenate(
+                [getattr(cb, grp + "_seg") + np.int32(off)
+                 for cb, off in zip(bundles, call_off)]).astype(np.int32)})
+    counters = CounterSet(**{f.name: rep_counter(f.name)
+                             for f in dataclasses.fields(CounterSet)})
+    return CompiledBundle(
+        call_ids=tuple(cid for cb in bundles for cid in cb.call_ids),
+        **groups,
+        **{k: cat(k) for k in ("hit_wl_sum", "lfb_wl_sum", "miss_w_sum",
+                               "total_wl", "buffer_bytes",
+                               "accesses_per_element", "prefetch_frac")},
+        unpack=cat("unpack", bool),
+        traffic=SiteTraffic(**{
+            k: np.concatenate([getattr(cb.traffic, k) for cb in bundles])
+            for k in ("n_msgs", "total_bytes", "gap_bytes")}),
+        counters=counters,
+        sampling_period=np.repeat(
+            np.array([cb.sampling_period for cb in bundles],
+                     dtype=np.float64), reps),
+        baseline_runtime_ns=float(sum(cb.baseline_runtime_ns
+                                      for cb in bundles)))
+
+
+@dataclass(frozen=True)
+class MultiSweepResult:
+    """Per-bundle ``SweepResult``\\ s priced in ONE batched evaluation.
+
+    ``sweep_run_many`` packs every bundle into a super-bundle, prices it
+    under the grid, then splits the component matrices back per bundle, so
+    ``result[i]`` carries what ``sweep_run(bundle_i, grid)`` would (same
+    backend) while the kernel ran once.  ``names`` labels the bundles.
+    """
+
+    grid: ParamGrid
+    results: tuple          # one SweepResult per bundle, input order
+    names: tuple = ()
+
+    def __post_init__(self):
+        if not self.names:
+            object.__setattr__(
+                self, "names",
+                tuple(f"bundle{i}" for i in range(len(self.results))))
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __iter__(self):
+        return iter(self.results)
+
+    def __getitem__(self, key) -> SweepResult:
+        if isinstance(key, str):
+            return self.results[self.names.index(key)]
+        return self.results[key]
+
+    # -- deployment-level aggregates -----------------------------------------
+    def predicted_runtime_ns(self, weights=None, replaced=None) -> np.ndarray:
+        """(S,) deployment wall time: each bundle's predicted runtime,
+        weighted by how often that step runs (``weights``, default 1
+        each)."""
+        w = self._weights(weights)
+        out = np.zeros(len(self.grid), dtype=np.float64)
+        for wi, r in zip(w, self.results):
+            out = out + wi * r.predicted_runtime_ns(replaced)
+        return out
+
+    def predicted_speedup(self, weights=None, replaced=None) -> np.ndarray:
+        """(S,) deployment speedup = Σ w·baseline / Σ w·predicted (ones
+        when there are no bundles)."""
+        w = self._weights(weights)
+        base = sum(wi * r.compiled.baseline_runtime_ns
+                   for wi, r in zip(w, self.results))
+        if not self.results or base == 0.0:
+            return np.ones(len(self.grid), dtype=np.float64)
+        return base / self.predicted_runtime_ns(weights, replaced)
+
+    def best_scenario(self, weights=None, replaced=None) -> int:
+        if len(self.grid) == 0:
+            raise ValueError("best_scenario() on an empty grid: the sweep "
+                             "has 0 scenarios, so there is no argmax")
+        return int(np.argmax(self.predicted_speedup(weights, replaced)))
+
+    def n_beneficial(self) -> np.ndarray:
+        """(S,) beneficial call-sites across the whole deployment."""
+        out = np.zeros(len(self.grid), dtype=np.int64)
+        for r in self.results:
+            out = out + r.n_beneficial()
+        return out
+
+    def summary_rows(self, weights=None, replaced=None) -> list:
+        """One dict per scenario: varied axes + per-bundle and deployment
+        speedups."""
+        speed = self.predicted_speedup(weights, replaced)
+        nben = self.n_beneficial()
+        per = {n: r.predicted_speedup(replaced)
+               for n, r in zip(self.names, self.results)}
+        rows = []
+        for i, lab in enumerate(self.grid.labels()):
+            row = {**lab, "predicted_speedup": float(speed[i]),
+                   "n_beneficial": int(nben[i])}
+            for n in self.names:
+                row[f"speedup[{n}]"] = float(per[n][i])
+            rows.append(row)
+        return rows
+
+    def _weights(self, weights) -> list:
+        if weights is None:
+            return [1.0] * len(self.results)
+        if hasattr(weights, "step_weights"):
+            # anything reporting its observed step mix (a serve engine)
+            weights = weights.step_weights()
+        if isinstance(weights, dict):
+            return [float(weights.get(n, 1.0)) for n in self.names]
+        w = list(weights)
+        if len(w) != len(self.results):
+            raise ValueError(f"{len(w)} weights for {len(self.results)} "
+                             "bundles")
+        return [float(v) for v in w]
+
+
+def _sweep_plan_many(bundles, grid, plan: ExecPlan | None, names=None,
+                     mpi_transfer=None, free_transfer=None
+                     ) -> MultiSweepResult:
+    """Multi-bundle execution core: pack every bundle into one
+    offset-segment-id super-bundle (:func:`concat_bundles`), price it with
+    ONE backend invocation, and split the matrices per bundle on the
+    pricing device, before they are copied to the host."""
+    if plan is not None and is_streaming(plan.backend):
+        raise ValueError(
+            f"backend {plan.backend!r} is a streaming reducer and returns "
+            "no per-bundle matrices to split; price each bundle "
+            "separately, or pass a matrix backend (see known_backends())")
+    cbs = [b if isinstance(b, CompiledBundle) else compile_bundle(b)
+           for b in bundles]
+    names = tuple(names) if names is not None else ()
+    if names and len(names) != len(cbs):
+        raise ValueError(f"{len(names)} names for {len(cbs)} bundles")
+    if not cbs:
+        return MultiSweepResult(grid=grid, results=(), names=names)
+
+    plan, run = _resolve(plan)
+    ends = np.cumsum([0] + [cb.n_calls for cb in cbs]).tolist()
+    parts = _matrices(concat_bundles(cbs), grid, plan, run,
+                      list(zip(ends[:-1], ends[1:])), mpi_transfer,
+                      free_transfer)
+    return MultiSweepResult(
+        grid=grid, names=names,
+        results=tuple(SweepResult(grid=grid, compiled=cb, **mats)
+                      for cb, mats in zip(cbs, parts)))
+
+
+def sweep_run_many(bundles, grid: ParamGrid, names=None, mpi_transfer=None,
+                   free_transfer=None,
+                   plan: ExecPlan | str | None = None) -> MultiSweepResult:
+    """Price MANY bundles (``TraceBundle`` or ``CompiledBundle``, mixed
+    freely) under one scenario grid in one batched evaluation — a thin
+    wrapper over the ``price()`` multi-bundle core."""
+    if isinstance(plan, str):
+        plan = ExecPlan.parse(plan)
+    return _sweep_plan_many(bundles, grid, plan, names,
+                            mpi_transfer, free_transfer)

@@ -326,12 +326,14 @@ def test_bundle_tensors_are_cached_per_device(compiled):
 def test_exec_plan_round_trips_and_rejects_jax_backends():
     assert pt.ExecPlan() == pt.ExecPlan("fused", None, "cuda")
     for spec in ("fused", "numpy", "torch:chunk=8", "torch:device=cpu",
-                 "fused:chunk=4,device=cuda:0"):
+                 "fused:chunk=4,device=cuda:0", "distributed",
+                 "distributed:device=cpu,x64=0,devices=4,topk=8,refine=1"):
         p = pt.ExecPlan.parse(spec)
         assert pt.ExecPlan.parse(p.to_string()) == p
         assert p.to_string() == spec
-    assert pt.known_backends() == ("fused", "numpy", "torch")
-    for name in ("jax", "pallas", "distributed"):
+    assert pt.known_backends() == ("distributed", "fused", "numpy", "torch")
+    assert pt.is_streaming("distributed")
+    for name in ("jax", "pallas"):
         with pytest.raises(ValueError, match="unknown backend"):
             pt.ExecPlan.parse(name)
     for bad in ("torch:chunk=0", "torch:vmap=1", "torch:chunk=1,chunk=2",
@@ -350,16 +352,43 @@ def test_no_fallback_to_the_cpu(compiled):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default plan prices there")
     _, pg = _grids("product", cxl_lat_ns=[250.0, 500.0])
-    for plan in (None, "torch", pt.ExecPlan("fused", chunk_scenarios=1)):
+    matrix = (None, "torch", pt.ExecPlan("fused", chunk_scenarios=1),
+              pt.ExecPlan("fused", x64=False), "torch:x64=0")
+    for plan in matrix + ("distributed", "distributed:topk=4,refine=1"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pt.price(compiled[1], pg, plan=plan)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        pt.price(compiled[1], pt.ParamGrid.from_params([]))
+    for plan in matrix:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pt.price([compiled[1], compiled[1]], pg, plan=plan)
+    for plan in (None, "distributed"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pt.price(compiled[1], pt.ParamGrid.from_params([]), plan=plan)
 
 
 def test_unported_subjects_raise_type_error(compiled):
+    """HLO text, compiled artifacts and serve engines come with the advisor
+    and raise; lists and mappings of bundles price (the multi-bundle
+    sweep), and a list holding HLO text raises as the text alone does."""
     _, pg = _grids("product", cxl_lat_ns=[250.0])
-    with pytest.raises(TypeError, match="advisor"):
-        pt.price("HloModule m", pg, plan=_plan("numpy"))
-    with pytest.raises(TypeError, match="multi-bundle"):
-        pt.price([compiled[1]], pg, plan=_plan("numpy"))
+
+    class Compiled:
+        def as_text(self):
+            return "HloModule m"
+
+    class Engine:
+        def compiled_steps(self):
+            return {"decode": compiled[1]}
+
+    for subject in ("HloModule m", Compiled(), Engine(),
+                    [compiled[1], "HloModule m"]):
+        with pytest.raises(TypeError, match="advisor"):
+            pt.price(subject, pg, plan=_plan("numpy"))
+    with pytest.raises(TypeError, match="expected a TraceBundle"):
+        pt.price(42, pg, plan=_plan("numpy"))
+    single = pt.price(compiled[1], pg, plan=_plan("numpy"))
+    for subject in ([compiled[1]], {"step": compiled[1]}):
+        multi = pt.price(subject, pg, plan=_plan("numpy"))
+        assert isinstance(multi, pt.MultiSweepResult) and len(multi) == 1
+        for f in pt.MATRIX_FIELDS:
+            np.testing.assert_array_equal(getattr(multi[0], f),
+                                          getattr(single, f))

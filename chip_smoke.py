@@ -94,9 +94,31 @@ failure exits non-zero and no result line is printed:
                 time (tokens/s), and one traced forward, with the SM clock
                 read before and after it and sampled during it (two traces
                 that agree on their device events);
- 12. the ``kernels`` JSON line (the bracket kernel's launches also by
-     path), the nvidia-smi line, and last ``{"ok": true, "device":
-     {...}}``.
+ 12. serving  — the same model behind the port's engines (kernel launches
+                read from the wrappers, every flash and scan call of a
+                prefill held against its plain version as in phase 10):
+                (a) ``ServeEngine.generate`` of 2 x 1,024-token prompts,
+                32 new tokens, ``max_len`` 4,096; (b) ``prefill`` + 32
+                ``decode_step``s on those prompts against ``model(batch)``
+                over the same tokens (bf16: the relative norm per step
+                logged, with the positions an MoE layer of the forward
+                routes or drops otherwise; float32, the model converted
+                after (f), the MoE capacity raised so that nothing drops:
+                relative norm <= 1e-4 per step); (c) the continuous and
+                paged engines (8 slots, paged blocks of 16 at the
+                dense-equivalent pool) on one Poisson workload (16
+                requests at 0.5 a step, prompts of 256-2,048 tokens,
+                16-64 new), in turns (continuous, paged, paged,
+                continuous), every run's tokens equal; (d) 1 flash launch (on
+                the tensor-core route) and 7 scan launches per admission,
+                none in decode; (e) the reduced qwen2.5-3b and jamba in
+                float32, kernels on: greedy tokens equal across the three
+                engines; (f) prefill times by prompt length, the 8-slot
+                decode step's CUDA-event time and trace, and
+                ``run_workload``'s TTFT, latency, tokens/s and KV bytes;
+ 13. the ``kernels`` JSON line (the bracket kernel's launches also by
+     path; the LM kernels' launches of the forward and of serving), the
+     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -178,6 +200,22 @@ S_STREAM = 524_288
 STREAM_PLAN = "distributed:topk=64,refine=1"
 STREAM_TOPK, STREAM_TILE, STREAM_DEVICES = 64, 4096, 4
 RTOL_F32 = 1e-2
+# the serving phase: the static engine's batch, the Poisson workload of the
+# continuous and paged engines, their slots, block size and run order,
+# the prompt lengths timed, teacher forcing's bounds (bf16: the bound of
+# tests/test_torch_models.py test_bf16_forward_with_kernels, logged
+# against; float32: the f32 bound of that file, held), and the reduced
+# f32 archs whose greedy tokens must agree across the three engines
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 2, 1024, 32, 4096
+SERVE_WORKLOAD = dict(n=16, rate=0.5, prompt_len="uniform:256:2048",
+                      new_tokens="uniform:16:64", vocab_size=65536, seed=0,
+                      max_len=SERVE_MAX_LEN)
+SERVE_SLOTS, SERVE_BLOCK = 8, 16
+SERVE_TURNS = ("continuous", "paged", "paged", "continuous")
+SERVE_PREFILL_LENS = (256, 517, 1024, 2047)
+RTOL_NORM_SERVE = 3e-2
+RTOL_NORM_SERVE_F32 = 1e-4
+SERVE_F32_ARCHS = ("qwen2.5-3b", "jamba-v0.1-52b")
 BRACKET_CASES = [(1, 1, 4, 0, 3), (3, 5, 40, 17, 29), (16, 3, 128, 128, 128),
                  (7, 130, 200, 150, 90), (2, 4, 0, 0, 0), (2, 3, 640, 10, 5),
                  (0, 3, 10, 5, 2), (4, 0, 0, 0, 0)]
@@ -1328,7 +1366,7 @@ def phase_lm(torch, fa, ms):
 
         # every kernel call of the forward against its plain version
         (args, kw, out), = rec["flash_attention"].calls
-        want_fa = fa.attention_ref(*args, **kw)
+        want_fa = fa.attention_ref(*args, causal=kw.get("causal", True))
         err_fa = hold(torch, out, want_fa, TOL_FLASH_LM)
         mag = want_fa.float().abs()
         rel_fa = float(torch.linalg.vector_norm(out.float() - want_fa.float())
@@ -1488,6 +1526,291 @@ def phase_lm_times(torch, F, fa, ms, model, batch, rec, errs, card):
     ]
 
 
+def hold_lm_calls(torch, fa, ms, rec) -> tuple:
+    """Every recorded flash and scan call against its plain version on the
+    same inputs (flash elementwise at TOL_FLASH_LM and as a whole at
+    RTOL_NORM_FLASH_LM, scan y and h_final at TOL_SCAN); the records are
+    emptied.  Returns (flash max_abs_err, scan max_abs_err, worst flash
+    relative norm)."""
+    with torch.inference_mode():
+        return _hold_lm_calls(torch, fa, ms, rec)
+
+
+def _hold_lm_calls(torch, fa, ms, rec) -> tuple:
+    err_fa = err_ms = rel_fa = 0.0
+    for args, kw, out in rec["flash_attention"].calls:
+        want = fa.attention_ref(*args, causal=kw.get("causal", True))
+        err_fa = max(err_fa, hold(torch, out, want, TOL_FLASH_LM))
+        rel = float(torch.linalg.vector_norm(out.float() - want.float())
+                    / torch.linalg.vector_norm(want.float()))
+        assert rel <= RTOL_NORM_FLASH_LM, (tuple(args[0].shape), rel)
+        rel_fa = max(rel_fa, rel)
+    for args, kw, (y, h) in rec["mamba_scan"].calls:
+        yr, hr = ms.mamba_scan_ref(*args)
+        err_ms = max(err_ms, hold(torch, y, yr, TOL_SCAN),
+                     hold(torch, h, hr, TOL_SCAN))
+    for r in rec.values():
+        r.calls.clear()
+    return err_fa, err_ms, rel_fa
+
+
+def phase_serve(torch, np, fa, ms, model, card):
+    """Serving on the full-width model of the LM phases: the static engine,
+    the continuous and paged engines on one Poisson workload (both kernels
+    in every prefill, each call held against its plain version), teacher
+    forcing, the reduced f32 archs' greedy tokens across the three engines,
+    and the serving times.  Returns the kernel launches of the serving
+    path and the kernels' max_abs_err over its calls."""
+    import types
+    from repro_torch import configs
+    from repro_torch.models import layers, make_model
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.serve import (ContinuousEngine, PagedContinuousEngine,
+                                   ServeEngine, poisson_workload,
+                                   run_workload)
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    dev = torch.device(DEVICE)
+    per_admission = {"flash_attention": sum(
+        s.spec.mixer == "attn" for s in model.stack), "mamba_scan": sum(
+        s.spec.mixer == "mamba" for s in model.stack)}
+    assert per_admission == {"flash_attention": 1, "mamba_scan": 7}
+    prompts = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    work = poisson_workload(**SERVE_WORKLOAD)
+    lens = [len(p) for p in work.prompts]
+    log(f"serve: {cfg.name} x {cfg.n_layers} layers, {cfg.dtype}, kernels "
+        f"on; workload {work.meta}: prompt lengths {lens}, budgets "
+        f"{work.max_new.tolist()}, arrivals {work.arrivals.tolist()}")
+
+    rec = {"flash_attention": _Recorder(fa.flash_attention),
+           "mamba_scan": _Recorder(ms.mamba_scan)}
+    fa_ops, ms_ops = layers.fa_ops, mamba_mod.ms_ops
+    layers.fa_ops = types.SimpleNamespace(
+        flash_attention=rec["flash_attention"])
+    mamba_mod.ms_ops = types.SimpleNamespace(mamba_scan=rec["mamba_scan"])
+    errs, runs = [], []
+    try:
+        fa.flash_attention.launches = 0
+        fa.flash_attention.route_launches = {"sm90": 0, "simt": 0}
+        ms.mamba_scan.launches = 0
+        # (a) the static engine
+        static = ServeEngine(model=model, max_len=SERVE_MAX_LEN)
+        t0 = time.perf_counter()
+        gen = static.generate(prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        static_s = time.perf_counter() - t0
+        assert tuple(gen.shape) == (SERVE_BATCH, SERVE_NEW)
+        n_calls = {k: len(r.calls) for k, r in rec.items()}
+        assert n_calls == per_admission, n_calls
+        errs.append(hold_lm_calls(torch, fa, ms, rec))
+        log(f"serve (a): ServeEngine.generate {SERVE_BATCH} x {SERVE_PROMPT}"
+            f" prompt tokens + {SERVE_NEW} new in {static_s:.3f} s (first "
+            f"call) [{card}]; kernel calls {n_calls}, each held against its "
+            f"plain version: flash max_abs_err {errs[-1][0]:.3e}, relative "
+            f"norm {errs[-1][2]:.3e}, scan {errs[-1][1]:.3e}")
+        # (c) the continuous and paged engines on one workload, in turns
+        make = {"continuous": lambda: ContinuousEngine(
+                    model=model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN),
+                "paged": lambda: PagedContinuousEngine(
+                    model=model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                    block_size=SERVE_BLOCK)}
+        for name in SERVE_TURNS:
+            eng = make[name]()
+            outs, report = run_workload(eng, work)
+            runs.append((name, eng, outs, report))
+            n_calls = {k: len(r.calls) for k, r in rec.items()}
+            want = {k: v * len(work) for k, v in per_admission.items()}
+            assert n_calls == want, (name, n_calls, want)
+            errs.append(hold_lm_calls(torch, fa, ms, rec))
+            log(f"serve (c) {name}: kernel calls {n_calls} ({len(work)} "
+                f"admissions), each held against its plain version: flash "
+                f"max_abs_err {errs[-1][0]:.3e}, relative norm "
+                f"{errs[-1][2]:.3e}, scan {errs[-1][1]:.3e}")
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "mamba_scan": ms.mamba_scan.launches}
+        routes = dict(fa.flash_attention.route_launches)
+    finally:
+        layers.fa_ops, mamba_mod.ms_ops = fa_ops, ms_ops
+    admissions = 1 + len(SERVE_TURNS) * len(work)
+    want = {k: v * admissions for k, v in per_admission.items()}
+    assert launches == want, (launches, want)
+    assert routes == {"sm90": want["flash_attention"], "simt": 0}, routes
+    first = runs[0][2]
+    for name, _, outs, _ in runs[1:]:
+        assert all(np.array_equal(a, b) for a, b in zip(first, outs)), \
+            f"{name} tokens differ from the first run's"
+    assert [len(o) for o in first] == work.max_new.tolist()
+    log(f"serve (d): launches over the static run and the runs "
+        f"{', '.join(SERVE_TURNS)} {launches} = {admissions} admissions x "
+        f"{per_admission}, flash routes {routes}; decode launched none; "
+        f"every run's tokens equal ({sum(map(len, first))} tokens)")
+    for name, eng, _, report in runs:
+        st = eng.stats
+        log(f"serve [{card}] {name}: {report.as_dict()}; decode steps "
+            f"{st.decode_steps}, occupancy {st.occupancy:.3f}, prefills "
+            f"{st.prefills} ({st.prefill_tokens} tokens), wall "
+            f"{st.wall_s:.3f} s")
+    paged = runs[-2][1].stats
+    log(f"serve: paged kv_bytes_peak {paged.kv_bytes_peak} against "
+        f"kv_bytes_dense {paged.kv_bytes_dense} "
+        f"({paged.kv_bytes_peak / paged.kv_bytes_dense:.3f})")
+    del runs, first
+    torch.cuda.empty_cache()
+
+    # (b) teacher forcing on the served bf16 model
+    rels, moved = teacher_force(torch, model, prompts, gen)
+    clean = rels[~moved] if (~moved).any() else np.full(1, np.nan)
+    log(f"serve (b) bf16: prefill + {SERVE_NEW} decode steps against the "
+        f"forward over the same {SERVE_PROMPT + SERVE_NEW} tokens: decode's "
+        f"greedy choices repeat the engine's; relative norm of each row's "
+        f"logits per step max {rels.max():.3e}, median "
+        f"{float(np.median(rels)):.3e}; {int(moved.sum())} of {moved.size} "
+        f"positions routed or dropped otherwise by an MoE layer of the "
+        f"forward (max {rels[moved].max() if moved.any() else 0:.3e}), the "
+        f"other {int((~moved).sum())} max {clean.max():.3e} median "
+        f"{float(np.median(clean)):.3e}; {int((rels <= RTOL_NORM_SERVE).sum())}"
+        f" within the bf16 forward's bound {RTOL_NORM_SERVE} (logged, not "
+        f"held: the float32 check below holds the cache)")
+
+    # (e) the reduced f32 archs: one greedy output from three engines
+    for arch in SERVE_F32_ARCHS:
+        small = make_model(configs.get_arch(arch).reduced(), use_kernel=True,
+                           device=DEVICE, generator=torch.Generator(
+                               device=DEVICE).manual_seed(LM_SEED))
+        ps = np.random.default_rng(1).integers(
+            0, small.cfg.vocab_size, size=(3, 7)).astype(np.int32)
+        want = ServeEngine(model=small, max_len=16).generate(ps, 5)
+        want = want.cpu().numpy()
+        reqs = [(ps[i], 5, i) for i in range(3)]
+        got = {"continuous": ContinuousEngine(model=small, n_slots=2,
+                                              max_len=16).run(reqs),
+               "paged": PagedContinuousEngine(model=small, n_slots=2,
+                                              max_len=16,
+                                              block_size=4).run(reqs)}
+        for name, outs in got.items():
+            assert np.array_equal(np.stack(outs), want), (arch, name, outs,
+                                                          want)
+        log(f"serve (e): {arch} reduced, float32, kernels on: greedy tokens "
+            f"equal across the static, continuous and paged engines "
+            f"{want.tolist()}")
+        del small
+
+    # (f) times: prefill by prompt length, the 8-slot decode step
+    with torch.inference_mode():
+        rng = np.random.default_rng(LM_SEED + 1)
+        for L in SERVE_PREFILL_LENS:
+            batch = {"tokens": torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, size=(1, L), dtype=np.int32), device=dev)}
+            t = cuda_ms(torch, lambda: model.prefill(batch, SERVE_MAX_LEN),
+                        reps=5, warmup=1)
+            log(f"time [{card}]: prefill of {L} tokens (batch 1, kernels "
+                f"on, CUDA events, median of 5): {t:.3f} ms = "
+                f"{L / t * 1e3:.1f} tokens/s")
+        caches = model.init_caches(SERVE_SLOTS, SERVE_MAX_LEN)
+        tok = torch.as_tensor(prompts[:1, :SERVE_SLOTS].T.copy(), device=dev)
+        pos = torch.arange(SERVE_SLOTS, device=dev, dtype=torch.int32) \
+            * (SERVE_MAX_LEN // SERVE_SLOTS) + SERVE_PROMPT // 4
+        step = lambda: model.decode_step(caches, {"tokens": tok}, pos)
+        dec_ms = cuda_ms(torch, step, reps=25, warmup=3)
+        events, wall = steady_traces(torch, step, count=2)[-1]
+        busy = busy_ms(events)
+        share = 100 * busy / 1e3 / wall
+        log(f"time [{card}]: decode step of {SERVE_SLOTS} slots (a position "
+            f"each, cache {SERVE_MAX_LEN}): {dec_ms:.3f} ms (CUDA events, "
+            f"median of 25) = {SERVE_SLOTS / dec_ms * 1e3:.1f} tokens/s; "
+            f"traced (two traces agreeing): wall {wall * 1e3:.3f} ms, "
+            f"{len(events)} device events busy {busy:.3f} ms ({share:.2f}%; "
+            f"idle {100 - share:.2f}%); top device operations: "
+            + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in
+                        top_ops(events, 8)))
+        del caches
+    # (b) teacher forcing in float32, nothing dropped by the MoE layers:
+    # bf16 rounds decode and the forward differently, and the forward's
+    # capacity (all 2 x 1,056 tokens at once) drops assignments that the
+    # engine's prefill and decode keep; the model is served no further
+    model.float()
+    model.cfg = cfg.replace(
+        capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    torch.cuda.empty_cache()
+    gen32 = ServeEngine(model=model, max_len=SERVE_MAX_LEN).generate(
+        prompts, SERVE_NEW)
+    rels, moved = teacher_force(torch, model, prompts, gen32)
+    log(f"serve (b) float32, capacity {model.cfg.capacity_factor:g} (no "
+        f"drops): relative norm of each row's logits per step max "
+        f"{rels.max():.3e}, median {float(np.median(rels)):.3e} (bound "
+        f"{RTOL_NORM_SERVE_F32}); {int(moved.sum())} positions routed "
+        f"otherwise; {int((gen32 == gen).sum())} of {gen.numel()} greedy "
+        f"tokens as in bf16")
+    assert rels.max() <= RTOL_NORM_SERVE_F32 and not moved.any(), rels
+    model.cfg = cfg
+    log(f"serve: phase {time.perf_counter() - t_phase:.1f} s")
+    worst = [max(e[i] for e in errs) for i in range(2)]
+    return launches, worst
+
+
+def teacher_force(torch, model, prompts, gen):
+    """``model.prefill`` of ``prompts`` and a ``decode_step`` for each
+    token of ``gen`` against ``model(prompts + gen)``.  Returns, for each
+    row and each of the 1 + n positions: the relative norm of the logits,
+    and whether an MoE layer of the forward routed that position to other
+    experts than prefill / decode did or dropped one of its assignments
+    there.  Decode's greedy choices must repeat ``gen``."""
+    from repro_torch.models import moe
+
+    S, n = prompts.shape[1], gen.shape[1]
+    routes = []                       # (sorted top-k, all kept) per call
+    moe_ffn = moe.moe_ffn
+
+    def recording(p, x, cfg, impl="scatter", per_row=False):
+        B, T, d = x.shape
+        _, topi, _ = moe._route(p, x.reshape(B * T, d), cfg)
+        groups = B if per_row else 1
+        flat = topi.reshape(groups, -1)
+        onehot = torch.nn.functional.one_hot(flat, cfg.n_experts)
+        rank = (onehot.cumsum(1) - 1).gather(2, flat[..., None])[..., 0]
+        keep = rank < moe.capacity(cfg, B * T // groups)
+        routes.append((topi.sort(-1)[0].reshape(B, T, -1),
+                       keep.reshape(B, T, -1).all(-1)))
+        return moe_ffn(p, x, cfg, impl=impl, per_row=per_row)
+
+    moe.moe_ffn = recording
+    try:
+        with torch.inference_mode():
+            toks = torch.as_tensor(prompts, device=torch.device(DEVICE))
+            logits, caches = model.prefill({"tokens": toks}, SERVE_MAX_LEN)
+            steps = [logits[:, 0]]
+            for i in range(n):
+                logits, caches = model.decode_step(
+                    caches, {"tokens": gen[:, i:i + 1]}, S + i)
+                steps.append(logits[:, 0])
+            del caches
+            assert torch.equal(torch.stack(steps[:-1], 1).argmax(-1).int(),
+                               gen)
+            # each MoE layer's routing of the 1 + n positions as served:
+            # the prefill's last position, then one decode call per step
+            n_moe = len(routes) // (1 + n)
+            served = [[torch.cat([routes[k * n_moe + m][f][:, -1:]
+                                  for k in range(1 + n)], 1) for f in (0, 1)]
+                      for m in range(n_moe)]
+            routes.clear()
+            full, _ = model({"tokens": torch.cat([toks, gen], 1)})
+            want = full[:, S - 1:].float()
+            got = torch.stack(steps, 1).float()
+            rels = (torch.linalg.vector_norm(got - want, dim=-1)
+                    / torch.linalg.vector_norm(want, dim=-1))
+            del full, want, got, steps
+    finally:
+        moe.moe_ffn = moe_ffn
+    moved = torch.zeros_like(rels, dtype=torch.bool)
+    for (topi, keep), (s_topi, s_keep) in zip(routes, served):
+        moved |= (topi[:, S - 1:] != s_topi).any(-1) | ~keep[:, S - 1:] \
+            | ~s_keep
+    return rels.cpu().numpy(), moved.cpu().numpy()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1584,11 +1907,20 @@ def main() -> int:
     launches.update(lm_launches)
     kernels += phase_lm_times(torch, F, fa, ms_k, model, batch, rec, errs,
                               card)
-    del model, batch, rec
+    del batch, rec
+    torch.cuda.empty_cache()
+
+    # 12. serving on the same model
+    serve_launches, serve_errs = phase_serve(torch, np, fa, ms_k, model,
+                                             card)
+    for k, err in zip(kernels[-2:], serve_errs):
+        launches[k["name"]] += serve_launches[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+    del model
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    # 12. result lines
+    # 13. result lines
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

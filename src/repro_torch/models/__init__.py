@@ -6,8 +6,9 @@ architecture (dense, MoE, hybrid, SSM, VLM and audio backbones).
 next-token cross-entropy.  With ``use_kernel`` the attention layers run the
 CUDA kernel of ``kernels.flash_attention`` and the Mamba layers the one of
 ``kernels.mamba_scan``.  ``convert.params_from_jax`` loads the JAX
-package's parameters, so that both compute the same function.  Prefill,
-decode and their caches come with serving.
+package's parameters, so that both compute the same function.
+``prefill`` / ``decode_step`` / ``init_caches`` serve it (``repro_torch
+.serve``); ``convert.caches_from_jax`` loads the reference's caches.
 """
 from .config import ArchConfig, ShapeConfig, SHAPES
 from .factory import make_inputs, make_model

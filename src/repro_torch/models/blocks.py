@@ -15,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import layers, mamba, moe
@@ -94,9 +95,23 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator) -> nn.ModuleList:
 
 
 # -------------------------------------------------------------------- apply
+def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
+         per_row: bool = False):
+    """The layer's FFN half: (x, MoE aux loss or 0)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.ffn == "dense":
+        h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        x = x + layers.mlp_block(p["mlp"], h, cfg)
+    elif spec.ffn == "moe":
+        h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl,
+                             per_row=per_row)
+        x = x + y
+    return x, aux
+
+
 def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
                  use_kernel: bool, moe_impl: str):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.mixer == "attn":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
         x = x + layers.attention_block(p["attn"], h, cfg, positions,
@@ -104,14 +119,7 @@ def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
     elif spec.mixer == "mamba":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
         x = x + mamba.mamba_block(p["mamba"], h, cfg, use_kernel=use_kernel)
-    if spec.ffn == "dense":
-        h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + layers.mlp_block(p["mlp"], h, cfg)
-    elif spec.ffn == "moe":
-        h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl)
-        x = x + y
-    return x, aux
+    return _ffn(p, spec, x, cfg, moe_impl)
 
 
 def stack_apply(stack, x, cfg: ArchConfig, positions=None,
@@ -123,3 +131,75 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
                             moe_impl)
         aux = aux + a
     return x, aux
+
+
+# ----------------------------------------------------------- prefill/decode
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, device):
+    """Zeroed decode caches, one entry per layer: attention -> {"k": (B,
+    max_len, Hkv, D), "v": ...}; mamba -> MambaState; FFN-only -> None."""
+    dt = layers.dtype_of(cfg)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    caches = []
+    for spec in layer_specs(cfg):
+        if spec.mixer == "attn":
+            caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                           "v": torch.zeros(shape, dtype=dt, device=device)})
+        elif spec.mixer == "mamba":
+            caches.append(mamba.init_mamba_state(cfg, batch, device))
+        else:
+            caches.append(None)
+    return caches
+
+
+def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
+                  use_kernel: bool = False, moe_impl: str = "scatter"):
+    """Forward producing decode caches (k/v padded to ``max_len``)."""
+    S = x.shape[1]
+    caches = []
+    for layer in stack:
+        spec = layer.spec
+        if spec.mixer == "attn":
+            h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+            out, k, v = layers.attention_prefill(layer["attn"], h, cfg,
+                                                 use_kernel)
+            x = x + out
+            pad = (0, 0, 0, 0, 0, max_len - S)
+            caches.append({"k": F.pad(k, pad), "v": F.pad(v, pad)})
+        elif spec.mixer == "mamba":
+            h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+            out, state = mamba.mamba_prefill(layer["mamba"], h, cfg,
+                                             use_kernel)
+            x = x + out
+            caches.append(state)
+        else:
+            caches.append(None)
+        x, _ = _ffn(layer, spec, x, cfg, moe_impl)
+    return x, caches
+
+
+def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
+                 moe_impl: str = "scatter"):
+    """One step through the stack.  x: (B, S, d); ``pos`` an int (the write
+    index of the whole batch) or a (B,) tensor (one per row).  Attention
+    caches are written in place; returns (x, caches).  With a position per
+    row, each row is a sequence of its own, so the MoE layers route each
+    row on its own too (see ``models.moe``)."""
+    per_row = torch.is_tensor(pos) and pos.ndim == 1
+    new_caches = []
+    for layer, c in zip(stack, caches):
+        spec = layer.spec
+        if spec.mixer == "attn":
+            h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+            out, ck, cv = layers.attention_decode(layer["attn"], h, cfg,
+                                                  c["k"], c["v"], pos)
+            x = x + out
+            new_caches.append({"k": ck, "v": cv})
+        elif spec.mixer == "mamba":
+            h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+            out, state = mamba.mamba_decode(layer["mamba"], h, cfg, c)
+            x = x + out
+            new_caches.append(state)
+        else:
+            new_caches.append(None)
+        x, _ = _ffn(layer, spec, x, cfg, moe_impl, per_row)
+    return x, new_caches

@@ -1,4 +1,5 @@
-"""Load the JAX package's parameters into the port's model.
+"""Load the JAX package's parameters and decode caches into the port's
+model.
 
 The reference's parameter tree is nested dicts with the stack as a list,
 one entry per pattern position, each stacked along a leading ``n_blocks``
@@ -15,6 +16,7 @@ import torch
 
 from .blocks import layer_pattern, n_blocks
 from .config import ArchConfig
+from .mamba import MambaState
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -57,3 +59,26 @@ def params_from_jax(cfg: ArchConfig, tree) -> dict:
             for i in range(nb):
                 flat[f"stack.{i * P + pos}.{name}"] = leaf[i]
     return {k: to_tensor(v) for k, v in flat.items()}
+
+
+def caches_from_jax(cfg: ArchConfig, caches) -> list:
+    """The reference's decode caches (one entry per pattern position,
+    stacked along ``n_blocks``: ``{"k", "v"}`` dicts, ``MambaState``s or
+    ``None``; numpy leaves) as the port's per-layer list."""
+    P, nb = len(layer_pattern(cfg)), n_blocks(cfg)
+    if len(caches) != P:
+        raise ValueError(f"{cfg.name}: {len(caches)} cache entries, the "
+                         f"config has {P} pattern positions")
+    out = [None] * (P * nb)
+    for pos, c in enumerate(caches):
+        for i in range(nb):
+            if c is None:
+                continue
+            if isinstance(c, dict):
+                out[i * P + pos] = {k: to_tensor(np.asarray(v)[i])
+                                    for k, v in c.items()}
+            else:
+                out[i * P + pos] = MambaState(
+                    conv=to_tensor(np.asarray(c[0])[i]),
+                    ssm=to_tensor(np.asarray(c[1])[i]))
+    return out

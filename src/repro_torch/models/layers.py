@@ -147,7 +147,8 @@ def _project_qkv(p, x, cfg: ArchConfig, positions):
 
 def gqa_attention(q, k, v, causal: bool = True, kv_positions=None,
                   q_positions=None):
-    """Grouped-query attention.  q: (B,S,Hq,D), k/v: (B,T,Hkv,D)."""
+    """Grouped-query attention.  q: (B,S,Hq,D), k/v: (B,T,Hkv,D);
+    ``q_positions`` (S,) or, one row per sequence, (B, S)."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -158,7 +159,10 @@ def gqa_attention(q, k, v, causal: bool = True, kv_positions=None,
             q_positions = torch.arange(S, device=q.device)
         if kv_positions is None:
             kv_positions = torch.arange(T, device=q.device)
-        mask = q_positions[:, None] >= kv_positions[None, :]
+        # (S, T), or (B, 1, 1, S, T) when every row has its own positions
+        mask = q_positions[..., :, None] >= kv_positions[None, :]
+        if mask.ndim == 3:
+            mask = mask[:, None, None]
         scores = torch.where(mask, scores, scores.new_tensor(-1e30))
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v)
@@ -232,13 +236,57 @@ def attention_block(p, x, cfg: ArchConfig, positions=None,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
+    return _attend(q, k, v, use_kernel) @ p["wo"]
+
+
+def _attend(q, k, v, use_kernel: bool):
+    """Causal attention over a whole sequence: the kernel, or the plain
+    paths split at :data:`CHUNKED_ATTN_THRESHOLD`.  The kernel's block sizes
+    are the sequence itself, which divides any length (the CUDA kernels
+    tile on their own; the wrapper's blocks only shape its checks), so a
+    prompt of any length runs on it."""
+    B, S = q.shape[:2]
     if use_kernel:
-        out = fa_ops.flash_attention(q, k, v, causal=True).reshape(B, S, -1)
-    elif S > CHUNKED_ATTN_THRESHOLD:
-        out = chunked_attention(q, k, v, causal=True)
+        out = fa_ops.flash_attention(q, k, v, causal=True, block_q=S,
+                                     block_k=k.shape[1])
+        return out.reshape(B, S, -1)
+    if S > CHUNKED_ATTN_THRESHOLD:
+        return chunked_attention(q, k, v, causal=True)
+    return gqa_attention(q, k, v, causal=True)
+
+
+def attention_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False):
+    """Full-sequence attention that also returns the (k, v) cache rows:
+    ``(out, k (B, S, Hkv, D), v)``."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    return _attend(q, k, v, use_kernel) @ p["wo"], k, v
+
+
+def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos):
+    """Decode step with a pre-filled KV cache; writes the new rows into
+    ``cache_k`` / ``cache_v`` in place and attends over the whole cache.
+
+    x: (B, S, d) — S = 1 for ordinary decode, S > 1 for a chunked-prefill
+    step that processes S prompt tokens at once; cache_k/v: (B, S_max, Hkv,
+    D); ``pos`` is the index of the FIRST new token, an int for the whole
+    batch or a (B,) tensor with one per row (the slots of a continuous
+    engine, each at its own position).  Returns (out, cache_k, cache_v).
+    """
+    B, S = x.shape[0], x.shape[1]
+    steps = torch.arange(S, device=x.device)
+    if torch.is_tensor(pos) and pos.ndim == 1:
+        positions = pos.to(x.device)[:, None] + steps          # (B, S)
     else:
-        out = gqa_attention(q, k, v, causal=True)
-    return out @ p["wo"]
+        positions = (int(pos) + steps).expand(B, S)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    rows = torch.arange(B, device=x.device)[:, None]
+    cache_k[rows, positions] = k
+    cache_v[rows, positions] = v
+    kv_pos = torch.arange(cache_k.shape[1], device=x.device)
+    out = gqa_attention(q, cache_k, cache_v, causal=True,
+                        kv_positions=kv_pos, q_positions=positions)
+    return out @ p["wo"], cache_k, cache_v
 
 
 # ---------------------------------------------------------------------- MLPs

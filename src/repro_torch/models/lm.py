@@ -1,6 +1,7 @@
 """Top-level language model: embedding/frontend + block stack + LM head.
 
-The forward parts of the JAX package's ``models/lm.py``.  One class covers
+The JAX package's ``models/lm.py``: the forward pass, and prefill / decode
+with their caches for serving.  One class covers
 all assigned families; the modality frontends (VLM patch embeddings, audio
 frame embeddings) are stubs — the backbone consumes precomputed embeddings
 provided in the batch.
@@ -93,6 +94,51 @@ class LanguageModel(nn.Module):
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
         return (lse - gold).mean() + 0.01 * aux
+
+    # --------------------------------------------------------------- serving
+    def prefill(self, batch, max_len: int, last_index=None):
+        """Process the prompt; returns (last-position logits, caches).
+
+        ``last_index`` (optional, ``(B,)`` int) selects the position whose
+        logits are returned instead of the final one — the bucketed-prefill
+        path of the continuous-batching scheduler right-pads prompts to a
+        bucket length, so the "last real token" sits at ``prompt_len - 1``.
+        Causal attention makes positions ``< prompt_len`` independent of the
+        padding, and decode overwrites the stale cache rows at padded
+        positions before they are ever attended.  With ``use_kernel`` the
+        attention and Mamba layers run the CUDA kernels, at any length.
+        """
+        x = self._embed_inputs(batch)
+        x, caches = blocks.stack_prefill(self.stack, x, self.cfg, max_len,
+                                         use_kernel=self.use_kernel,
+                                         moe_impl=self.moe_impl)
+        if last_index is None:
+            x_last = x[:, -1:]
+        else:
+            idx = torch.as_tensor(last_index, device=x.device).long()
+            x_last = x[torch.arange(x.shape[0], device=x.device),
+                       idx.reshape(-1)][:, None]
+        return self._head(x_last), caches
+
+    def decode_step(self, caches, batch, pos):
+        """New tokens at ``pos``.  ``batch`` carries the inputs at those
+        positions ({"tokens": (B, S)} or {"frame_embeds": (B, S, F)}, S = 1
+        for ordinary decode); ``pos`` is the write index into the caches:
+        an int for the whole batch, or a (B,) tensor with one per row.  The
+        attention caches are written in place; returns (logits, caches).
+        Decode runs the plain paths, as in the reference."""
+        x = self._embed_inputs(batch)
+        x, caches = blocks.stack_decode(self.stack, caches, x, self.cfg, pos,
+                                        moe_impl=self.moe_impl)
+        return self._head(x), caches
+
+    def init_caches(self, batch_size: int, max_len: int):
+        return blocks.init_caches(self.cfg, batch_size, max_len, self.device)
+
+    @property
+    def device(self) -> torch.device:
+        """The device the parameters live on."""
+        return self.final_norm.device
 
     # ------------------------------------------------------------- counting
     def param_count(self) -> int:

@@ -8,10 +8,13 @@ and a SiLU-gated output path.  ``use_kernel`` runs the recurrence on the
 CUDA kernel of ``kernels.mamba_scan``; the plain path is its sequential
 version (the reference's chunked, checkpointed scan computes the same
 recurrence; its chunks only bound the memory of the backward pass).
+Prefill also returns the decode state, ``MambaState``: the last K-1 conv
+inputs and the scan's final state; single-token decode carries it.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +27,13 @@ from .layers import Params, dtype_of, normal
 
 def dt_rank(cfg: ArchConfig) -> int:
     return max(1, math.ceil(cfg.d_model / 16))
+
+
+class MambaState(NamedTuple):
+    """Decode-time carry for one mamba layer."""
+
+    conv: torch.Tensor  # (B, K-1, d_inner) — last K-1 conv inputs
+    ssm: torch.Tensor   # (B, d_inner, N) — recurrent state, f32
 
 
 def init_mamba(cfg: ArchConfig, gen: torch.Generator) -> Params:
@@ -75,15 +85,59 @@ def _ssm_inputs(p, x, cfg: ArchConfig):
     return dt, Bt, Ct
 
 
-def mamba_block(p, x, cfg: ArchConfig, use_kernel: bool = False):
-    """Full-sequence mixer.  x: (B, L, d) -> (B, L, d)."""
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)           # (B, L, di) each
-    xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
+def _mix(p, x, cfg: ArchConfig, use_kernel: bool):
+    """Full-sequence mixer: (out (B, L, d), conv inputs (B, L, di), final
+    scan state (B, di, N) f32).  The kernel's chunk is the whole sequence,
+    which divides any length (the CUDA kernel tiles on its own), so a
+    prompt of any length runs on it, unpadded: padding would enter the
+    final state."""
+    conv_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B, L, di) each
+    xi = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
     dt, Bt, Ct = _ssm_inputs(p, xi, cfg)
     A = -torch.exp(p["A_log"])
     if use_kernel:
-        y, _ = ms_ops.mamba_scan(xi.float(), dt, Bt, Ct, A, p["D"])
+        y, h = ms_ops.mamba_scan(xi.float(), dt, Bt, Ct, A, p["D"],
+                                 chunk=max(1, xi.shape[1]))
     else:
-        y, _ = mamba_scan_ref(xi, dt, Bt, Ct, A, p["D"])
+        y, h = mamba_scan_ref(xi, dt, Bt, Ct, A, p["D"])
     y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"]
+    return y @ p["out_proj"], conv_in, h
+
+
+def mamba_block(p, x, cfg: ArchConfig, use_kernel: bool = False):
+    """Full-sequence mixer.  x: (B, L, d) -> (B, L, d)."""
+    return _mix(p, x, cfg, use_kernel)[0]
+
+
+def mamba_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False):
+    """Like ``mamba_block`` but also returns the decode state: the last
+    K-1 conv inputs (zeros before the first, as the causal conv pads) and
+    the scan's final state."""
+    out, conv_in, h = _mix(p, x, cfg, use_kernel)
+    K = cfg.ssm_conv
+    tail = F.pad(conv_in, (0, 0, max(0, K - 1 - conv_in.shape[1]), 0))
+    return out, MambaState(conv=tail[:, tail.shape[1] - (K - 1):], ssm=h)
+
+
+def mamba_decode(p, x, cfg: ArchConfig, state: MambaState):
+    """Single-token step.  x: (B, 1, d) -> (B, 1, d), new state."""
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)           # (B, 1, di)
+    window = torch.cat([state.conv, xi], dim=1)           # (B, K, di)
+    conv = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
+    xi_t = F.silu(conv)[:, None, :]                       # (B, 1, di)
+    dt, Bt, Ct = _ssm_inputs(p, xi_t, cfg)
+    A = -torch.exp(p["A_log"])
+    x0 = xi_t[:, 0].float()
+    da = torch.exp(dt[:, 0, :, None] * A)                 # (B, di, N)
+    h = da * state.ssm + (dt[:, 0] * x0)[..., None] * Bt[:, 0, None, :]
+    y = torch.einsum("bdn,bn->bd", h, Ct[:, 0]) + x0 * p["D"]
+    y = y[:, None, :].to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], MambaState(conv=window[:, 1:], ssm=h)
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int, device) -> MambaState:
+    return MambaState(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                         dtype=dtype_of(cfg), device=device),
+        ssm=torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=device))

@@ -14,6 +14,14 @@ Three details are pinned to the reference: top-k ties go to the lower
 expert index (as ``lax.top_k``), a token's rank within its expert follows
 the flat ``(T, k)`` order of the assignments, and dropped assignments are
 dropped on the way in and read back as zeros.
+
+``groups`` splits the T tokens into equal groups routed on their own: each
+group has its own capacity and its own ranks, as if each were a separate
+call.  A continuous engine decodes its slots in one batched call where the
+reference maps the model over the slots (``jax.vmap``), so that each
+slot's single token sees ``capacity(cfg, 1)`` and is never dropped;
+``moe_ffn(..., per_row=True)`` gives each batch row its own group to match.
+The experts still run once, over every group's buffer.
 """
 from __future__ import annotations
 
@@ -77,20 +85,36 @@ def aux_load_balance_loss(logits, topi, cfg: ArchConfig):
 
 
 # ------------------------------------------------------------------- dense
-def moe_ffn_dense(p, x, cfg: ArchConfig):
+def _ranks(topi, E: int, groups: int):
+    """Each assignment's expert (T*k,), one-hot (T*k, E) and rank within
+    its expert and group (T*k,), in the flat (token, k) order."""
+    flat_e = topi.reshape(groups, -1)                            # (G, n*k)
+    onehot = F.one_hot(flat_e, E)                                # (G, n*k, E)
+    rank = (onehot.cumsum(1) - 1).gather(2, flat_e[..., None])[..., 0]
+    return flat_e.reshape(-1), onehot.reshape(-1, E), rank.reshape(-1)
+
+
+def _group_of(T: int, k: int, groups: int, device):
+    """The group of each of the T*k assignments."""
+    return torch.arange(groups, device=device).repeat_interleave(
+        T // groups * k)
+
+
+def moe_ffn_dense(p, x, cfg: ArchConfig, groups: int = 1):
     """One-hot einsum dispatch (oracle).  x: (T, d)."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
-    C = capacity(cfg, T)
+    C = capacity(cfg, T // groups)
     topw, topi, logits = _route(p, x, cfg)
 
-    flat_e = topi.reshape(-1)                                    # (T*k,)
-    onehot = F.one_hot(flat_e, E).float()                        # (T*k, E)
-    rank = ((onehot.cumsum(0) - 1.0) * onehot).sum(-1)
+    flat_e, onehot, rank = _ranks(topi, E, groups)
+    onehot = onehot.float()                                      # (T*k, E)
     keep = rank < C
-    slots = torch.arange(C, device=x.device)
-    pos_oh = (rank[:, None] == slots).float() * keep[:, None]
-    disp = onehot[:, :, None] * pos_oh[:, None, :]               # (T*k, E, C)
+    # column g * C + rank of the experts' (G * C)-row buffers
+    col = _group_of(T, k, groups, x.device) * C + rank
+    slots = torch.arange(groups * C, device=x.device)
+    pos_oh = (col[:, None] == slots).float() * keep[:, None]
+    disp = onehot[:, :, None] * pos_oh[:, None, :]           # (T*k, E, G*C)
 
     xr = x.repeat_interleave(k, dim=0)                           # (T*k, d)
     buf = torch.einsum("tec,td->ecd", disp, xr.float())
@@ -102,23 +126,23 @@ def moe_ffn_dense(p, x, cfg: ArchConfig):
 
 
 # ----------------------------------------------------------------- scatter
-def moe_ffn_scatter(p, x, cfg: ArchConfig):
+def moe_ffn_scatter(p, x, cfg: ArchConfig, groups: int = 1):
     """Rank-within-expert scatter/gather dispatch (production path)."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
-    C = capacity(cfg, T)
+    C = capacity(cfg, T // groups)
+    GC = groups * C                              # rows of each expert
     topw, topi, logits = _route(p, x, cfg)
 
-    flat_e = topi.reshape(-1)                                    # (T*k,)
-    onehot = F.one_hot(flat_e, E)
-    rank = (onehot.cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
+    flat_e, _, rank = _ranks(topi, E, groups)
     keep = rank < C
-    slot = torch.where(keep, flat_e * C + rank, E * C)           # E*C: drop
+    col = _group_of(T, k, groups, x.device) * C + rank
+    slot = torch.where(keep, flat_e * GC + col, E * GC)          # E*GC: drop
 
-    # row E*C takes every dropped assignment and is cut off
+    # row E*GC takes every dropped assignment and is cut off
     xr = x.repeat_interleave(k, dim=0)
-    buf = x.new_zeros((E * C + 1, d)).index_copy_(0, slot, xr)[:E * C]
-    out = _expert_mlp(p, buf.reshape(E, C, d), cfg).reshape(E * C, d)
+    buf = x.new_zeros((E * GC + 1, d)).index_copy_(0, slot, xr)[:E * GC]
+    out = _expert_mlp(p, buf.reshape(E, GC, d), cfg).reshape(E * GC, d)
 
     gathered = torch.cat([out, out.new_zeros((1, d))])[slot]     # drop -> 0
     back = gathered.float() * topw.reshape(-1)[:, None] * keep[:, None]
@@ -126,8 +150,11 @@ def moe_ffn_scatter(p, x, cfg: ArchConfig):
     return y, aux_load_balance_loss(logits, topi, cfg)
 
 
-def moe_ffn(p, x, cfg: ArchConfig, impl: str = "scatter"):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar)."""
+def moe_ffn(p, x, cfg: ArchConfig, impl: str = "scatter",
+            per_row: bool = False):
+    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar).  ``per_row`` routes
+    each batch row on its own (capacity and ranks per row, the aux loss
+    over all rows)."""
     B, S, d = x.shape
     if impl == "ep_local":
         raise NotImplementedError(
@@ -137,5 +164,5 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "scatter"):
         raise ValueError(f"unknown moe_impl {impl!r}; known: 'dense', "
                          "'scatter'")
     fn = moe_ffn_dense if impl == "dense" else moe_ffn_scatter
-    y, aux = fn(p, x.reshape(B * S, d), cfg)
+    y, aux = fn(p, x.reshape(B * S, d), cfg, groups=B if per_row else 1)
     return y.reshape(B, S, d), aux

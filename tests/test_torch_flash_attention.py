@@ -250,3 +250,44 @@ def test_sm90_kernel_matches_plain(cuda, D, causal, Hq, Hkv):
     np.testing.assert_allclose(
         got.float().cpu().numpy(),
         attention_ref(q, k, v, causal).float().cpu().numpy(), **BF16)
+
+
+#: Prompt lengths of serving's prefill (batch 1, ragged): one token, a few,
+#: a ragged last q tile, and one short of the chunked-attention threshold.
+RAGGED = (1, 17, 517, 2047)
+#: Relative-norm bound of a bf16 output as a whole: bf16's machine epsilon
+#: (at these lengths most outputs are far below the elementwise atol).
+RTOL_NORM_BF16 = 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", RAGGED)
+def test_sm90_kernel_at_ragged_lengths(cuda, S):
+    """Serving's prefill shape on the tensor-core route: batch 1, jamba's
+    heads (32 query, 8 kv, D = 128), a prompt of any length, with the block
+    sizes the model passes (the whole sequence)."""
+    q, k, v = _torch(_qkv(1, S, S, 32, 8, 128, seed=S), torch.bfloat16, cuda)
+    before = flash_attention.route_launches["sm90"]
+    got = flash_attention(q, k, v, causal=True, block_q=S, block_k=S)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["sm90"] == before + 1
+    want = attention_ref(q, k, v, causal=True).float()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), **BF16)
+    rel = torch.linalg.vector_norm(got.float() - want) \
+        / torch.linalg.vector_norm(want)
+    assert float(rel) <= RTOL_NORM_BF16, float(rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", RAGGED)
+def test_simt_kernel_at_ragged_lengths(cuda, S):
+    """The float32 route at the reduced configs' head width (16) and GQA
+    2:1, batch 1, ragged prompt lengths."""
+    q, k, v = _torch(_qkv(1, S, S, 4, 2, 16, seed=S + 1), device=cuda)
+    before = flash_attention.route_launches["simt"]
+    got = flash_attention(q, k, v, causal=True, block_q=S, block_k=S)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["simt"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               attention_ref(q, k, v).cpu().numpy(), **F32)

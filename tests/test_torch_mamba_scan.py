@@ -170,3 +170,25 @@ def test_kernel_does_not_drift_over_a_long_sequence(cuda):
     torch.cuda.synchronize()
     exact = mamba_scan_ref(*(t.double() for t in ins))
     _check(got, [t.cpu().numpy() for t in exact])
+
+
+#: Prompt lengths of serving's prefill (batch 1, ragged).
+RAGGED = (1, 17, 517, 2047)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,N", [(8192, 16), (128, 8)])
+@pytest.mark.parametrize("L", RAGGED)
+def test_kernel_at_ragged_lengths(cuda, L, d, N):
+    """Serving's prefill shape: batch 1, a prompt of any length, jamba's
+    width (d = 8192, N = 16) and the reduced configs' (d = 128, N = 8,
+    padded to 16 by the wrapper), with the chunk the model passes (the
+    whole sequence); y and h_final, the decode state, against the plain
+    version."""
+    ins = _torch(_inputs(1, L, d, N, seed=L + d), device=cuda)
+    before = mamba_scan.launches
+    y, h = mamba_scan(*ins, chunk=L)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    assert y.shape == (1, L, d) and h.shape == (1, d, N)
+    _check((y, h), [t.cpu().numpy() for t in mamba_scan_ref(*ins)])

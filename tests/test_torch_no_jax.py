@@ -44,3 +44,32 @@ def test_no_source_file_names_jax_or_the_jax_package():
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+_SERVE_PROBE = r"""
+import json, sys
+import numpy as np
+import repro_torch.serve as serve
+from repro_torch import configs
+from repro_torch.models import make_model
+model = make_model(configs.get_arch("jamba-v0.1-52b").reduced(),
+                   device="cpu")
+eng = serve.ContinuousEngine(model=model, n_slots=2, max_len=16)
+outs = eng.run([(np.arange(5) % 7, 3)])
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib"))
+             or k == "repro" or k.startswith("repro."))
+print(json.dumps({"exports": len(serve.__all__), "tokens": len(outs[0]),
+                  "bad": bad}))
+"""
+
+
+def test_serving_loads_no_jax():
+    """``repro_torch.serve`` imports and serves a request without jax."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", _SERVE_PROBE],
+                          capture_output=True, text=True, env=env,
+                          timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out == {"exports": 14, "tokens": 3, "bad": []}

@@ -111,14 +111,36 @@ failure exits non-zero and no result line is printed:
                 16-64 new), in turns (continuous, paged, paged,
                 continuous), every run's tokens equal; (d) 1 flash launch (on
                 the tensor-core route) and 7 scan launches per admission,
-                none in decode; (e) the reduced qwen2.5-3b and jamba in
-                float32, kernels on: greedy tokens equal across the three
-                engines; (f) prefill times by prompt length, the 8-slot
-                decode step's CUDA-event time and trace, and
-                ``run_workload``'s TTFT, latency, tokens/s and KV bytes;
- 13. the ``kernels`` JSON line (the bracket kernel's launches also by
-     path; the LM kernels' launches of the forward and of serving), the
-     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+                none in decode; then the three engines' ``compiled_steps()``
+                captured for phase 13 (no launch; each prefill holds 1 flash
+                and 7 scan nodes; flops beside ``analytic.model_flops``;
+                ``price`` of each engine 1.0 in every scenario); (e) the
+                reduced qwen2.5-3b and jamba in float32, kernels on: greedy
+                tokens equal across the three engines; (f) prefill times by
+                prompt length, the 8-slot decode step's CUDA-event time and
+                trace, and ``run_workload``'s TTFT, latency, tokens/s and KV
+                bytes;
+ 13. advisor  — the advisor on compiled programs: (a) the 8 x 8 x 4096^2
+                stencil step (both backends) and the 8 x 256^3 HPCG solve
+                (25 iterations) captured with ``core.graph.capture`` under
+                fake tensors (the card's allocations grow by less than 1%
+                of the apps' working set), their call sites held to the
+                JAX package's (the stencil's 4 collective-permutes priced
+                by none, HPCG's all-reduces), flops, bytes and the H100
+                roofline (each dtype's flops at its peak) beside the times
+                phases 7 and 8 measured, and the host cost of a call
+                through a custom op against the plain operations; (b) the
+                engines' steps of phase 12; (c) all of them, the JAX
+                package's synthetic HLO texts and a tensor-parallel step
+                under a fake 4-rank process group in ONE ``price()`` under
+                the main path's 262,144 scenarios: one bracket launch, held
+                against the host "numpy" plan at rtol 1e-9, and per site
+                the beneficial share, the ranking by gain and the best
+                scenario;
+ 14. the ``kernels`` JSON line (the bracket kernel's launches also by
+     path, the advisor's among them; the LM kernels' launches of the
+     forward and of serving), the nvidia-smi line, and last
+     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -216,6 +238,46 @@ SERVE_PREFILL_LENS = (256, 517, 1024, 2047)
 RTOL_NORM_SERVE = 3e-2
 RTOL_NORM_SERVE_F32 = 1e-4
 SERVE_F32_ARCHS = ("qwen2.5-3b", "jamba-v0.1-52b")
+#: The advisor phase: its capture may grow the card's allocations by less
+#: than this share of the apps' working set; the fake process group's
+#: ranks and the per-rank (tokens, d_model, d_ff / ranks) of its
+#: tensor-parallel MLP step; the pricing bound against the host.
+ADVISOR_MEM_SHARE = 0.01
+ADVISOR_FAKE_RANKS = 4
+ADVISOR_TP_SHAPE = (8192, 4096, 14336 // 4)
+RTOL_ADVISOR = 1e-9
+#: Calls a side of the custom-op dispatch timing makes.
+DISPATCH_CALLS = 2000
+#: The JAX package's synthetic HLO programs (``tests/test_price.py`` and
+#: ``tests/test_sweep.py``), as text: the card has no JAX to compile them.
+SYNTH_HLO_A = """
+HloModule syntha
+
+ENTRY %main (p0: bf16[1024,1024]) -> bf16[1024,1024] {
+  %p0 = bf16[1024,1024]{1,0} parameter(0)
+  %ar = bf16[1024,1024]{1,0} all-reduce(%p0), replica_groups={{0,1,2,3}}, to_apply=%add
+  ROOT %out = bf16[1024,1024]{1,0} add(%ar, %ar)
+}
+"""
+SYNTH_HLO_B = """
+HloModule synthb
+
+ENTRY %main (p0: bf16[512,512]) -> bf16[1024,512] {
+  %p0 = bf16[512,512]{1,0} parameter(0)
+  %ag = bf16[1024,512]{1,0} all-gather(%p0), replica_groups={{0,1}}, dimensions={0}
+  ROOT %out = bf16[1024,512]{1,0} add(%ag, %ag)
+}
+"""
+SYNTH_HLO = """
+HloModule synth
+
+ENTRY %main (p0: bf16[1024,1024]) -> bf16[1024,1024] {
+  %p0 = bf16[1024,1024]{1,0} parameter(0)
+  %ar = bf16[1024,1024]{1,0} all-reduce(%p0), replica_groups={{0,1,2,3}}, to_apply=%add
+  %ag = bf16[2048,1024]{1,0} all-gather(%ar), replica_groups={{0,1}}, dimensions={0}
+  ROOT %out = bf16[1024,1024]{1,0} slice(%ag), slice={[0:1024], [0:1024]}
+}
+"""
 BRACKET_CASES = [(1, 1, 4, 0, 3), (3, 5, 40, 17, 29), (16, 3, 128, 128, 128),
                  (7, 130, 200, 150, 90), (2, 4, 0, 0, 0), (2, 3, 640, 10, 5),
                  (0, 3, 10, 5, 2), (4, 0, 0, 0, 0)]
@@ -1007,11 +1069,13 @@ def device_allclose(torch, a, b, rtol: float, atol: float) -> float:
 
 def phase_stencil(torch, grid_mesh, st, card):
     """Fig. 7's 8 x 8 ranks of 4096^2 f32 tiles, 10 steps per backend,
-    against ``reference_step`` on the whole plane."""
+    against ``reference_step`` on the whole plane.  Returns each backend's
+    step time (ms)."""
     px, py = STENCIL_GRID
     grid = grid_mesh(px, py)
     H, W = px * STENCIL_TILE, py * STENCIL_TILE
     plane = st.init_plane(H, W)
+    step_times = {}
     t0 = time.perf_counter()
     ref = plane
     for _ in range(STENCIL_STEPS):
@@ -1031,6 +1095,7 @@ def phase_stencil(torch, grid_mesh, st, card):
         step_ms = cuda_ms(torch, lambda: step(tiles), reps=STENCIL_STEPS,
                           warmup=1)
         outs[backend] = out
+        step_times[backend] = step_ms
         log(f"stencil [{card}]: {backend} {px}x{py} ranks x "
             f"{STENCIL_TILE}^2 f32, {STENCIL_STEPS} steps: make_runner "
             f"{run_s:.4f} s, step {step_ms:.4f} ms (CUDA events, median of "
@@ -1042,6 +1107,7 @@ def phase_stencil(torch, grid_mesh, st, card):
         f"reference_step x{STENCIL_STEPS} on the {H}x{W} plane {ref_s:.4f} s")
     del plane, ref, outs
     torch.cuda.empty_cache()
+    return step_times
 
 
 def phase_hpcg_small(torch, grid_mesh, hp):
@@ -1071,8 +1137,8 @@ def phase_hpcg_small(torch, grid_mesh, hp):
 def phase_hpcg(torch, grid_mesh, hp, hx, card):
     """8 ranks x 256^3: apply_a against its oracle, then the PCG with each
     backend, then one traced solve with each.  Returns the halo kernel's
-    launches in the message-free solve and the (8, 256, 256, 256) slabs for
-    the kernel's times."""
+    launches in the message-free solve, the (8, 256, 256, 256) slabs for
+    the kernel's times, and each backend's solve times (s)."""
     grid = grid_mesh(HPCG_RANKS)
     shape = (HPCG_RANKS * HPCG_NX_FULL, HPCG_NX_FULL, HPCG_NX_FULL)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1148,7 +1214,7 @@ def phase_hpcg(torch, grid_mesh, hp, hx, card):
             f"({100 * halo / max(busy, 1e-9):.3f}% of the busy time); top "
             f"kernels: " + "; ".join(
                 f"{name[:48]} {ms:.1f} ms" for name, ms in top))
-    return launches, hp.to_slabs(b, HPCG_RANKS)
+    return launches, hp.to_slabs(b, HPCG_RANKS), times
 
 
 def phase_halo_times(torch, hx, blocks, card):
@@ -1554,13 +1620,15 @@ def _hold_lm_calls(torch, fa, ms, rec) -> tuple:
     return err_fa, err_ms, rel_fa
 
 
-def phase_serve(torch, np, fa, ms, model, card):
+def phase_serve(torch, np, fa, ms, model, card, pt, grid):
     """Serving on the full-width model of the LM phases: the static engine,
     the continuous and paged engines on one Poisson workload (both kernels
-    in every prefill, each call held against its plain version), teacher
-    forcing, the reduced f32 archs' greedy tokens across the three engines,
-    and the serving times.  Returns the kernel launches of the serving
-    path and the kernels' max_abs_err over its calls."""
+    in every prefill, each call held against its plain version), their
+    steps captured for the advisor (``compiled_steps``), teacher forcing,
+    the reduced f32 archs' greedy tokens across the three engines, and the
+    serving times.  Returns the kernel launches of the serving path, the
+    kernels' max_abs_err over its calls, and the captured steps with their
+    capture time."""
     import types
     from repro_torch import configs
     from repro_torch.models import layers, make_model
@@ -1657,6 +1725,8 @@ def phase_serve(torch, np, fa, ms, model, card):
     log(f"serve: paged kv_bytes_peak {paged.kv_bytes_peak} against "
         f"kv_bytes_dense {paged.kv_bytes_dense} "
         f"({paged.kv_bytes_peak / paged.kv_bytes_dense:.3f})")
+    serve_steps = capture_serve_steps(torch, np, pt, fa, ms, model, static,
+                                      runs[-1][1], runs[-2][1], grid, card)
     del runs, first
     torch.cuda.empty_cache()
 
@@ -1748,7 +1818,304 @@ def phase_serve(torch, np, fa, ms, model, card):
     model.cfg = cfg
     log(f"serve: phase {time.perf_counter() - t_phase:.1f} s")
     worst = [max(e[i] for e in errs) for i in range(2)]
-    return launches, worst
+    return launches, worst, serve_steps
+
+
+def capture_serve_steps(torch, np, pt, fa, ms, model, static, cont, paged,
+                        grid, card):
+    """(b) of the advisor phase: the static, continuous and paged engines'
+    steps captured with the kernels on (``compiled_steps``; nothing runs,
+    nothing launches), each step's flops beside ``analytic.model_flops``
+    for its shape, each kernel one node of every prefill, and every engine
+    priced to a speedup of 1.0 in every scenario (one card: no
+    collectives).  Returns ({"engine/step": CapturedStep}, seconds)."""
+    from repro_torch.core import analytic
+    from repro_torch.models.config import ShapeConfig
+    cfg = model.cfg
+    before = (fa.flash_attention.launches, ms.mamba_scan.launches)
+    engines = (("static", static, dict(batch_size=SERVE_BATCH,
+                                        prompt_len=SERVE_PROMPT)),
+               ("continuous", cont, {}), ("paged", paged, {}))
+    steps, secs = {}, 0.0
+    for name, eng, kw in engines:
+        t0 = time.perf_counter()
+        got = eng.compiled_steps(**kw)
+        dt = time.perf_counter() - t0
+        secs += dt
+        batch = SERVE_BATCH if name == "static" else SERVE_SLOTS
+        for key, step in got.items():
+            steps[f"{name}/{key}"] = step
+            kind, _, L = key.partition("@")
+            n_prefill = 1 if name != "static" else SERVE_BATCH
+            shape = ShapeConfig(key, "decode", SERVE_MAX_LEN, batch) \
+                if kind == "decode" else \
+                ShapeConfig(key, "prefill", int(L), n_prefill)
+            mf = analytic.model_flops(cfg, shape)
+            cost = step.cost()
+            assert step.collectives() == [], (name, key)
+            assert cost["flops"] > 0 and cost["bytes accessed"] > 0
+            kern = {k: step.ops[f"repro_torch::{k}"]
+                    for k in ("flash_attention", "mamba_scan")}
+            want = {"flash_attention": 1, "mamba_scan": 7} \
+                if kind == "prefill" else {"flash_attention": 0,
+                                           "mamba_scan": 0}
+            assert kern == want, (name, key, kern)
+            rf = step.roofline(pt.H100)
+            log(f"advisor (b) [{card}]: {name} {key}: flops "
+                f"{cost['flops']:.6e} against model_flops "
+                f"{mf:.6e} (x{cost['flops'] / mf:.4f}), bytes "
+                f"{cost['bytes accessed']:.6e}, {sum(step.ops.values())} "
+                f"ops, kernel ops {kern}; H100 roofline {rf.step_time_s * 1e3:.4f} ms "
+                f"({rf.dominant})")
+        log(f"advisor (b): {name} engine compiled_steps() captured "
+            f"{len(got)} steps in {dt:.2f} s")
+    assert (fa.flash_attention.launches, ms.mamba_scan.launches) == before
+    res = pt.price(static, grid)
+    sp = res.predicted_speedup()
+    assert sp.shape == (len(grid),)
+    np.testing.assert_allclose(sp, 1.0, rtol=RTOL_ADVISOR, atol=0)
+    for name in ("continuous", "paged"):
+        mine = {k: v for k, v in steps.items() if k.startswith(name + "/")}
+        sp = pt.price(mine, grid).predicted_speedup()
+        worst = float(np.abs(sp - 1.0).max())
+        np.testing.assert_allclose(sp, 1.0, rtol=RTOL_ADVISOR, atol=0,
+                                   err_msg=name)
+    log(f"advisor (b): price(engine, grid) speedup 1.0 in all {len(grid)} "
+        f"scenarios for the three engines (one card, no collectives; a "
+        f"deployment's sum over its steps within {worst:.1e} of 1); "
+        f"captures launched no kernel; {secs:.2f} s of capture")
+    return steps, secs
+
+
+def _hpcg_sites(levels, per_level, iters):
+    """The (kind, bytes, group, multiplier) multiset of the HPCG solve's
+    call sites: per V-cycle level, two collective-permutes of one plane
+    per ``apply_a`` (level 0 also has the loop's ``apply_a(p)``), inside
+    the loop (x ``iters``) and once before it; four scalar all-reduces."""
+    import collections
+    sites = collections.Counter()
+    for nx, n_apply in zip(levels, per_level):
+        for mult in (float(iters), 1.0):
+            sites[("collective-permute", nx * nx * 4, 1, mult)] += 2 * n_apply
+    for mult in (float(iters), 1.0):
+        sites[("all-reduce", 4, HPCG_RANKS, mult)] += 2
+    return sites
+
+
+def phase_advisor(torch, np, pt, sb, grid_mesh, st, hp, grid, app_times,
+                  serve_steps, card):
+    """The advisor on compiled programs: (a) the paper's apps captured at
+    full size (the stencil step on both backends, the HPCG solve), with
+    the card's allocations held still; (b) the serving steps (captured in
+    the serve phase); (c) every captured step, the JAX package's synthetic
+    HLO texts and a tensor-parallel step under a fake 4-rank process group,
+    priced in ONE multi-subject call under the main path's scenarios: one
+    bracket launch, held against the host at rtol 1e-9, and the paper's
+    three answers per site.  Returns the bracket kernel's launches."""
+    import collections
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fcoll
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.core.advisor import lower_subject
+    from repro_torch.core.graph import abstract, capture
+    from repro_torch.kernels.sweep_bracket.ops import bracket_resident
+
+    dev = torch.device(DEVICE)
+    f32 = torch.float32
+    serve_steps, serve_s = serve_steps
+    t_phase = time.perf_counter()
+
+    # (a) the apps, captured: fake inputs, so nothing is allocated
+    px, py = STENCIL_GRID
+    tiles = abstract(torch.zeros, (px, py, STENCIL_TILE, STENCIL_TILE),
+                     dtype=f32, device=dev)
+    shape = (HPCG_RANKS * HPCG_NX_FULL, HPCG_NX_FULL, HPCG_NX_FULL)
+    b, x0 = (abstract(torch.zeros, shape, dtype=f32, device=dev)
+             for _ in range(2))
+    working = (tiles.numel() + b.numel()) * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    apps, cap_s = {}, {}
+    for backend in ("message_based", "message_free"):
+        t0 = time.perf_counter()
+        apps[f"stencil/{backend}"] = capture(
+            st.make_step(grid_mesh(px, py), backend), tiles,
+            name=f"stencil_{backend}")
+        cap_s[f"stencil/{backend}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    apps["hpcg/message_based"] = capture(
+        hp.make_cg(grid_mesh(HPCG_RANKS), "message_based",
+                   n_iter=HPCG_ITERS), b, x0, name="hpcg_solve")
+    cap_s["hpcg/message_based"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown < ADVISOR_MEM_SHARE * working, (grown, working)
+    log(f"advisor (a): captures grew the card's allocations by {grown} B "
+        f"(peak; bound {ADVISOR_MEM_SHARE:.0%} of the apps' {working} B)")
+
+    strip = STENCIL_TILE * 4
+    want = {"stencil/message_based": collections.Counter(
+                {("collective-permute", strip, 1, 1.0): 4}),
+            "stencil/message_free": collections.Counter(),
+            "hpcg/message_based": _hpcg_sites(
+                HPCG_LEVEL_NX, (4, 3, 3, 1), HPCG_ITERS)}
+    for key, step in apps.items():
+        ops = step.collectives()
+        sig = collections.Counter((o.kind, o.result_bytes, o.group_size,
+                                   o.multiplier) for o in ops)
+        assert sig == want[key], (key, sig)
+        bundle = pt.synthesize_bundle(step)
+        cost, rf = step.cost(), step.roofline(pt.H100)
+        app, backend = key.split("/")
+        measured = (f"step {app_times['stencil'][backend]:.4f} ms measured "
+                    "in phase 7" if app == "stencil" else
+                    "solve " + ", ".join(f"{t:.4f} s" for t in
+                                         app_times["hpcg"][backend])
+                    + " measured in phase 8")
+        ar = sorted((o.multiplier, o.result_bytes, o.group_size)
+                    for o in ops if o.kind == "all-reduce")
+        log(f"advisor (a) [{card}]: {key}: captured in {cap_s[key]:.2f} s, "
+            f"{sum(step.ops.values())} ops; {len(ops)} call "
+            f"sites ({dict(collections.Counter(o.kind for o in ops))}), "
+            f"{len(bundle.call_sites)} priced (min_group 2), wire_bytes "
+            f"{bundle.meta['wire_bytes']:.0f}; all-reduce sites "
+            f"(multiplier, bytes, group) {ar}; flops {cost['flops']:.6e}, "
+            f"bytes {cost['bytes accessed']:.6e}; H100 roofline step "
+            f"{rf.step_time_s * 1e3:.4f} ms ({rf.dominant}) against the "
+            f"{measured}")
+
+    dispatch_cost(torch, apps["hpcg/message_based"].ops, card)
+
+    # (c) a tensor-parallel MLP step under a fake 4-rank process group
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ADVISOR_FAKE_RANKS)
+    try:
+        group = dist.group.WORLD
+        T, d, f = ADVISOR_TP_SHAPE
+        bf16 = torch.bfloat16
+        x, w1, w2 = (abstract(torch.zeros, s_, dtype=bf16, device=dev)
+                     for s_ in ((T // ADVISOR_FAKE_RANKS, d), (d, f), (f, d)))
+
+        def tp_mlp(x, w1, w2):
+            full = fcoll.all_gather_tensor(x, 0, group)
+            y = torch.nn.functional.gelu(full @ w1) @ w2
+            y = fcoll.reduce_scatter_tensor(y, "sum", 0, group)
+            return y, fcoll.all_reduce(y.float().square().sum(), "sum",
+                                       group)
+
+        tp = capture(tp_mlp, x, w1, w2, name="tp_mlp")
+    finally:
+        dist.destroy_process_group()
+    tp_ops = [(o.kind, o.result_bytes, o.group_size) for o in
+              tp.collectives()]
+    assert tp_ops == [("all-gather", T * d * 2, 4),
+                      ("reduce-scatter", T // 4 * d * 2, 4),
+                      ("all-reduce", 4, 4)], tp_ops
+    assert tp.cost()["flops"] == 2 * 2 * T * d * f
+    log(f"advisor (c): fake {ADVISOR_FAKE_RANKS}-rank tensor-parallel MLP "
+        f"({T} tokens, d {d}, d_ff/rank {f}, bf16): sites {tp_ops}")
+
+    subjects = {**apps, **serve_steps, "hlo/synth_a": SYNTH_HLO_A,
+                "hlo/synth_b": SYNTH_HLO_B, "hlo/synth": SYNTH_HLO,
+                "fake4/tp_mlp": tp}
+    adv = pt.CommAdvisor()
+    cbs = [pt.compile_bundle(lower_subject(v, adv.params, adv.spec))
+           for v in subjects.values()]
+    n_sites = sum(cb.n_calls for cb in cbs)
+    route = "resident" if bracket_resident(
+        pt.concat_bundles(cbs).tensors(dev).groups.values()) else "tiled"
+    sb.fused_bracket_segsum.launches = 0
+    t0 = time.perf_counter()
+    res = pt.price(subjects, grid)
+    torch.cuda.synchronize()
+    price_s = time.perf_counter() - t0
+    n_launch = sb.fused_bracket_segsum.launches
+    assert n_launch == 1, n_launch
+    t0 = time.perf_counter()
+    host = pt.price(subjects, grid, plan="numpy")
+    host_s = time.perf_counter() - t0
+    worst = 0.0
+    for name, r, h in zip(res.names, res, host):
+        assert r.call_ids == h.call_ids, name
+        for fld in pt.MATRIX_FIELDS:
+            a, w = getattr(r, fld), getattr(h, fld)
+            assert a.shape == (len(grid), len(r.call_ids)), (name, fld)
+            np.testing.assert_allclose(a, w, rtol=RTOL_ADVISOR, atol=0,
+                                       err_msg=f"{name} {fld}")
+            if a.size:
+                worst = max(worst, rel_diff(np, a, w))
+    log(f"advisor (c): price() of {len(subjects)} subjects ({n_sites} "
+        f"sites, the {route} route) under {len(grid)} scenarios on the "
+        f"card: {price_s:.3f} s, bracket launches {n_launch}; the host "
+        f"'numpy' plan {host_s:.3f} s; max rel diff {worst:.3e} (rtol "
+        f"{RTOL_ADVISOR})")
+    for name, r in zip(res.names, res):
+        if not r.call_ids:
+            continue
+        gain = r.gain_ns
+        share = (gain > 0).mean(axis=0)
+        order = np.argsort(-gain.mean(axis=0), kind="stable")
+        best = r.best_scenario()
+        label = grid.label_at(best)
+        log(f"advisor (c) {name}: beneficial share " + ", ".join(
+            f"{r.call_ids[j]} {share[j]:.4f}" for j in range(len(share)))
+            + "; ranked by mean gain " + ", ".join(
+                f"{r.call_ids[j]} ({gain[:, j].mean() / 1e3:.3f} us)"
+                for j in order)
+            + f"; best scenario {best} (speedup "
+            f"{r.predicted_speedup()[best]:.6f}) "
+            + ", ".join(f"{k}={v:.1f}" for k, v in label.items()
+                        if isinstance(v, float)))
+    total = time.perf_counter() - t_phase + serve_s
+    log(f"advisor: phase {total:.1f} s ({serve_s:.1f} s of it capturing "
+        f"the engines in phase 12)")
+    return n_launch
+
+
+def dispatch_cost(torch, hpcg_ops, card):
+    """Host time of a call through a custom op (``torch.library``, as the
+    stacked-rank collectives and the three kernel wrappers are) against
+    the plain operations it runs, on small tensors on the card so that
+    the host's side is what is timed: each pair in turns (op, plain,
+    plain, op), the mean of ``DISPATCH_CALLS`` calls each.  Logs the cost
+    a call, with the calls of each path (the HPCG solve's from its
+    capture)."""
+    import functools
+    from repro_torch.comm import collectives
+    dev = torch.device(DEVICE)
+    x = torch.randn(8, 1, 64, 64, device=dev)
+    src = [7, 0, 1, 2, 3, 4, 5, 6]
+    idx = torch.tensor(src, device=dev)
+    part = torch.randn(8, device=dev)
+    pairs = {"ppermute": (lambda: collectives.ppermute(x, 0, src, 1),
+                          lambda: x.index_select(0, idx)),
+             "rank_sum": (lambda: collectives.rank_sum(part),
+                          lambda: functools.reduce(torch.add,
+                                                   part.unbind(0)))}
+
+    def per_call_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6
+
+    out = []
+    for name, (op, plain) in pairs.items():
+        per_call_us(op), per_call_us(plain)                  # warm
+        o1, p1, p2, o2 = (per_call_us(f) for f in (op, plain, plain, op))
+        assert torch.equal(op(), plain())
+        out.append(f"{name} {(o1 + o2) / 2:.2f} us against the plain "
+                   f"{(p1 + p2) / 2:.2f} us (+{(o1 + o2 - p1 - p2) / 2:.2f})")
+    log(f"custom-op dispatch [{card}]: host time a call, mean of "
+        f"{DISPATCH_CALLS} in turns: " + "; ".join(out) + "; calls per "
+        f"path: stencil step 4 ppermute (message_based), HPCG "
+        f"message_based solve {hpcg_ops['repro_torch::ppermute']} ppermute "
+        f"+ {hpcg_ops['repro_torch::rank_sum']} rank_sum (its capture), "
+        f"message_free solve 286 ring_halo_exchange + the same rank_sum, "
+        f"LM forward and each prefill 1 flash_attention + 7 mamba_scan")
 
 
 def teacher_force(torch, model, prompts, gen):
@@ -1885,19 +2252,17 @@ def main() -> int:
     log(f"sweeps: phase {time.perf_counter() - t0:.1f} s")
     kernels[0]["launches_by_path"] = {
         "price": launches["fused_bracket_segsum"], **by_path}
-    launches["fused_bracket_segsum"] = sum(
-        kernels[0]["launches_by_path"].values())
-    del grid, bundles, results
+    del bundles, results
     torch.cuda.empty_cache()
 
     # 7. the stencil at full size
-    phase_stencil(torch, grid_mesh, st, card)
+    app_times = {"stencil": phase_stencil(torch, grid_mesh, st, card)}
 
     # 8. HPCG: the JAX test's case, then full size, then the halo kernel's
     #    times at its strips
     phase_hpcg_small(torch, grid_mesh, hp)
-    launches["halo_exchange"], blocks = phase_hpcg(torch, grid_mesh, hp, hx,
-                                                   card)
+    launches["halo_exchange"], blocks, app_times["hpcg"] = phase_hpcg(
+        torch, grid_mesh, hp, hx, card)
     kernels.append(phase_halo_times(torch, hx, blocks, card))
     del blocks
     torch.cuda.empty_cache()
@@ -1910,17 +2275,25 @@ def main() -> int:
     del batch, rec
     torch.cuda.empty_cache()
 
-    # 12. serving on the same model
-    serve_launches, serve_errs = phase_serve(torch, np, fa, ms_k, model,
-                                             card)
+    # 12. serving on the same model (its engines' steps captured for 13)
+    serve_launches, serve_errs, serve_steps = phase_serve(
+        torch, np, fa, ms_k, model, card, pt, grid)
     for k, err in zip(kernels[-2:], serve_errs):
         launches[k["name"]] += serve_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err)
-    del model
+    del model            # the engines' captured steps hold it through 13
+
+    # 13. the advisor on the apps' and the engines' captured steps
+    kernels[0]["launches_by_path"]["advisor"] = phase_advisor(
+        torch, np, pt, sb, grid_mesh, st, hp, grid, app_times, serve_steps,
+        card)
+    launches["fused_bracket_segsum"] = sum(
+        kernels[0]["launches_by_path"].values())
+    del grid, serve_steps
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    # 13. result lines
+    # 14. result lines
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

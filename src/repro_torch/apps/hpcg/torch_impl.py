@@ -19,13 +19,12 @@ planes are copies either way, so both backends give bit-identical results.
 """
 from __future__ import annotations
 
-import functools
 from typing import Literal
 
 import torch
 import torch.nn.functional as F
 
-from ...comm import message_based
+from ...comm import collectives, message_based
 from ...comm.topology import RankGrid
 from ...kernels.halo_exchange import ops as halo_ops
 
@@ -127,7 +126,7 @@ def _pdot(a, b):
     in rank order (the ``psum``)."""
     n = a.shape[0]
     part = torch.linalg.vecdot(a.reshape(n, -1), b.reshape(n, -1))
-    return functools.reduce(torch.add, part.unbind(0))
+    return collectives.rank_sum(part)
 
 
 def make_cg(grid: RankGrid, backend: Backend = "message_based",

@@ -1,7 +1,8 @@
 """Halo exchange between stacked ranks: message-based (ppermute-style
-copies) and message-free (a shared boundary window)."""
-from . import message_based, message_free
+copies) and message-free (a shared boundary window); ``collectives`` holds
+the collectives of stacked ranks as custom ops a capture records."""
+from . import collectives, message_based, message_free
 from .topology import RankGrid, grid_mesh, shift_perm
 
-__all__ = ["message_based", "message_free", "RankGrid", "grid_mesh",
-           "shift_perm"]
+__all__ = ["collectives", "message_based", "message_free", "RankGrid",
+           "grid_mesh", "shift_perm"]

@@ -11,25 +11,31 @@ import functools
 
 import torch
 
+from . import collectives
 from .topology import shift_perm
 
 
 @functools.lru_cache(maxsize=64)
-def _sources(perm: tuple, n: int, device: torch.device) -> torch.Tensor:
-    """The source rank of every destination, on ``device``.  Cached, so a
-    step copies no index from the host (a copy from pageable host memory
-    would wait for the card to drain its queue)."""
+def _sources(perm: tuple, n: int) -> tuple:
+    """The source rank of every destination."""
     src = [0] * n
     for i, j in perm:
         src[j] = i
-    return torch.tensor(src, device=device)
+    return tuple(src)
 
 
-def ppermute(x: torch.Tensor, dim: int, perm) -> torch.Tensor:
+def ppermute(x: torch.Tensor, dim: int, perm,
+             rank_axes: int | None = None) -> torch.Tensor:
     """Copy ``x``'s rank slices along ``dim`` into a new buffer by the
-    (source, destination) pairs of ``perm``; every destination gets one."""
-    perm = tuple(map(tuple, perm))
-    return x.index_select(dim, _sources(perm, x.shape[dim], x.device))
+    (source, destination) pairs of ``perm``; every destination gets one.
+
+    ``rank_axes`` is the number of leading axes of ``x`` that are ranks
+    (``dim + 1`` by default): a capture divides the tensor's bytes by
+    their product to give one rank's strip.  One ``repro_torch::ppermute``
+    op (``comm.collectives``)."""
+    return collectives.ppermute(
+        x, dim, _sources(tuple(map(tuple, perm)), x.shape[dim]),
+        dim + 1 if rank_axes is None else rank_axes)
 
 
 def exchange_halos_2d(tiles: torch.Tensor):
@@ -45,10 +51,10 @@ def exchange_halos_2d(tiles: torch.Tensor):
     top, bottom = tiles[:, :, :1, :], tiles[:, :, -1:, :]
     left, right = tiles[..., :1], tiles[..., -1:]
     # north: receive the southern row of the northern neighbour, etc.
-    north = ppermute(bottom, 0, shift_perm(nx, +1))
-    south = ppermute(top, 0, shift_perm(nx, -1))
-    west = ppermute(right, 1, shift_perm(ny, +1))
-    east = ppermute(left, 1, shift_perm(ny, -1))
+    north = ppermute(bottom, 0, shift_perm(nx, +1), rank_axes=2)
+    south = ppermute(top, 0, shift_perm(nx, -1), rank_axes=2)
+    west = ppermute(right, 1, shift_perm(ny, +1), rank_axes=2)
+    east = ppermute(left, 1, shift_perm(ny, -1), rank_axes=2)
     return north, south, west, east
 
 

@@ -1,19 +1,23 @@
 """repro_torch.core — the paper's performance model for message-free
 (CXL.mem-style) vs message-based (MPI-style) communication, in PyTorch.
 
-The counterpart of ``repro.core`` for the pricing path:
+The counterpart of ``repro.core``: the pricing path, and the advisor that
+applies it to compiled programs:
 
     price(subject, scenarios, plan=ExecPlan(...))
 
-where ``subject`` is a :class:`TraceBundle` / :class:`CompiledBundle` or a
-sequence / ``{name: bundle}`` mapping of them (a :class:`MultiSweepResult`),
+where ``subject`` is a :class:`TraceBundle` / :class:`CompiledBundle`, HLO
+text, a captured PyTorch step (``graph.capture``), a compiled artifact, or
+a sequence / ``{name: step}`` mapping of them or a serve engine (a
+:class:`MultiSweepResult`),
 ``scenarios`` any :class:`ScenarioSet` (a :class:`ParamGrid`, or an
 :class:`ArraySet` from :func:`adaptive_sample`) and :class:`ExecPlan`
 carries the execution config (backend, scenario chunking, device,
 precision, and the streaming ``"distributed"`` backend's shards, top-k and
 refinement rounds).  ``predict_run`` is the scalar per-call path.
 """
-from .params import ModelParams, PAPER_PRESETS, Thresholds
+from .params import (H100, H100Spec, ModelParams, PAPER_PRESETS, TPU_V5E,
+                     Thresholds, TpuSpec)
 from .traces import (CallSite, CommRecord, CounterSet, DataSource,
                      LoadSample, TraceBundle)
 from .characterization import (ALL_CATEGORIES, FIRST_LOAD_CATEGORIES,
@@ -35,9 +39,13 @@ from .pricing import price
 from .sweep_kernel import (MATRIX_FIELDS, SPEEDUP_HIST_EDGES, price_grid,
                            price_grid_fused, price_grid_numpy,
                            price_grid_torch)
+from . import analytic, graph, hlo
+from .advisor import AdvisorReport, CommAdvisor, synthesize_bundle
+from .graph import CapturedStep, capture
 
 __all__ = [
-    "ModelParams", "Thresholds", "PAPER_PRESETS",
+    "ModelParams", "Thresholds", "TpuSpec", "TPU_V5E", "H100Spec", "H100",
+    "PAPER_PRESETS",
     "LoadSample", "CommRecord", "CounterSet", "CallSite", "TraceBundle",
     "DataSource", "Category", "Characterization", "Metrics",
     "quadratic_weight", "raw_weights", "normalize",
@@ -55,4 +63,6 @@ __all__ = [
     "ArraySet", "adaptive_sample", "as_array_set",
     "MATRIX_FIELDS", "SPEEDUP_HIST_EDGES", "price_grid", "price_grid_numpy",
     "price_grid_torch", "price_grid_fused",
+    "analytic", "graph", "hlo", "AdvisorReport", "CommAdvisor",
+    "synthesize_bundle", "CapturedStep", "capture",
 ]

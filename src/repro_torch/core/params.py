@@ -156,3 +156,58 @@ PAPER_PRESETS = {
     "multinode": ModelParams.multinode,
     "tpu_v5e_ici": ModelParams.tpu_v5e_ici,
 }
+
+
+# --- Roofline specs of one chip: the advisor's step-time terms ---------------
+@dataclass(frozen=True)
+class TpuSpec:
+    """Peak rates of one chip for the roofline terms (``hlo.RooflineTerms``).
+
+    The default is TPU v5e, the reference's target and the advisor's
+    default spec, so an unconfigured ``CommAdvisor`` prices as the JAX
+    package's does.  ``ici_link_bw`` is the bandwidth of one chip-to-chip
+    link."""
+
+    name: str = "tpu_v5e"
+    peak_bf16_flops: float = 197e12      # FLOP/s per chip
+    hbm_bw: float = 819e9                # B/s per chip
+    ici_link_bw: float = 50e9            # B/s per link
+    ici_links: int = 4                   # 2D torus: 4 links/chip
+    hbm_bytes: float = 16e9              # capacity per chip
+    vmem_bytes: float = 128 * 2 ** 20
+
+    def peak_flops(self, dtype: str) -> float:
+        """Dense matmul FLOP/s for operands of ``dtype`` (a torch dtype's
+        name): the bf16 peak, which the HLO's roofline takes for every
+        flop."""
+        return self.peak_bf16_flops
+
+
+TPU_V5E = TpuSpec()
+
+
+@dataclass(frozen=True)
+class H100Spec(TpuSpec):
+    """NVIDIA H100 SXM5, from NVIDIA's H100 Tensor Core GPU datasheet:
+    989 TFLOP/s dense bf16, 67 TFLOP/s float32 outside the tensor cores
+    and float64 on them, 3.35 TB/s HBM3, 80 GB, NVLink 4 at 900 GB/s total
+    over 18 links (50 GB/s a link).  ``vmem_bytes`` holds the
+    largest shared memory of one SM (227 KB).  The roofline spec of a step
+    captured on the card; not the advisor's default."""
+
+    name: str = "h100_sxm5"
+    peak_bf16_flops: float = 989e12
+    hbm_bw: float = 3.35e12
+    ici_link_bw: float = 900e9 / 18
+    ici_links: int = 18
+    hbm_bytes: float = 80e9
+    vmem_bytes: float = 227 * 2 ** 10
+
+    def peak_flops(self, dtype: str) -> float:
+        # float32 outside the tensor cores (PyTorch's matmul keeps TF32
+        # off) and float64 on them: 67 TFLOP/s each
+        return 67e12 if dtype in ("float32", "float64") \
+            else self.peak_bf16_flops
+
+
+H100 = H100Spec()

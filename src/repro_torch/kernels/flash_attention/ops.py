@@ -14,11 +14,15 @@ raises.
 
 ``flash_attention.launches`` counts every kernel launch and
 ``flash_attention.route_launches`` the launches of each route (plain
-integers; callers may reset them).
+integers; callers may reset them).  The checked call is the custom op
+``repro_torch::flash_attention``, so a captured step
+(``core.graph.capture``) holds the kernel as one node, as a Pallas call is
+one custom-call in HLO; a captured call launches and counts nothing.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import flash_attention as _cuda
 from .ref import attention_ref
@@ -74,10 +78,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check(q, k, v, block_q, block_k)
     dev = q.device
-    if dev.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
+    if dev.type == "cuda":
+        route(q.dtype, q.shape[-1])
+    return flash_attention_op(q, k, v, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool) -> torch.Tensor:
+    """The checked call as one op: the plain version on the CPU, the
+    kernel on the card.  A capture records it as one node (its fake
+    version gives the shape only, and launches and counts nothing)."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal)
     path = route(q.dtype, q.shape[-1])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -85,11 +100,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one kv position")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q.device):
         _cuda.launch(q, k, v, out, causal, path)
     flash_attention.launches += 1
     flash_attention.route_launches[path] += 1
     return out
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+           **kwargs) -> int:
+    """QK^T and PV over every (query, key) pair, as ``FlopCounterMode``
+    counts ``scaled_dot_product_attention`` (causality not discounted)."""
+    B, S, Hq, D = q_shape
+    return 4 * B * Hq * S * k_shape[1] * D
 
 
 flash_attention.launches = 0

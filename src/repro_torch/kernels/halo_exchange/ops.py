@@ -12,7 +12,10 @@ raises.
 
 ``ring_halo_exchange.launches`` counts the kernel's launches and
 ``ring_halo_exchange.route_launches`` each route's (plain integers; callers
-may reset them).  The route, the unit width and the chunking are chosen
+may reset them).  The checked exchange is the custom op
+``repro_torch::ring_halo_exchange``, so a captured step
+(``core.graph.capture``) holds the kernel as one node; a captured call
+launches and counts nothing.  The route, the unit width and the chunking are chosen
 here before the launch, by the pure functions :func:`route_for`,
 :func:`vector_ok` and :func:`chunk_count`.
 """
@@ -122,16 +125,28 @@ def ring_halo_exchange(strip_lo: torch.Tensor, strip_hi: torch.Tensor,
         raise ValueError(f"no route {route!r} for {n} ranks: \"cluster\" "
                          f"takes up to {CLUSTER_MAX}, \"flags\" any")
     dev = strip_lo.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if dev.type == "cuda":
+        if strip_lo.dtype not in _FLOATS:
+            raise ValueError(f"ring_halo_exchange takes float32/float64, got "
+                             f"{strip_lo.dtype}")
+        if not (_rank_strip_contiguous(strip_lo)
+                and _rank_strip_contiguous(strip_hi)):
+            raise ValueError("each rank's strip must be contiguous")
+    return ring_halo_exchange_op(strip_lo, strip_hi, route)
+
+
+@torch.library.custom_op("repro_torch::ring_halo_exchange", mutates_args=())
+def ring_halo_exchange_op(strip_lo: torch.Tensor, strip_hi: torch.Tensor,
+                          route: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The checked exchange as one op: the plain version on the CPU, the
+    kernel on the card.  A capture records it as one node (its fake
+    version gives the shapes only, and launches and counts nothing)."""
+    dev = strip_lo.device
     if dev.type == "cpu":
         return ring_halo_exchange_ref(strip_lo, strip_hi)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    if strip_lo.dtype not in _FLOATS:
-        raise ValueError(f"ring_halo_exchange takes float32/float64, got "
-                         f"{strip_lo.dtype}")
-    if not (_rank_strip_contiguous(strip_lo)
-            and _rank_strip_contiguous(strip_hi)):
-        raise ValueError("each rank's strip must be contiguous")
+    n = strip_lo.shape[0]
     recv_lo = torch.empty(strip_lo.shape, dtype=strip_lo.dtype, device=dev)
     recv_hi = torch.empty_like(recv_lo)
     p = recv_lo[0].numel() if n else 0
@@ -161,6 +176,12 @@ def ring_halo_exchange(strip_lo: torch.Tensor, strip_hi: torch.Tensor,
     ring_halo_exchange.launches += 1
     ring_halo_exchange.route_launches[route] += 1
     return recv_lo, recv_hi
+
+
+@ring_halo_exchange_op.register_fake
+def _(strip_lo, strip_hi, route):
+    return strip_lo.new_empty(strip_lo.shape), strip_lo.new_empty(
+        strip_lo.shape)
 
 
 ring_halo_exchange.launches = 0

@@ -12,7 +12,10 @@ The kernel is forward-only, as in the JAX package: an input that requires
 grad raises.
 
 ``mamba_scan.launches`` counts the kernel's launches (a plain integer;
-callers may reset it).
+callers may reset it).  The checked call is the custom op
+``repro_torch::mamba_scan``, so a captured step (``core.graph.capture``)
+holds the kernel as one node; a captured call launches and counts
+nothing.
 """
 from __future__ import annotations
 
@@ -54,16 +57,29 @@ def mamba_scan(x, dt, Bt, Ct, A, D, d_block: int = 256, chunk: int = 256):
     _check(x, dt, Bt, Ct, A, D, d_block, chunk)
     x = x.float()
     dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if dev.type == "cuda":
+        if any(t.dtype != torch.float32 for t in (dt, Bt, Ct, A, D)):
+            raise ValueError("mamba_scan takes float32 dt, Bt, Ct, A and D")
+        if A.shape[1] > _cuda.MAX_STATES:
+            raise ValueError(f"the kernel holds at most {_cuda.MAX_STATES} "
+                             f"states per channel, got N={A.shape[1]}")
+    return mamba_scan_op(x, dt, Bt, Ct, A, D)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=())
+def mamba_scan_op(x: torch.Tensor, dt: torch.Tensor, Bt: torch.Tensor,
+                  Ct: torch.Tensor, A: torch.Tensor, D: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The checked call as one op (x already float32): the plain version
+    on the CPU, the kernel on the card.  A capture records it as one node
+    (its fake version gives the shapes only, and launches and counts
+    nothing)."""
+    dev = x.device
     if dev.type == "cpu":
         return mamba_scan_ref(x, dt, Bt, Ct, A, D)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    if any(t.dtype != torch.float32 for t in (dt, Bt, Ct, A, D)):
-        raise ValueError("mamba_scan takes float32 dt, Bt, Ct, A and D")
     N = A.shape[1]
-    if N > _cuda.MAX_STATES:
-        raise ValueError(f"the kernel holds at most {_cuda.MAX_STATES} "
-                         f"states per channel, got N={N}")
     Bsz, L, d = x.shape
     if Bsz * L * d == 0:
         return (torch.empty((Bsz, L, d), dtype=torch.float32, device=dev),
@@ -84,6 +100,13 @@ def mamba_scan(x, dt, Bt, Ct, A, D, d_block: int = 256, chunk: int = 256):
     if pd or pn:
         y, h = y[..., :d].contiguous(), h[:, :d, :N].contiguous()
     return y, h
+
+
+@mamba_scan_op.register_fake
+def _(x, dt, Bt, Ct, A, D):
+    Bsz, L, d = x.shape
+    return (x.new_empty((Bsz, L, d), dtype=torch.float32),
+            x.new_empty((Bsz, d, A.shape[1]), dtype=torch.float32))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

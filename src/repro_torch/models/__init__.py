@@ -11,8 +11,9 @@ package's parameters, so that both compute the same function.
 .serve``); ``convert.caches_from_jax`` loads the reference's caches.
 """
 from .config import ArchConfig, ShapeConfig, SHAPES
-from .factory import make_inputs, make_model
+from .factory import abstract_params, make_inputs, make_model
 from .lm import LanguageModel
 
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "LanguageModel",
+           "abstract_params",
            "make_inputs", "make_model"]

@@ -2,6 +2,8 @@
 
 ``make_model``  — ArchConfig -> LanguageModel, its weights drawn from a
                   seeded ``torch.Generator`` on the device
+``abstract_params`` — ArchConfig -> the parameters' names, shapes and
+                  dtypes, drawn from nothing (meta tensors)
 ``make_inputs`` — (cfg, shape) -> batch of tensors, drawn with numpy
                   exactly as the JAX package's ``make_inputs`` draws them,
                   so both sides see bit-identical tokens, targets and
@@ -41,6 +43,19 @@ def make_model(cfg: ArchConfig, use_kernel: bool = False,
         raise ValueError(f"generator on {generator.device}, model on {dev}")
     return LanguageModel(cfg, generator, use_kernel=use_kernel,
                          moe_impl=moe_impl)
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """``{name: meta tensor}`` for every parameter of ``cfg``'s model, in
+    ``named_parameters`` order: names, shapes and dtypes without drawing
+    or allocating a weight (the JAX package's ``abstract_params``).  The
+    model is built under a fake mode, so a 13B-parameter config costs its
+    shapes only."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        model = LanguageModel(cfg, torch.Generator(device="cpu"))
+    return {name: torch.empty(p.shape, dtype=p.dtype, device="meta")
+            for name, p in model.named_parameters()}
 
 
 def _concrete(shape, dtype, seed: int, device, vocab: int | None = None):

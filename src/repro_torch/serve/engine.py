@@ -123,9 +123,31 @@ class ServeEngine:
         """The raw decode step (benchmarks)."""
         return self.model.decode_step(caches, batch, pos)
 
-    def compiled_steps(self, batch_size: int = 1, prompt_len: int = 32):
-        """The advisor's input in the JAX package (compiled prefill and
-        decode); the port has no advisor yet."""
-        raise NotImplementedError(
-            "compiled_steps feeds the advisor on compiled programs, which "
-            "is not ported yet (ROADMAP queue 1 item 4)")
+    def compiled_steps(self, batch_size: int = 1, prompt_len: int = 32
+                       ) -> dict:
+        """This engine's steps captured without running them, for the
+        advisor: ``{"prefill@L": CapturedStep, "decode": CapturedStep}``,
+        what ``core.price(engine_or_steps, grid)`` prices as one batched
+        deployment (``ContinuousEngine.compiled_steps`` is the multi-bucket
+        analog).  The decode step writes position ``prompt_len``."""
+        from ..core.graph import abstract, capture
+        if self.model.cfg.frontend is not None:
+            raise ValueError("compiled_steps captures a {'tokens': (B, L)} "
+                             "batch — token LMs only (multimodal batches "
+                             "carry frontend embeddings)")
+        model, dev = self.model, self.device
+        tok = abstract(torch.zeros, (batch_size, prompt_len),
+                       dtype=torch.int32, device=dev)
+        one = abstract(torch.zeros, (batch_size, 1), dtype=torch.int32,
+                       device=dev)
+        caches = abstract(model.init_caches, batch_size, self.max_len)
+        with torch.no_grad():
+            return {
+                f"prefill@{prompt_len}": capture(
+                    lambda t: model.prefill({"tokens": t}, self.max_len),
+                    tok, name=f"prefill@{prompt_len}"),
+                "decode": capture(
+                    lambda c, t: model.decode_step(c, {"tokens": t},
+                                                   prompt_len),
+                    caches, one, name="decode"),
+            }

@@ -182,13 +182,13 @@ class PagedContinuousEngine(ContinuousEngine):
         return self.n_slots * self._max_blocks * self.block_bytes
 
     # -------------------------------------------------------- device steps
-    def _gather(self, tables, width: int) -> list:
+    def _gather(self, pools, tables, width: int) -> list:
         """Per-slot attention caches through the block table: each pool
         gathers the slots' blocks and flattens to ``(slots, width, Hkv,
         D)`` (unallocated logical blocks read the null block — causally
         masked); ``tables`` is ``(slots, max_blocks)`` on the device."""
         out = []
-        for pl in self._pools:
+        for pl in pools:
             if pl is None:
                 out.append(None)
                 continue
@@ -201,40 +201,54 @@ class PagedContinuousEngine(ContinuousEngine):
         return out
 
     def _decode_paged(self, tokens, pos):
-        """One decode step for ALL slots against the shared pool: gather ->
-        the dense engine's decode step (a position per slot) -> scatter
-        each slot's new K/V row into the pool.  Inactive slots write their
-        (null) ``table[0]`` block — harmless by construction."""
-        bs = self.block_size
+        """One decode step for ALL slots against the shared pool (see
+        :meth:`_paged_step`)."""
         tables = torch.as_tensor(self._tables, device=self.device)
+        logits, self._dense = self._paged_step(self._pools, self._dense,
+                                               tables, tokens, pos)
+        return logits
+
+    def _paged_step(self, pools, dense, tables, tokens, pos):
+        """gather -> the dense engine's decode step (a position per slot)
+        -> scatter each slot's new K/V row into ``pools``.  Inactive slots
+        write their (null) ``table[0]`` block — harmless by construction.
+        Returns (logits, the per-slot states after the step)."""
+        bs = self.block_size
         caches = [g if spec.mixer == "attn" else d for spec, g, d in zip(
-            self._specs, self._gather(tables, self.max_len), self._dense)]
+            self._specs, self._gather(pools, tables, self.max_len), dense)]
         logits, new = self.model.decode_step(caches, {"tokens": tokens}, pos)
-        slots = torch.arange(self.n_slots, device=self.device)
+        slots = torch.arange(self.n_slots, device=tokens.device)
         blk = tables[slots, pos // bs]
         off = pos % bs
         for i, spec in enumerate(self._specs):
             if spec.mixer == "attn":
-                for name, P in self._pools[i].items():
+                for name, P in pools[i].items():
                     P[blk, off] = new[i][name][slots, pos]
-            elif spec.mixer == "mamba":
-                self._dense[i] = new[i]
-        return logits
+        return logits, [new[i] if spec.mixer == "mamba" else d
+                        for i, (spec, d) in enumerate(zip(self._specs,
+                                                          dense))]
 
     def _prefill_chunk(self, slot: int, chunk: np.ndarray, pos: int):
-        """One ``block_size``-token prompt chunk for ONE slot (attention
-        archs): gather the slot's cache at full padded width, run the
-        multi-token decode step at positions ``pos .. pos + bs - 1`` and
-        scatter the chunk's K/V block back."""
-        bs = self.block_size
+        """One ``block_size``-token prompt chunk for ONE slot (see
+        :meth:`_chunk_step`)."""
         table = torch.as_tensor(self._tables[slot:slot + 1],
                                 device=self.device)
+        tok = torch.as_tensor(chunk, device=self.device)
+        return self._chunk_step(self._pools, table, tok, pos,
+                                int(self._tables[slot, pos // self.block_size]))
+
+    def _chunk_step(self, pools, table, tok, pos: int, blk):
+        """A prompt chunk of one slot (attention archs): gather the slot's
+        cache (``table`` is its ``(1, max_blocks)`` row) at full padded
+        width, run the multi-token decode step at positions ``pos .. pos +
+        bs - 1`` and scatter the chunk's K/V block into pool block
+        ``blk``."""
+        bs = self.block_size
         # the chunk's write must fit the width un-clipped
-        caches = self._gather(table, self._max_blocks * bs)
-        tok = torch.as_tensor(chunk[None], device=self.device)
-        logits, new = self.model.decode_step(caches, {"tokens": tok}, pos)
-        blk = int(self._tables[slot, pos // bs])
-        for pl, nc in zip(self._pools, new):
+        caches = self._gather(pools, table, self._max_blocks * bs)
+        logits, new = self.model.decode_step(caches, {"tokens": tok[None]},
+                                             pos)
+        for pl, nc in zip(pools, new):
             if pl is not None:
                 for name, P in pl.items():
                     P[blk] = nc[name][0, pos:pos + bs]
@@ -345,3 +359,34 @@ class PagedContinuousEngine(ContinuousEngine):
         self._pool.release(req.rid, self._slot_blocks[slot])
         self._slot_blocks[slot] = []
         self._tables[slot, :] = 0          # inactive slots target null
+
+    # ------------------------------------------------------ advisor bridge
+    def compiled_steps(self, buckets=None) -> dict:
+        """Every step this deployment runs, captured without running it:
+        the paged decode plus either the single chunk-prefill step
+        (attention archs) or one exact-length prefill per seen length
+        (SSM archs; ``buckets`` overrides, ``max_len`` if none yet)."""
+        from ..core.graph import abstract, capture
+        dev = self.device
+        tables = abstract(torch.zeros, (self.n_slots, self._max_blocks),
+                          dtype=torch.int32, device=dev)
+        tokens, pos = self._step_shapes()
+        with torch.no_grad():
+            out = {"decode": capture(self._paged_step, self._pools,
+                                     self._dense, tables, tokens, pos,
+                                     name="decode")}
+        if self._exact_prefill:
+            for L in tuple(sorted(buckets or self._seen_buckets())) \
+                    or (self.max_len,):
+                out[f"prefill@{L}"] = self._capture_prefill(L)
+            return out
+        bs = self.block_size
+        row = abstract(torch.zeros, (1, self._max_blocks), dtype=torch.int32,
+                       device=dev)
+        tok = abstract(torch.zeros, (bs,), dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            out[f"prefill_chunk@{bs}"] = capture(
+                lambda p, t, c: self._chunk_step(p, t, c, 0, t[0, :1]),
+                self._pools, row, tok, name=f"prefill_chunk@{bs}")
+        return out
+

@@ -347,12 +347,54 @@ class ContinuousEngine:
                 **{k: float(v)
                    for k, v in self.stats.prefills_by_bucket.items()}}
 
-    def compiled_steps(self, buckets=None):
-        """The advisor's input in the JAX package (every compiled prefill
-        bucket and the decode step); the port has no advisor yet."""
-        raise NotImplementedError(
-            "compiled_steps feeds the advisor on compiled programs, which "
-            "is not ported yet (ROADMAP queue 1 item 4)")
+    def _seen_buckets(self) -> tuple:
+        """The configured prefill buckets and the prefill lengths admitted
+        so far."""
+        seen = {int(k[len("prefill@"):]) for k in self.stats.prefills_by_bucket
+                if k.startswith("prefill@")}
+        return tuple(sorted(seen | set(self.prefill_buckets)))
+
+    def _capture_prefill(self, L: int):
+        """One admission's prefill at length ``L`` (a ``(1,)`` last index),
+        captured."""
+        from ..core.graph import abstract, capture
+        model, dev = self.model, self.device
+        tok = abstract(torch.zeros, (1, L), dtype=torch.int32, device=dev)
+        idx = abstract(torch.zeros, (1,), dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            return capture(
+                lambda t, i: model.prefill({"tokens": t}, self.max_len,
+                                           last_index=i),
+                tok, idx, name=f"prefill@{L}")
+
+    def _step_shapes(self):
+        """Fake (tokens (n_slots, 1), positions (n_slots,)) of a decode
+        step."""
+        from ..core.graph import abstract
+        return (abstract(torch.zeros, (self.n_slots, 1), dtype=torch.int32,
+                         device=self.device),
+                abstract(torch.zeros, (self.n_slots,), dtype=torch.int32,
+                         device=self.device))
+
+    def compiled_steps(self, buckets=None) -> dict:
+        """Every step this deployment runs, captured without running it —
+        one prefill per bucket + the fixed ``(n_slots, max_len)`` decode
+        with a position per slot — keyed ``"prefill@L"`` / ``"decode"``.
+        ``buckets`` defaults to the prefill buckets seen so far
+        (``max_len`` if none yet).  The input to ``core.price(engine,
+        grid)``: all the deployment's collectives under one scenario grid
+        in one batched evaluation."""
+        from ..core.graph import capture
+        buckets = tuple(sorted(buckets or self._seen_buckets())) \
+            or (self.max_len,)
+        out = {f"prefill@{L}": self._capture_prefill(L) for L in buckets}
+        tokens, pos = self._step_shapes()
+        model = self.model
+        with torch.no_grad():
+            out["decode"] = capture(
+                lambda c, t, p: model.decode_step(c, {"tokens": t}, p),
+                self.caches, tokens, pos, name="decode")
+        return out
 
 
 def _field(cache, name: str) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Import hygiene of the port: ``repro_torch`` (and ``chip_smoke.py``)
-import neither ``jax`` nor the JAX package ``repro``."""
+import neither ``jax`` nor the JAX package ``repro``, and no module of the
+package imports ``torch.testing._internal`` (only tests may, for the fake
+process group)."""
 import json
 import pathlib
 import re
@@ -31,6 +33,19 @@ def test_importing_every_port_module_loads_no_jax():
     out = json.loads(proc.stdout)
     assert out["modules"] >= 70
     assert out["bad"] == [], f"the port imported {out['bad']}"
+
+
+def test_no_port_module_imports_torch_testing_internals():
+    """The advisor's capture runs under fake tensors with no test-only
+    helper: no source of the package (the new ``core.graph`` and
+    ``core.advisor`` among them) names ``torch.testing._internal``.
+    (``import torch`` itself loads a few of its modules, so the check is on
+    the sources.)"""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"core/graph.py", "core/advisor.py", "core/hlo.py",
+            "core/analytic.py", "comm/collectives.py"} <= names
+    for path in sorted(PORT.rglob("*.py")):
+        assert "torch.testing._internal" not in path.read_text(), path
 
 
 _FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax"

@@ -1,8 +1,8 @@
 """The port's ``PagedContinuousEngine`` against the JAX package's, on the
 CPU (reduced f32 configs, the reference's parameters through
-``params_from_jax``): every case of ``tests/test_paged.py`` but the
-advisor's ``compiled_steps``, with the reference's engines run on the same
-requests.  Greedy tokens equal token for token (and the dense engine's);
+``params_from_jax``): every case of ``tests/test_paged.py``, with the
+reference's engines run on the same requests; ``compiled_steps`` is held
+by its keys and prices.  Greedy tokens equal token for token (and the dense engine's);
 ``ServeStats`` counters, ``step_weights`` and KV bytes equal.
 """
 import numpy as np
@@ -167,7 +167,48 @@ def test_ssm_paged_matches_dense_continuous_with_slot_reuse():
 
 
 def test_compiled_steps_not_ported():
-    eng = PagedContinuousEngine(model=pair(ARCH)[2], n_slots=2,
-                                max_len=MAX_LEN, block_size=BS)
-    with pytest.raises(NotImplementedError, match="advisor"):
-        eng.compiled_steps()
+    """The paged engine's compiled_steps (ported: the name is kept) gives
+    the reference's keys: the decode plus the chunk prefill (attention
+    archs) or one exact prefill per seen length (SSM archs)."""
+    ref, eng = _both()
+    assert set(eng.compiled_steps()) == set(ref.compiled_steps()) \
+        == {"decode", f"prefill_chunk@{BS}"}
+    ref, eng = _both(arch="falcon-mamba-7b")
+    assert set(eng.compiled_steps()) == set(ref.compiled_steps()) \
+        == {"decode", f"prefill@{MAX_LEN}"}
+    reqs = [(p, 2) for p in prompts(4, 2, 5, VOCAB)] \
+        + [(prompts(5, 1, 7, VOCAB)[0], 2)]
+    same_outputs(eng.run(reqs), ref.run(reqs))
+    # one exact prefill per seen length, as the reference's docstring
+    # says; the reference's paged admission never records a seen length,
+    # so it keeps giving prefill@max_len (a reference caveat)
+    assert set(eng.compiled_steps()) == {"decode", "prefill@5", "prefill@7"}
+    assert set(ref.compiled_steps()) == {"decode", f"prefill@{MAX_LEN}"}
+    assert set(eng.compiled_steps(buckets=(MAX_LEN,))) \
+        == set(ref.compiled_steps())
+
+
+def test_paged_compiled_steps_price_to_one():
+    """The paged deployment's steps price as the reference's: one device,
+    no collectives, speedup 1.0 in every scenario; the capture leaves the
+    pool as it was."""
+    from repro.core import CommAdvisor as RefAdvisor
+    from repro_torch.core import CommAdvisor, price
+
+    ref, eng = _both()
+    reqs = [(p, 4) for p in prompts(6, 2, 6, VOCAB)]
+    eng.run(reqs)
+    ref.run(reqs)
+    pools = [{k: v.clone() for k, v in pl.items()} if pl else None
+             for pl in eng._pools]
+    adv = CommAdvisor()
+    got = price(eng, adv.default_grid(2, 2), plan="numpy")
+    want = RefAdvisor().sweep_serve(ref, RefAdvisor().default_grid(2, 2))
+    assert got.names == want.names
+    np.testing.assert_allclose(got.predicted_speedup(), 1.0)
+    np.testing.assert_allclose(got.predicted_speedup(),
+                               want.predicted_speedup(), rtol=1e-9)
+    for pl, before in zip(eng._pools, pools):
+        if before:
+            for k in before:
+                assert pl[k].equal(before[k])

@@ -1,9 +1,11 @@
 """The port's ``ContinuousEngine`` against the JAX package's, on the CPU
 (reduced f32 configs, the reference's parameters through
-``params_from_jax``): every case of ``tests/test_scheduler.py`` but the
-advisor's ``compiled_steps``, with the reference's engines run on the same
-requests.  Greedy tokens equal token for token; ``ServeStats`` counters
-and ``step_weights`` equal.  Plus the MoE capacity of a slot-batched
+``params_from_jax``): every case of ``tests/test_scheduler.py``, with the
+reference's engines run on the same requests.  Greedy tokens equal token
+for token; ``ServeStats`` counters and ``step_weights`` equal;
+``compiled_steps`` gives the reference's step names, and the advisor
+prices them as the reference's (speedup 1.0: one device, no
+collectives).  Plus the MoE capacity of a slot-batched
 decode (per slot, as the reference's ``jax.vmap`` over slots) against the
 static engine's (the whole batch).
 """
@@ -141,8 +143,7 @@ def test_submit_validation():
     with pytest.raises(ValueError, match="multimodal"):
         ContinuousEngine(model=pair("musicgen-medium")[2], n_slots=1,
                          max_len=8)
-    with pytest.raises(NotImplementedError, match="advisor"):
-        eng.compiled_steps()
+    assert set(eng.compiled_steps()) == {"prefill@12", "decode"}
 
 
 def test_temperature_reproducible_by_seed():
@@ -217,3 +218,61 @@ def test_per_row_routing_is_one_call_per_row(impl):
     assert torch.equal(got[:N_SLOTS], got[:1].expand(N_SLOTS, -1, -1))
     assert torch.equal(batched[:24], got[:24])
     assert (batched[24:N_SLOTS] == 0).all() and got[24].abs().max() > 0
+
+
+def test_compiled_steps_for_advisor():
+    """compiled_steps gives one captured step per prefill bucket + the
+    decode step, priced by the advisor in one batched call as the
+    reference's compiled steps are (``test_scheduler.py``)."""
+    from repro.core import CommAdvisor as RefAdvisor
+    from repro_torch.core import CapturedStep, CommAdvisor, MultiSweepResult
+
+    ref, eng = _both(n_slots=2, max_len=16, prefill_buckets=(8,))
+    steps = eng.compiled_steps()
+    assert set(steps) == set(ref.compiled_steps()) == {"prefill@8", "decode"}
+    assert all(isinstance(c, CapturedStep) for c in steps.values())
+    assert all(c.collectives() == [] for c in steps.values())
+
+    adv = CommAdvisor()
+    res = adv.sweep_serve(eng, adv.default_grid(2, 2), plan="numpy")
+    want = RefAdvisor().sweep_serve(ref, RefAdvisor().default_grid(2, 2))
+    assert isinstance(res, MultiSweepResult)
+    assert res.names == want.names == ("prefill@8", "decode")
+    assert res.predicted_speedup().shape == (4,)
+    np.testing.assert_allclose(res.predicted_speedup(), 1.0)
+    np.testing.assert_allclose(res.predicted_speedup(),
+                               want.predicted_speedup(), rtol=1e-9)
+
+
+def test_compiled_steps_follow_seen_buckets():
+    """Without buckets= the steps follow the buckets admitted so far; the
+    capture leaves the engine's caches as they were."""
+    ref, eng = _both(n_slots=2, max_len=MAX_LEN)
+    reqs = [(p, 3) for p in prompts(5, 2, 6, VOCAB)]
+    same_outputs(eng.run(reqs), ref.run(reqs))
+    before = [{k: v.clone() for k, v in c.items()} if isinstance(c, dict)
+              else None for c in eng.caches]
+    assert set(eng.compiled_steps()) == set(ref.compiled_steps()) \
+        == {"prefill@8", "decode"}
+    assert set(eng.compiled_steps(buckets=(4, 16))) \
+        == {"prefill@4", "prefill@16", "decode"}
+    for c, b in zip(eng.caches, before):
+        if b is not None:
+            for k in b:
+                assert c[k].equal(b[k])
+
+
+def test_static_engine_compiled_steps():
+    """The static engine gives the same bridge (one prefill shape + the
+    decode step), with the flops of the reference's compiled steps."""
+    from repro.compat import normalize_cost_analysis
+    from repro.core import hlo
+
+    ref_static, static = _static()
+    steps = static.compiled_steps(batch_size=2, prompt_len=8)
+    want = ref_static.compiled_steps(batch_size=2, prompt_len=8)
+    assert set(steps) == set(want) == {"prefill@8", "decode"}
+    for k, c in want.items():
+        flops, _ = hlo.loop_corrected_cost(normalize_cost_analysis(c),
+                                           c.as_text())
+        assert steps[k].cost()["flops"] == flops

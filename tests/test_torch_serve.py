@@ -268,9 +268,15 @@ def test_prefill_and_decode_streams_are_disjoint():
 
 
 def test_compiled_steps_not_ported():
-    _, eng = _engines(32)
-    with pytest.raises(NotImplementedError, match="advisor"):
-        eng.compiled_steps()
+    """The static engine's compiled_steps (ported: the name is kept) gives
+    the reference's step names, and a frontend config raises as there."""
+    ref, eng = _engines(32)
+    steps = eng.compiled_steps()
+    assert set(steps) == set(ref.compiled_steps()) == {"prefill@32",
+                                                       "decode"}
+    _, audio = _engines(32, arch="musicgen-medium")
+    with pytest.raises(ValueError, match="token LMs only"):
+        audio.compiled_steps()
 
 
 def test_prompt_beyond_max_len_raises():

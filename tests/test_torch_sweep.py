@@ -366,9 +366,11 @@ def test_no_fallback_to_the_cpu(compiled):
 
 
 def test_unported_subjects_raise_type_error(compiled):
-    """HLO text, compiled artifacts and serve engines come with the advisor
-    and raise; lists and mappings of bundles price (the multi-bundle
-    sweep), and a list holding HLO text raises as the text alone does."""
+    """HLO text, compiled artifacts and serve engines now price through
+    the advisor (the name is kept from before it was ported): text with no
+    collective prices to no call, an engine to its steps; anything else
+    still raises ``TypeError``.  Lists and mappings of bundles price (the
+    multi-bundle sweep)."""
     _, pg = _grids("product", cxl_lat_ns=[250.0])
 
     class Compiled:
@@ -379,10 +381,13 @@ def test_unported_subjects_raise_type_error(compiled):
         def compiled_steps(self):
             return {"decode": compiled[1]}
 
-    for subject in ("HloModule m", Compiled(), Engine(),
-                    [compiled[1], "HloModule m"]):
-        with pytest.raises(TypeError, match="advisor"):
-            pt.price(subject, pg, plan=_plan("numpy"))
+    for subject in ("HloModule m", Compiled()):
+        res = pt.price(subject, pg, plan=_plan("numpy"))
+        assert isinstance(res, pt.SweepResult) and res.call_ids == ()
+    multi = pt.price(Engine(), pg, plan=_plan("numpy"))
+    assert multi.names == ("decode",)
+    mixed = pt.price([compiled[1], "HloModule m"], pg, plan=_plan("numpy"))
+    assert len(mixed) == 2 and mixed[1].call_ids == ()
     with pytest.raises(TypeError, match="expected a TraceBundle"):
         pt.price(42, pg, plan=_plan("numpy"))
     single = pt.price(compiled[1], pg, plan=_plan("numpy"))

@@ -137,10 +137,33 @@ failure exits non-zero and no result line is printed:
                 against the host "numpy" plan at rtol 1e-9, and per site
                 the beneficial share, the ranking by gain and the best
                 scenario;
- 14. the ``kernels`` JSON line (the bracket kernel's launches also by
+ 14. train    — training on the card, whose path runs no kernel (the
+                reference's trainer builds its model without them; every
+                kernel's count is read around the phase and must stay 0):
+                (a) ``qwen2.5-3b`` at its published widths and depth (36
+                layers, 3.4 B parameters), bf16, remat on, AdamW with f32
+                moments, ``train_4k``'s 4,096-token rows with the batch cut
+                to 2, two microbatches (f32 accumulation): each step's
+                loss, grad norm and lr, the step time by CUDA events
+                (median of steps 2-5), tokens/s, ``model_flops`` per second
+                against the 989 TFLOP/s bf16 peak, the peak memory, one
+                traced step's busy share and top operations; the loss must
+                be finite and fall; (b) every reduced arch (MoE ones with
+                dense and scatter) in float32: one step on the card and one
+                on the CPU from the same parameters and batch, loss and
+                grad norm within 1e-5 relative, the parameters as the CPU
+                tests hold them; (c) the reduced qwen2.5-3b and jamba (4
+                layers) through ``launch.train.train``: 9 steps, then a run
+                failing at step 5 and its restart from the step-3
+                checkpoint, the parameters within atol 1e-5; (d) ``python
+                -m repro_torch.launch.train --arch qwen2.5-3b --reduced
+                --steps 5`` and ``python -m repro_torch.launch.serve --arch
+                jamba-v0.1-52b --reduced --paged --price-sweep`` on the
+                card, exit 0;
+ 15. the ``kernels`` JSON line (the bracket kernel's launches also by
      path, the advisor's among them; the LM kernels' launches of the
-     forward and of serving), the nvidia-smi line, and last
-     ``{"ok": true, "device": {...}}``.
+     forward and of serving; ``launches_train``, 0 for each), the
+     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -248,6 +271,25 @@ ADVISOR_TP_SHAPE = (8192, 4096, 14336 // 4)
 RTOL_ADVISOR = 1e-9
 #: Calls a side of the custom-op dispatch timing makes.
 DISPATCH_CALLS = 2000
+#: The train phase: (a) qwen2.5-3b at its published widths and depth,
+#: bf16, remat on, AdamW, ``train_4k``'s 4,096 tokens a row with the batch
+#: cut from 256 to 2, two microbatches; the synthetic task cut to 1
+#: template (so the 5 steps see one sequence and the loss can fall: at lr
+#: 1e-4 Adam moves a bf16 weight of 0.02 by about one rounding step);
+#: steps timed, of which the first is left out; the card's bf16 peak.  (b) every reduced
+#: arch in float32, one AdamW step on the card and on the CPU (B 4, S 32,
+#: two microbatches): loss and grad norm at TRAIN_RTOL.  (c) the restart
+#: check through ``launch.train.train`` (9 steps, failing at 5,
+#: checkpoints every 3), held at the reference test's atol.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEED = "qwen2.5-3b", 2, 2, 0
+TRAIN_TEMPLATES, TRAIN_STEPS = 1, 5
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=100)
+BF16_PEAK_FLOPS = 989e12
+TRAIN_SMALL_SHAPE = (32, 4)
+TRAIN_RTOL = 1e-5
+TRAIN_RESTART = dict(n_steps=9, fail_at=5, every=3, atol=1e-5,
+                     archs=(("qwen2.5-3b", {}),
+                            ("jamba-v0.1-52b", {"n_layers": 4})))
 #: The JAX package's synthetic HLO programs (``tests/test_price.py`` and
 #: ``tests/test_sweep.py``), as text: the card has no JAX to compile them.
 SYNTH_HLO_A = """
@@ -2178,6 +2220,281 @@ def teacher_force(torch, model, prompts, gen):
     return rels.cpu().numpy(), moved.cpu().numpy()
 
 
+def device_events(torch, fn) -> tuple:
+    """(device events as (name, ms) pairs, wall seconds) of one call of
+    ``fn()`` under ``torch.profiler`` with CUDA activity only, read from
+    the profiler's raw events: building its ``FunctionEvent`` tree costs
+    about 0.1 ms an event, and a training step has some 175,000.
+    :data:`LEAD_SPINS` spin kernels lead (the profiler can lose a trace's
+    first events) and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(LEAD_SPINS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.name(), e.duration_ns() / 1e6)
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and "spin_kernel" not in e.name()]
+    if not events:
+        raise RuntimeError("the profiler saw no device events")
+    return events, wall
+
+
+def hold_step(np, got, before, want, lr_sum):
+    """Parameters after a train step against another device's: every entry
+    within 2 x the summed learning rates (a gradient near zero whose sign
+    differs moves its entry by 2 lr in Adam's first step), and 99% of all
+    entries within rtol 1e-3 of the other's update (atol 1e-6 of the
+    leaf's magnitude), the CPU tests' bound.  Returns the largest
+    difference."""
+    n_close = n_all = 0
+    worst = 0.0
+    for g, b, w in zip(got, before, want):
+        scale = float(np.max(np.abs(b))) if b.size else 0.0
+        diff = np.abs(g - w)
+        worst = max(worst, float(diff.max(initial=0.0)))
+        assert worst <= 2 * lr_sum + 1e-6 * scale, (worst, lr_sum)
+        n_close += int((diff <= 1e-3 * np.abs(w - b) + 1e-6 * scale).sum())
+        n_all += diff.size
+    assert n_close >= 0.99 * n_all, n_close / n_all
+    return worst
+
+
+def phase_train(torch, np, card):
+    """Training on the card: (a) the full-width qwen2.5-3b step, its times,
+    trace and peak memory; (b) every reduced arch's step on the card
+    against the CPU; (c) the restart through ``launch.train.train``; (d)
+    both launchers' command lines.  The train path builds its models
+    without the kernels, as the reference's trainer does."""
+    t_phase = time.perf_counter()
+    log(f"train: the card holds {torch.cuda.memory_allocated() / 1e9:.3f} "
+        "GB before the phase")
+    train_full_width(torch, np, card)
+    torch.cuda.empty_cache()
+    train_reduced_vs_cpu(torch, np)
+    train_restart(torch)
+    train_launchers()
+    log(f"train: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def train_full_width(torch, np, card):
+    """(a) qwen2.5-3b at full width: the steps' losses and times, tokens/s,
+    model TFLOP/s, the peak memory and one traced step."""
+    from repro_torch import configs
+    from repro_torch.core.analytic import model_flops
+    from repro_torch.models import make_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.train import AdamWConfig, adamw_init, make_data
+    from repro_torch.train import make_train_step
+
+    # (a) the full-width step
+    cfg = configs.get_arch(TRAIN_ARCH).replace(remat=True)
+    base = configs.get_shape("train_4k")
+    shape = ShapeConfig(base.name, "train", base.seq_len, TRAIN_BATCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model(cfg, device=DEVICE, generator=gen)
+    n_params = model.param_count()
+    leaves = reference_leaves(model)
+    state = adamw_init(leaves)
+    data = make_data(cfg, shape, seed=TRAIN_SEED, device=DEVICE,
+                     n_templates=TRAIN_TEMPLATES)
+    step = make_train_step(model.loss, AdamWConfig(**TRAIN_OPT),
+                           n_micro=TRAIN_MICRO)
+    log(f"train (a): {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads, vocab {cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}: "
+        f"{n_params:,} parameters in {len(leaves)} reference leaves; "
+        f"AdamW {TRAIN_OPT}, f32 moments; batch {TRAIN_BATCH} x "
+        f"{shape.seq_len} (train_4k's 256 rows cut to {TRAIN_BATCH}), "
+        f"n_micro {TRAIN_MICRO} (f32 accumulation), synthetic task of "
+        f"{TRAIN_TEMPLATES} templates")
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, state, m = step(leaves, state, batch)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(float(m.loss))
+        log(f"train (a): step {i + 1} loss {losses[-1]:.6f} grad_norm "
+            f"{float(m.grad_norm):.6f} lr {float(m.lr):.4e}: "
+            f"{times[-1]:.2f} ms (CUDA events) [{card}]")
+        assert np.isfinite(losses[-1]) and np.isfinite(float(m.grad_norm))
+    peak = torch.cuda.max_memory_allocated()
+    assert losses[-1] < losses[0], losses
+    step_s = statistics.median(times[1:]) / 1e3
+    tokens = TRAIN_BATCH * shape.seq_len
+    flops = model_flops(cfg, shape)
+    tflops = flops / step_s / 1e12
+    log(f"train (a): step {step_s:.4f} s (median of steps 2-{TRAIN_STEPS} "
+        f"by CUDA events), {tokens / step_s:,.1f} tokens/s; model_flops "
+        f"{flops:.4e} -> {tflops:.2f} TFLOP/s = "
+        f"{tflops * 1e12 / BF16_PEAK_FLOPS:.2%} of the {BF16_PEAK_FLOPS / 1e12:.0f}"
+        f" TFLOP/s bf16 peak; peak memory {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.3f} GB; "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f} [{card}]")
+    k = [TRAIN_STEPS]
+
+    def one_step():
+        nonlocal state
+        _, state, _m = step(leaves, state, data.batch(k[0]))
+        k[0] += 1
+
+    t0 = time.perf_counter()
+    events, wall = device_events(torch, one_step)
+    busy = sum(ms for _, ms in events)
+    by_name = {}
+    for name, ms in events:
+        by_name[name] = by_name.get(name, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    gemms = {name: ms for name, ms in by_name.items()
+             if "gemm" in name or "nvjet" in name}
+    f32_gemm = sum(ms for name, ms in gemms.items() if "f32f32" in name)
+    log(f"train (a): one traced step ({time.perf_counter() - t0:.1f} s with "
+        f"the trace): {len(events)} device events, busy {busy:.2f} ms: "
+        f"{busy / wall / 1e1:.1f}% of its {wall * 1e3:.2f} ms wall under the "
+        f"profiler, {busy / statistics.median(times[1:]) * 1e2:.1f}% of the "
+        f"untraced step; float32 GEMMs {f32_gemm:.2f} ms, other GEMMs "
+        f"{sum(gemms.values()) - f32_gemm:.2f} ms [{card}]; top device "
+        "operations: "
+        + "; ".join(f"{name[:90]} {ms:.2f} ms" for name, ms in top))
+    del model, leaves, state, data, step, events, by_name
+
+
+def train_reduced_vs_cpu(torch, np):
+    """(b) every reduced arch in float32: one step on the card and one on
+    the CPU from the same parameters and batch."""
+    from repro_torch import configs
+    from repro_torch.models import make_inputs, make_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    seq, rows = TRAIN_SMALL_SHAPE
+    small_shape = ShapeConfig("t", "train", seq, rows)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0}
+    cases = [(a, impl) for a in sorted(configs.ARCHS)
+             for impl in (("dense", "scatter")
+                          if configs.get_arch(a).n_experts else ("dense",))]
+    for arch, impl in cases:
+        small = configs.get_arch(arch).reduced().replace(remat=True)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            g = torch.Generator().manual_seed(TRAIN_SEED)
+            mdl = make_model(small, moe_impl=impl, device="cpu",
+                             generator=g).to(dev)
+            lv = reference_leaves(mdl)
+            before = [leaf.value().float().cpu().numpy() for leaf in lv]
+            batch = {k_: v.to(dev) for k_, v in make_inputs(
+                small, small_shape, seed=TRAIN_SEED, device="cpu").items()}
+            _, _, m = make_train_step(mdl.loss, opt_cfg, n_micro=2)(
+                lv, adamw_init(lv), batch)
+            out[dev] = (float(m.loss), float(m.grad_norm), float(m.lr),
+                        [leaf.value().float().cpu().numpy() for leaf in lv])
+        (l_c, g_c, lr, p_c), (l_g, g_g, _, p_g) = out["cpu"], out[DEVICE]
+        e_l, e_g = abs(l_g - l_c) / abs(l_c), abs(g_g - g_c) / abs(g_c)
+        assert e_l <= TRAIN_RTOL and e_g <= TRAIN_RTOL, (arch, impl, e_l, e_g)
+        e_p = hold_step(np, p_g, before, p_c, lr)
+        worst = {"loss": max(worst["loss"], e_l),
+                 "grad_norm": max(worst["grad_norm"], e_g),
+                 "params": max(worst["params"], e_p)}
+    log(f"train (b): {len(cases)} reduced cases (every arch, MoE archs with "
+        f"dense and scatter), float32, remat on, one AdamW step of {rows} x "
+        f"{seq} tokens in 2 microbatches on the card and on the CPU from "
+        f"the same parameters and batch: loss relative error max "
+        f"{worst['loss']:.3e}, grad norm {worst['grad_norm']:.3e} (bound "
+        f"{TRAIN_RTOL}); parameters after the step max |diff| "
+        f"{worst['params']:.3e} (bound 2 lr = {2 * opt_cfg.lr:.0e}, 99% of "
+        "entries within rtol 1e-3 of the update)")
+
+
+def train_restart(torch):
+    """(c) the restart through ``launch.train.train``: uninterrupted, failed
+    at ``fail_at``, resumed; the parameters must agree."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+    from repro_torch.models.config import ShapeConfig
+
+    r = TRAIN_RESTART
+    for arch, kw in r["archs"]:
+        small = configs.get_arch(arch).reduced(**kw)
+        sh = ShapeConfig("t", "train", 32, 4)
+        quiet = io.StringIO()
+        with tempfile.TemporaryDirectory() as ckdir, \
+                contextlib.redirect_stdout(quiet):
+            ref, hist_ref = train(small, sh, r["n_steps"], log_every=1,
+                                  device=DEVICE)
+            try:
+                train(small, sh, r["n_steps"], ckpt_dir=ckdir,
+                      ckpt_every=r["every"], log_every=1,
+                      fail_at_step=r["fail_at"], device=DEVICE)
+            except RuntimeError as e:
+                assert "injected failure" in str(e), e
+            else:
+                raise AssertionError("the injected failure did not fire")
+            resumed, hist = train(small, sh, r["n_steps"], ckpt_dir=ckdir,
+                                  ckpt_every=r["every"], log_every=1,
+                                  device=DEVICE)
+        text = quiet.getvalue()
+        want_line = (f"[train] restored step {r['every']}, resuming at "
+                     f"{r['every'] + 1}")
+        assert want_line in text, text
+        assert [h["step"] for h in hist] == list(range(r["every"] + 1,
+                                                       r["n_steps"]))
+        want = ref.state_dict()
+        err = 0.0
+        for name, v in resumed.state_dict().items():
+            torch.testing.assert_close(v, want[name], rtol=0,
+                                       atol=r["atol"])
+            err = max(err, float((v - want[name]).abs().max()))
+        log(f"train (c): {arch} reduced{' ' + str(kw) if kw else ''} on "
+            "the card: "
+            f"{r['n_steps']} steps in one go, then failed at step "
+            f"{r['fail_at']} and resumed ('{want_line}'); parameters max "
+            f"|diff| {err:.3e} (bound atol {r['atol']}); losses "
+            f"{[round(h['loss'], 4) for h in hist_ref]}")
+
+
+def train_launchers():
+    """(d) the two launchers, as a user runs them, side by side."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = {"train": ["repro_torch.launch.train", "--arch", "qwen2.5-3b",
+                      "--reduced", "--steps", "5"],
+            "serve": ["repro_torch.launch.serve", "--arch", "jamba-v0.1-52b",
+                      "--reduced", "--paged", "--price-sweep"]}
+    procs = {k_: subprocess.Popen([sys.executable, "-m", *c], env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, cwd=ROOT)
+             for k_, c in cmds.items()}
+    want = {"train": "final loss: ", "serve": "price-sweep: "}
+    for k_, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        log("\n".join(f"train (d) {k_}: {ln}" for ln in out.splitlines()))
+        assert proc.returncode == 0, (k_, err[-3000:])
+        assert want[k_] in out, (k_, out)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2292,8 +2609,22 @@ def main() -> int:
     del grid, serve_steps
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    torch.cuda.empty_cache()
 
-    # 14. result lines
+    # 14. training on the card: no kernel on its path
+    counters = {"fused_bracket_segsum": sb.fused_bracket_segsum,
+                "segment_sum": sb.segment_sum,
+                "halo_exchange": hx.ring_halo_exchange,
+                "flash_attention": fa.flash_attention,
+                "mamba_scan": ms_k.mamba_scan}
+    for c in counters.values():
+        c.launches = 0
+    phase_train(torch, np, card)
+    for k in kernels:
+        k["launches_train"] = counters[k["name"]].launches
+        assert k["launches_train"] == 0, k
+
+    # 15. result lines
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

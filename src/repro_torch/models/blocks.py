@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers, mamba, moe
 from .config import ArchConfig
@@ -122,14 +123,33 @@ def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
     return _ffn(p, spec, x, cfg, moe_impl)
 
 
-def stack_apply(stack, x, cfg: ArchConfig, positions=None,
-                use_kernel: bool = False, moe_impl: str = "scatter"):
-    """Forward through the whole stack.  Returns (x, total_aux_loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in stack:
+def _block(layers_, x, aux, cfg: ArchConfig, positions, use_kernel: bool,
+           moe_impl: str):
+    """The layers of one pattern period; the aux loss is carried through,
+    as the reference's scan carries it."""
+    for layer in layers_:
         x, a = _apply_layer(layer, layer.spec, x, cfg, positions, use_kernel,
                             moe_impl)
         aux = aux + a
+    return x, aux
+
+
+def stack_apply(stack, x, cfg: ArchConfig, positions=None,
+                use_kernel: bool = False, moe_impl: str = "scatter"):
+    """Forward through the whole stack.  Returns (x, total_aux_loss).
+
+    With ``cfg.remat`` and grad enabled, each pattern period (the
+    reference's scanned block) is checkpointed: only its input is kept for
+    the backward pass, which recomputes the rest, as the reference's
+    ``jax.checkpoint(block_body)`` does.  The values are the same either
+    way."""
+    P = len(layer_pattern(cfg))
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, len(stack), P):
+        args = (stack[i:i + P], x, aux, cfg, positions, use_kernel, moe_impl)
+        x, aux = checkpoint(_block, *args, use_reentrant=False) if remat \
+            else _block(*args)
     return x, aux
 
 

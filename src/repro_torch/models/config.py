@@ -3,9 +3,11 @@
 
 A copy of the JAX package's ``models/config.py``: the same fields, defaults
 and ``reduced()``, so one config means the same model on both sides.  The
-port's forward reads every field that shapes the function; ``remat`` and
-``scan_layers`` (how the JAX package compiles the stack) and
-``attn_expand_kv`` (a sharding hint) change nothing on one device.
+port's forward reads every field that shapes the function.  ``remat``
+selects activation checkpointing under grad (each pattern period of the
+stack, as the JAX package's ``jax.checkpoint`` of its scanned block); it
+changes no value.  ``scan_layers`` (how the JAX package compiles the stack)
+and ``attn_expand_kv`` (a sharding hint) change nothing on one device.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Load the JAX package's parameters and decode caches into the port's
-model.
+"""The JAX package's parameter tree and the port's model, both ways, and
+the reference's decode caches into the port's.
 
 The reference's parameter tree is nested dicts with the stack as a list,
 one entry per pattern position, each stacked along a leading ``n_blocks``
@@ -8,8 +8,18 @@ axis; the port keeps its layers in depth order, so layer ``i * P + pos``
 ``pos``.  Leaves come as numpy arrays (``np.asarray`` of the JAX arrays);
 bfloat16 leaves, which numpy holds as ``ml_dtypes.bfloat16`` and
 ``torch.from_numpy`` refuses, are reinterpreted through ``uint16``.
+
+The training half works on the reference's leaves, not on the port's
+tensors (:func:`reference_leaves`): a stacked leaf is one ``(n_blocks,
+...)`` array, so the optimizer's weight decay (``ndim >= 2``), Adafactor's
+row and column moments and the int8 scale of gradient compression see the
+shapes the reference sees, and a checkpoint holds one file per leaf.
+:func:`flatten` / :func:`nest` walk such trees in ``jax.tree`` order (dict
+keys sorted, list entries in order).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -27,6 +37,135 @@ def to_tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
                                 .copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host; a bfloat16 tensor gives its bits as
+    ``uint16`` (numpy has no bfloat16 without ``ml_dtypes``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def flatten(tree) -> list:
+    """``[(path, leaf)]`` of a nested dict / list / tuple tree in
+    ``jax.tree`` flatten order: dict keys sorted, sequences in order.  A
+    path is a tuple of dict keys and sequence indices."""
+    if isinstance(tree, dict):
+        return [((k, *path), leaf) for k in sorted(tree)
+                for path, leaf in flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [((i, *path), leaf) for i, sub in enumerate(tree)
+                for path, leaf in flatten(sub)]
+    return [((), tree)]
+
+
+def nest(pairs) -> dict:
+    """The tree of ``(path, leaf)`` pairs (the inverse of :func:`flatten`):
+    a level whose keys are the indices 0..n-1 becomes a list."""
+    root: dict = {}
+    for path, leaf in pairs:
+        node = root
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            if sorted(out) != list(range(len(out))):
+                raise ValueError(f"sequence indices {sorted(out)} have gaps")
+            return [out[i] for i in range(len(out))]
+        return out
+    return listify(root)
+
+
+@dataclass(frozen=True, eq=False)
+class Leaf:
+    """One leaf of the reference's parameter tree and the port tensors that
+    make it up: block ``i`` of a stacked leaf (``path[0] == "stack"``) is
+    ``tensors[i]``; any other leaf is one tensor."""
+
+    path: tuple
+    tensors: tuple
+
+    @property
+    def stacked(self) -> bool:
+        return self.path[0] == "stack"
+
+    @property
+    def shape(self) -> tuple:
+        t = self.tensors[0]
+        return (len(self.tensors), *t.shape) if self.stacked \
+            else tuple(t.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tensors[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.tensors[0].device
+
+    def parts(self, x) -> list:
+        """A tensor of the leaf's shape as one view per port tensor."""
+        return list(x.unbind(0)) if self.stacked else [x]
+
+    def stack(self, parts) -> torch.Tensor:
+        """One tensor per port tensor (e.g. their gradients) as one tensor
+        of the leaf's shape."""
+        return torch.stack(list(parts)) if self.stacked else parts[0]
+
+    def value(self) -> torch.Tensor:
+        """The leaf's values (detached; a new tensor when stacked)."""
+        return self.stack([t.detach() for t in self.tensors])
+
+    @torch.no_grad()
+    def assign(self, value: torch.Tensor) -> None:
+        """Write ``value`` (the leaf's shape) into the port tensors, cast to
+        their dtype."""
+        if tuple(value.shape) != self.shape:
+            raise ValueError(f"{self.name}: value of shape "
+                             f"{tuple(value.shape)}, leaf {self.shape}")
+        for t, v in zip(self.tensors, self.parts(value)):
+            if v.data_ptr() != t.data_ptr():
+                t.copy_(v)
+
+    @property
+    def name(self) -> str:
+        return "/".join(map(str, self.path))
+
+
+def reference_leaves(model) -> list:
+    """The model's parameters as the reference's leaves, in ``jax.tree``
+    flatten order (the order of ``jax.tree.leaves(params)``)."""
+    P = len(layer_pattern(model.cfg))
+    groups: dict = {}
+    for name, t in model.named_parameters():
+        key = tuple(name.split("."))
+        if key[0] == "stack":
+            layer = int(key[1])
+            key = ("stack", layer % P, *key[2:])
+            groups.setdefault(key, {})[layer // P] = t
+        else:
+            groups[key] = {0: t}
+    return [Leaf(path, tuple(blocks[i] for i in range(len(blocks))))
+            for path, blocks in sorted(groups.items())]
+
+
+def params_to_jax(model) -> dict:
+    """The model's parameters as the reference's nested tree of numpy
+    arrays (the inverse of :func:`params_from_jax`; bfloat16 leaves as
+    their ``uint16`` bits, see :func:`to_numpy`)."""
+    return nest((leaf.path, to_numpy(leaf.value()))
+                for leaf in reference_leaves(model))
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:

@@ -6,8 +6,10 @@ The forward parts of the JAX package's ``models/mamba.py``:
 with input-dependent (selective) dt/B/C, a depthwise causal conv front-end
 and a SiLU-gated output path.  ``use_kernel`` runs the recurrence on the
 CUDA kernel of ``kernels.mamba_scan``; the plain path is its sequential
-version (the reference's chunked, checkpointed scan computes the same
-recurrence; its chunks only bound the memory of the backward pass).
+version.  Under grad the plain path is :func:`selective_scan`, the same
+steps checkpointed per chunk of :data:`SCAN_CHUNK`, as the reference's
+``selective_scan``: the backward pass keeps the state at chunk boundaries
+only, not every step's ``(B, d, N)`` state.
 Prefill also returns the decode state, ``MambaState``: the last K-1 conv
 inputs and the scan's final state; single-token decode carries it.
 """
@@ -18,9 +20,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.mamba_scan import ops as ms_ops
-from ..kernels.mamba_scan.ref import mamba_scan_ref
+from ..kernels.mamba_scan.ref import mamba_scan_ref, scan_steps
 from .config import ArchConfig
 from .layers import Params, dtype_of, normal
 
@@ -85,6 +88,31 @@ def _ssm_inputs(p, x, cfg: ArchConfig):
     return dt, Bt, Ct
 
 
+#: Steps per checkpointed chunk of :func:`selective_scan` (the
+#: reference's ``chunk``).
+SCAN_CHUNK = 128
+
+
+def selective_scan(x, dt, Bt, Ct, A, D, chunk: int = SCAN_CHUNK):
+    """``mamba_scan_ref`` from a zero state, each chunk of ``chunk`` steps
+    checkpointed (a length that ``chunk`` does not divide is one chunk, as
+    in the reference).  The same values, bit for bit."""
+    Bsz, L, d = x.shape
+    if L % chunk:
+        chunk = max(L, 1)
+    xf = x.float()
+    h = torch.zeros((Bsz, d, A.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for s in range(0, L, chunk):
+        y, h = checkpoint(scan_steps, xf[:, s:s + chunk], dt[:, s:s + chunk],
+                          Bt[:, s:s + chunk], Ct[:, s:s + chunk], A, h,
+                          use_reentrant=False)
+        ys.append(y)
+    y = torch.cat(ys, 1) if ys else xf[:, :0]
+    return y + xf * D, h
+
+
 def _mix(p, x, cfg: ArchConfig, use_kernel: bool):
     """Full-sequence mixer: (out (B, L, d), conv inputs (B, L, di), final
     scan state (B, di, N) f32).  The kernel's chunk is the whole sequence,
@@ -98,6 +126,8 @@ def _mix(p, x, cfg: ArchConfig, use_kernel: bool):
     if use_kernel:
         y, h = ms_ops.mamba_scan(xi.float(), dt, Bt, Ct, A, p["D"],
                                  chunk=max(1, xi.shape[1]))
+    elif torch.is_grad_enabled():
+        y, h = selective_scan(xi, dt, Bt, Ct, A, p["D"])
     else:
         y, h = mamba_scan_ref(xi, dt, Bt, Ct, A, p["D"])
     y = y.to(x.dtype) * F.silu(z)

@@ -1,0 +1,199 @@
+"""AdamW with a cosine schedule and global-norm clipping, Adafactor, and
+int8 error-feedback gradient compression: the JAX package's
+``train/optimizer.py``.
+
+Every function works on the reference's leaves (``models.convert.Leaf``,
+from ``reference_leaves(model)``), one tensor per leaf for the gradients
+and the state: a stack parameter is one ``(n_blocks, ...)`` leaf, so weight
+decay (``ndim >= 2``), Adafactor's factored moments and the int8 scale see
+the reference's shapes.  The state is ``{"mu": [...], "nu": [...],
+"count": int32}`` (Adafactor: ``{"v": [...], "count"}``), its lists in leaf
+order; ``count`` is a 0-d CPU tensor, so the schedule is computed on the
+host in float32, as the reference computes it, without waiting on the card.
+
+The reference donates its parameters and state to the jitted step; here
+the update writes them in place: the state tensors directly, the
+parameters by ``copy_`` block by block, with no second copy of either.
+Its arithmetic is the reference's, in float32, element for element.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+F32 = torch.float32
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 20
+    total_steps: int = 1000
+    min_lr_frac: float = 0.1
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=F32)
+
+
+def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup -> cosine decay to ``min_lr_frac * lr``; a 0-d float32
+    CPU tensor, computed as the reference computes it in float32."""
+    step = _f32(step).cpu()
+    warm = _f32(cfg.lr) * step / max(1, cfg.warmup_steps)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(1, cfg.total_steps - cfg.warmup_steps), 0.0, 1.0)
+    cos = _f32(cfg.min_lr_frac * cfg.lr) \
+        + _f32((1 - cfg.min_lr_frac) * cfg.lr * 0.5) \
+        * (1.0 + torch.cos(_f32(math.pi) * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def _count() -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32)
+
+
+def adamw_init(params, opt_dtype=F32) -> dict:
+    """First and second moments, zero, one per leaf (float32 by default;
+    ``opt_dtype=torch.bfloat16`` is the reference's memory recipe for the
+    400B-class archs)."""
+    zeros = [torch.zeros(p.shape, dtype=opt_dtype, device=p.device)
+             for p in params]
+    return {"mu": zeros, "nu": [torch.zeros_like(z) for z in zeros],
+            "count": _count()}
+
+
+def global_norm(leaves) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    norms = [torch.linalg.vector_norm(x, dtype=F32) for x in leaves]
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def _moment(m: torch.Tensor, beta: float, x: torch.Tensor) -> torch.Tensor:
+    """m <- beta * m + (1 - beta) * x in float32, stored in m's dtype.
+    ``add`` with ``alpha`` is one fused multiply-add, fma(beta, m, (1 -
+    beta) * x), where XLA fuses it too: bfloat16 moments round from the
+    same float32 bits as the reference's."""
+    return m.copy_(torch.mul(x, 1 - beta).add_(m, alpha=beta))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads, state: dict, params):
+    """One AdamW step over the leaves ``params`` with one gradient per
+    leaf.  Writes the parameters and ``state`` in place and returns
+    ``(params, state, {"grad_norm", "lr"})``."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(cfg, gnorm)
+    count = state["count"] + 1
+    cf = count.to(F32)
+    lr = cosine_schedule(cfg, count)
+    bc1 = float(1 - _f32(cfg.b1) ** cf)
+    bc2 = float(1 - _f32(cfg.b2) ** cf)
+    step_lr = float(lr)
+    for leaf, grad, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+        # decoupled weight decay on matrices only (ndim >= 2 of the leaf)
+        wd = cfg.weight_decay if leaf.ndim >= 2 else 0.0
+        for p, g, m, v in zip(leaf.tensors, leaf.parts(grad),
+                              leaf.parts(mu), leaf.parts(nu)):
+            g = g.float() * scale
+            _moment(m, cfg.b1, g)
+            _moment(v, cfg.b2, torch.square(g))
+            denom = (v.float() / bc2).sqrt_().add_(cfg.eps)
+            upd = torch.div(m.float(), bc1, out=g).div_(denom)
+            del denom
+            p32 = p.float()                 # p itself when p is float32
+            if wd:
+                upd.add_(p32, alpha=wd)
+            p32.add_(upd, alpha=-step_lr)
+            if p32 is not p:
+                p.copy_(p32)
+    state["count"] = count
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# -------------------------------------------------------------- adafactor
+def adafactor_init(params) -> dict:
+    """Factored second moments (Shazeer & Stern, 2018): for a leaf of ndim
+    >= 2, row and column statistics ``{"vr", "vc"}``; else ``{"v"}``; no
+    first moment."""
+    def init(p):
+        dev = p.device
+        if p.ndim >= 2:
+            return {"vr": torch.zeros(p.shape[:-1], dtype=F32, device=dev),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=F32,
+                                      device=dev)}
+        return {"v": torch.zeros(p.shape, dtype=F32, device=dev)}
+    return {"v": [init(p) for p in params], "count": _count()}
+
+
+@torch.no_grad()
+def adafactor_update(cfg: AdamWConfig, grads, state: dict, params,
+                     decay: float = 0.8):
+    """One Adafactor step (the reference's simplified form: no update
+    clipping, no relative lr).  A stacked leaf is factored as a whole,
+    across its blocks where the port's tensor is a vector.  In place, as
+    :func:`adamw_update`."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(cfg, gnorm)
+    count = state["count"] + 1
+    beta = float(1.0 - count.to(F32) ** -decay)
+    lr = cosine_schedule(cfg, count)
+    step_lr = float(lr)
+    for leaf, grad, v in zip(params, grads, state["v"]):
+        g = grad.float() * scale
+        g2 = torch.square(g).add_(1e-30)
+        if leaf.ndim >= 2:
+            vr = _moment(v["vr"], beta, g2.mean(dim=-1))
+            vc = _moment(v["vc"], beta, g2.mean(dim=-2))
+            denom = (vr[..., None] * vc[..., None, :]
+                     / torch.clamp(vc.mean(dim=-1)[..., None, None],
+                                   min=1e-30))
+        else:
+            denom = _moment(v["v"], beta, g2)
+        upd = g.mul_(torch.rsqrt(denom + 1e-30))
+        del g2, denom
+        p32 = leaf.value().float()
+        wd = cfg.weight_decay if leaf.ndim >= 2 else 0.0
+        if wd:
+            upd.add_(p32, alpha=wd)
+        leaf.assign(p32.add_(upd, alpha=-step_lr))
+    state["count"] = count
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ------------------------------------------------------- int8 compression
+def quantize_int8(leaves) -> tuple:
+    """Symmetric int8 quantization, one scale per leaf: ``(q, scales)``
+    lists."""
+    qs, scales = [], []
+    for x in leaves:
+        xf = x.float()
+        scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+        qs.append(torch.round(xf / scale).to(torch.int8))
+        scales.append(scale)
+    return qs, scales
+
+
+def dequantize_int8(qs, scales) -> list:
+    return [q.float() * s for q, s in zip(qs, scales)]
+
+
+def compress_error_feedback(grads, residual) -> tuple:
+    """int8 compression with error feedback: ``(q, scales, new_residual)``
+    with ``dequant(q) + new_residual == grads + residual`` up to rounding,
+    so repeated compressed reductions stay unbiased across steps."""
+    target = [g.float() + r for g, r in zip(grads, residual)]
+    q, scales = quantize_int8(target)
+    new_res = [t - d for t, d in zip(target, dequantize_int8(q, scales))]
+    return q, scales, new_res

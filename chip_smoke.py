@@ -160,9 +160,43 @@ failure exits non-zero and no result line is printed:
                 --steps 5`` and ``python -m repro_torch.launch.serve --arch
                 jamba-v0.1-52b --reduced --paged --price-sweep`` on the
                 card, exit 0;
- 15. the ``kernels`` JSON line (the bracket kernel's launches also by
+ 15. parallel — the parallel layer over ``torch.distributed`` ranks that
+                share the card over gloo (NCCL refuses two ranks on one
+                GPU; each rank computes on the card, the collectives cross
+                host memory, so no time here prices NVLink or NCCL),
+                launched through torchrun after the kernels are built
+                (``chip_smoke.py --rank world|nccl|probe DIR`` is a rank):
+                a probe of which gloo collectives take CUDA tensors (a
+                send / receive of one ends the process, so the port stages
+                it through host memory); (a) ``jamba-v0.1-52b`` at its
+                published widths (8 layers, bf16, 2 x 4096 tokens, kernels
+                on) with ``moe_impl="ep_local"`` on a (data 1, model 4)
+                mesh of 4 ranks, 4 of the 16 experts each: every flash and
+                scan launch of every rank held against its plain version
+                as it happens, the launches read from the wrappers, the MoE
+                all-reduces counted (4 a forward, float32), each rank's
+                forward time and peak memory; loss, aux and logits against
+                the whole model's scatter forward (bound 3e-2), and the
+                reduced jamba in float32 (1e-5); (c) the streaming
+                ``"distributed:topk=64,refine=1,devices=4"`` sweep over
+                524,288 + 524,288 scenarios on the tile 4096 bundle, a
+                shard per rank: 17 bracket launches per rank (each rank's
+                first chunk held against the plain pricing), the result
+                equal to the stacked 4-shard run's, scenarios/s beside
+                it; (d) ``pipeline_apply`` (forward and backward) and
+                ``compressed_psum`` on 4 ranks, the card against the CPU;
+                (e) the EP-local forward as one NCCL rank (model axis 1),
+                bit-identical to scatter; (b) ``python -m
+                repro_torch.launch.train`` under torchrun: qwen2.5-3b at
+                its published widths cut to 8 layers, bf16, 2 x 4096
+                tokens, DP + ZeRO-1 on 2 gloo ranks against 1 rank (losses
+                within 1e-3, each rank's moments half), the reduced qwen in
+                float32 (1e-6), and the elastic restart (saved on 2 ranks,
+                resumed on 1, equal to the uninterrupted run);
+ 16. the ``kernels`` JSON line (the bracket kernel's launches also by
      path, the advisor's among them; the LM kernels' launches of the
-     forward and of serving; ``launches_train``, 0 for each), the
+     forward and of serving; ``launches_train``, 0 for each;
+     ``launches_parallel``, the ranks' launches of phase 15), the
      nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -2173,7 +2207,7 @@ def teacher_force(torch, model, prompts, gen):
     routes = []                       # (sorted top-k, all kept) per call
     moe_ffn = moe.moe_ffn
 
-    def recording(p, x, cfg, impl="scatter", per_row=False):
+    def recording(p, x, cfg, impl="scatter", per_row=False, mesh=None):
         B, T, d = x.shape
         _, topi, _ = moe._route(p, x.reshape(B * T, d), cfg)
         groups = B if per_row else 1
@@ -2183,7 +2217,7 @@ def teacher_force(torch, model, prompts, gen):
         keep = rank < moe.capacity(cfg, B * T // groups)
         routes.append((topi.sort(-1)[0].reshape(B, T, -1),
                        keep.reshape(B, T, -1).all(-1)))
-        return moe_ffn(p, x, cfg, impl=impl, per_row=per_row)
+        return moe_ffn(p, x, cfg, impl=impl, per_row=per_row, mesh=mesh)
 
     moe.moe_ffn = recording
     try:
@@ -2495,6 +2529,707 @@ def train_launchers():
         assert want[k_] in out, (k_, out)
 
 
+#: The parallel phase: ranks of a ``torch.distributed`` world sharing the
+#: one card over gloo (NCCL refuses two ranks on one GPU), each computing
+#: on the card; (a) EP-local jamba at full width on a (data 1, model 4)
+#: mesh against the whole model's scatter forward (the bf16 bound of the
+#: LM tests), and the reduced jamba in float32; (b) DP + ZeRO-1 training
+#: of qwen2.5-3b at its published widths cut to PAR_TRAIN_LAYERS layers
+#: (so that two ranks, each with its weights, float32 gradients, half the
+#: moments and one 4,096-token row's activations, fit the card beside each
+#: other), against one rank; the reduced qwen in float32, and its elastic
+#: restart from 2 ranks onto 1; (c) the streaming sweep over 4 ranks
+#: against the stacked 4-shard run; (d) the pipeline and the compressed
+#: all-reduce, card against CPU; (e) the EP-local forward as one NCCL rank
+#: against scatter, bit for bit.
+PAR_RANKS, PAR_MESH = 4, (1, 4)
+PAR_TIMEOUT_S = 480
+PAR_TRAIN_LAYERS, PAR_TRAIN_STEPS, PAR_TRAIN_LR = 8, 3, 1e-4
+RTOL_PAR_EP = 3e-2            # the bf16 bound of tests/test_torch_models.py
+RTOL_PAR_F32 = 1e-5
+RTOL_PAR_TRAIN, RTOL_PAR_TRAIN_F32 = 1e-3, 1e-6
+PAR_PIPE = dict(L=8, D=64, M=6, B=3, seed=0)
+PAR_MOE_ALLREDUCES = 4        # one per MoE layer of the 8-layer jamba
+PAR_WARM = 4096               # scenarios of the sweeps' untimed first call
+
+
+def _run_group(cmd, timeout: float, what: str) -> tuple:
+    """Run a rank launcher (torchrun or one process) in its own process
+    group; on a time-out kill the whole group and raise.  Returns (exit
+    code, stdout, stderr)."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{what}: no end after {timeout} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    return proc.returncode, out, err
+
+
+def run_ranks(cmd, timeout: float, what: str) -> str:
+    """:func:`_run_group` that must exit 0; returns its stdout."""
+    rc, out, err = _run_group(cmd, timeout, what)
+    assert rc == 0, (what, rc, err[-4000:])
+    return out
+
+
+def _torchrun(n: int, *args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n), *args]
+
+
+def _rank_results(out_dir, n: int, tag: str) -> list:
+    return [json.loads((out_dir / f"{tag}{r}.json").read_text())
+            for r in range(n)]
+
+
+def phase_parallel(torch, np, pt, card, cb):
+    """The parallel layer over ranks on the card; returns each kernel
+    wrapper's launches on its path (summed over the ranks)."""
+    import dataclasses
+    import pickle
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = pathlib.Path(tempfile.mkdtemp(prefix="parallel-"))
+    cb_path = out / "bundle.pkl"
+    # a fresh instance: the bundle without its cached device tensors
+    cb_path.write_bytes(pickle.dumps(dataclasses.replace(cb)))
+    log(f"parallel: {PAR_RANKS} ranks share the card over gloo (each "
+        f"computes on the card; the collectives cross host memory: this "
+        f"prices no NVLink or NCCL transport); the parent holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+    # which collectives gloo takes from CUDA tensors (the transport's
+    # routes rest on it)
+    from repro_torch.parallel import transport
+    t0 = time.perf_counter()
+    rc, _, err = _run_group(_torchrun(2, str(ROOT / "chip_smoke.py"),
+                                      "--rank", "probe", str(out)), 120,
+                            "gloo probe")
+    seen = _rank_results(out, 2, "probe")
+    direct = {k for k, v in seen[0].items() if v == "ok"}
+    assert set(transport.GLOO_CUDA) <= direct, (direct, seen)
+    assert rc != 0 and all(r["send/recv"] == "started" for r in seen), \
+        (rc, seen)
+    cause = [ln for ln in err.splitlines() if "gloo::IoException" in ln
+             or "writev" in ln][:1]
+    log(f"parallel: gloo with CUDA tensors (2 ranks on the card) takes "
+        f"{sorted(direct)}; the list all-to-all: {seen[0]['all_to_all']}; "
+        f"a send / receive of a CUDA tensor ended the ranks (exit {rc}: "
+        f"{cause}), so that route is staged through pinned host memory "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (a), (c), (d): one 4-rank world
+    t0 = time.perf_counter()
+    text = run_ranks(_torchrun(PAR_RANKS, str(ROOT / "chip_smoke.py"),
+                               "--rank", "world", str(out)),
+                     PAR_TIMEOUT_S, "parallel world")
+    wall = time.perf_counter() - t0
+    ranks = _rank_results(out, PAR_RANKS, "world")
+    for ln in text.splitlines():
+        if ln.startswith("parallel"):
+            log(ln)
+    launches = {"fused_bracket_segsum": 0, "segment_sum": 0,
+                "halo_exchange": 0, "flash_attention": 0, "mamba_scan": 0}
+    errs = {"flash_attention": 0.0, "mamba_scan": 0.0,
+            "fused_bracket_segsum": 0.0}
+    for r in ranks:
+        ep = r["ep"]
+        for k in launches:
+            launches[k] += ep["launches"].get(k, 0) \
+                + r["sweep"]["launches"].get(k, 0)
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      ep["err_flash"])
+        errs["mamba_scan"] = max(errs["mamba_scan"], ep["err_scan"])
+        errs["fused_bracket_segsum"] = max(errs["fused_bracket_segsum"],
+                                           r["sweep"]["err_bracket"])
+        assert ep["launches"]["flash_attention"] == 1, ep["launches"]
+        assert ep["launches"]["mamba_scan"] == 7, ep["launches"]
+        assert ep["moe_allreduces"] == PAR_MOE_ALLREDUCES, ep
+        log(f"parallel (a) [{card}] rank {r['rank']}: experts "
+            f"{ep['experts']}, {ep['params'] / 1e9:.3f} B parameters "
+            f"({ep['param_bytes'] / 1e9:.3f} GB), built in "
+            f"{ep['build_s']:.2f} s; forward {ep['fwd_ms']:.2f} ms (median "
+            f"of 3, ranks aligned by a barrier; first {ep['first_ms']:.2f} "
+            f"ms); peak {ep['peak_bytes'] / 1e9:.3f} GB; MoE all-reduces "
+            f"{ep['moe_allreduces']} per forward, {ep['moe_bytes']:,} bytes "
+            f"(float32); launches {ep['launches']}; holds: flash "
+            f"{ep['err_flash']:.3e} (rel norm {ep['rel_flash']:.3e}), scan "
+            f"{ep['err_scan']:.3e}")
+    c0 = ranks[0]["ep"]
+    log(f"parallel (a): EP-local loss {c0['loss']:.6f} aux {c0['aux']:.6f} "
+        f"against the whole model's scatter forward {c0['loss_whole']:.6f} "
+        f"/ {c0['aux_whole']:.6f}: loss rel {c0['loss_rel']:.3e}, aux rel "
+        f"{c0['aux_rel']:.3e}, logits relative norm {c0['logits_rel']:.3e} "
+        f"(bound {RTOL_PAR_EP}); whole model peak "
+        f"{c0['whole_peak_bytes'] / 1e9:.3f} GB; float32 reduced jamba on "
+        f"{PAR_RANKS} ranks: max rel {max(r['ep_f32'] for r in ranks):.3e} "
+        f"(bound {RTOL_PAR_F32})")
+    for key in ("loss_rel", "aux_rel", "logits_rel"):
+        assert c0[key] <= RTOL_PAR_EP, (key, c0[key])
+    assert max(r["ep_f32"] for r in ranks) <= RTOL_PAR_F32
+
+    # (c) against the stacked 4-shard run in this process
+    from repro_torch.core import ExecPlan
+    seed = pt.adaptive_sample(pt.ModelParams.multinode(), S_STREAM, seed=1,
+                              mpi_transfer=["hockney", "loggp"],
+                              cxl_lat_ns=(250, 700),
+                              cxl_atomic_lat_ns=(300, 800))
+    plan = ExecPlan.parse(f"{STREAM_PLAN},devices={PAR_RANKS}")
+    pt.price(cb, seed.subset(np.arange(PAR_WARM)), plan=plan)    # warm-up
+    t0 = time.perf_counter()
+    stacked = pt.price(cb, seed, plan=plan)
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    got = np.load(out / "sweep.npz")
+    assert np.array_equal(got["indices"], stacked.indices)
+    np.testing.assert_allclose(got["speedups"], stacked.speedups,
+                               rtol=RTOL_PATH, atol=0)
+    np.testing.assert_allclose(got["gain_ns"], stacked.result.gain_ns,
+                               rtol=RTOL_PATH, atol=0)
+    agg = stacked.aggregates
+    gaps = {}
+    for k in ("count", "speedup_mean", "speedup_min", "speedup_max", "hist",
+              "n_beneficial", "gain_sum"):
+        a, b = np.asarray(got[k], np.float64), np.asarray(getattr(agg, k),
+                                                          np.float64)
+        gaps[k] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+        assert gaps[k] == 0.0 or k not in ("count", "hist", "n_beneficial")
+        assert gaps[k] <= 1e-12, (k, gaps[k])
+    from repro_torch.core.sweep_kernel import DIST_CHUNK_DEFAULT
+    n_chunks = 2 * -(-S_STREAM // DIST_CHUNK_DEFAULT)
+    sw = [r["sweep"] for r in ranks]
+    for s in sw:
+        assert s["launches"]["fused_bracket_segsum"] == n_chunks + 1, s
+        assert s["equal"], s
+    rank_s = max(s["seconds"] for s in sw)
+    log(f"parallel (c) [{card}]: {plan.to_string()} over {PAR_RANKS} ranks: "
+        f"{2 * S_STREAM} scenarios in {rank_s:.4f} s (slowest rank) = "
+        f"{2 * S_STREAM / rank_s:.1f} scenarios/s; stacked on one process "
+        f"{stacked_s:.4f} s = {2 * S_STREAM / stacked_s:.1f} scenarios/s; "
+        f"bracket launches per rank {n_chunks + 1} ({n_chunks} chunks + the "
+        f"exact pass), each rank's first chunk held against the plain "
+        f"pricing (max_abs_err {errs['fused_bracket_segsum']:.3e}); indices "
+        f"equal, speedups and gains within {RTOL_PATH}; aggregates' largest "
+        f"relative gap {max(gaps.values()):.3e} ({gaps}); every rank the "
+        f"same result")
+
+    # (d)
+    for r in ranks:
+        p = r["pipe"]
+        # the reference pipeline test's bounds
+        assert p["pipe_out"] <= 1e-5 and p["pipe_grad"] <= 1e-4, p
+        assert p["psum_payload_equal"] and p["psum_out"] <= 1e-6, p
+    log(f"parallel (d): pipeline_apply over {PAR_RANKS} stages (L, D, M, B "
+        f"= {PAR_PIPE['L']}, {PAR_PIPE['D']}, {PAR_PIPE['M']}, "
+        f"{PAR_PIPE['B']}) on the card against the CPU: output "
+        f"{max(r['pipe']['pipe_out'] for r in ranks):.3e}, gradients "
+        f"{max(r['pipe']['pipe_grad'] for r in ranks):.3e}; compressed_psum "
+        f"5 steps: payloads and scales equal, sums "
+        f"{max(r['pipe']['psum_out'] for r in ranks):.3e}")
+    routes = {}
+    for r in ranks:
+        for k, n in r["routes"].items():
+            routes[k] = routes.get(k, 0) + n
+    log(f"parallel: collective routes over the {PAR_RANKS} ranks (calls): "
+        f"{routes}; host-staged: "
+        f"{sorted(k for k in routes if k.endswith(' host'))}; world "
+        f"{wall:.1f} s of wall time")
+
+    # (e) one NCCL rank
+    t0 = time.perf_counter()
+    run_ranks(_torchrun(1, str(ROOT / "chip_smoke.py"), "--rank", "nccl",
+                        str(out)), PAR_TIMEOUT_S, "nccl rank")
+    e = _rank_results(out, 1, "nccl")[0]
+    assert e["equal"] and e["aux_equal"], e
+    for k in launches:
+        launches[k] += e["launches"].get(k, 0)
+    errs["flash_attention"] = max(errs["flash_attention"], e["err_flash"])
+    errs["mamba_scan"] = max(errs["mamba_scan"], e["err_scan"])
+    log(f"parallel (e): the EP-local forward as one NCCL rank (model axis "
+        f"1): logits bit-identical to scatter {e['equal']}, aux "
+        f"{e['aux_equal']}; launches {e['launches']}; routes {e['routes']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) training through the launcher
+    parallel_train(card)
+    log(f"parallel: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+def _train_runs(cmd_1, cmd_2):
+    """(1-rank summary, [2-rank summaries]) of the train launcher."""
+    one = [json.loads(ln) for ln in run_ranks(
+        [sys.executable, "-m", "repro_torch.launch.train", *cmd_1],
+        PAR_TIMEOUT_S, "train 1 rank").splitlines() if ln.startswith("{")]
+    two = [json.loads(ln) for ln in run_ranks(
+        _torchrun(2, "-m", "repro_torch.launch.train", *cmd_2),
+        PAR_TIMEOUT_S, "train 2 ranks").splitlines() if ln.startswith("{")]
+    assert len(one) == 1 and sorted(d["rank"] for d in two) == [0, 1]
+    return one[0], sorted(two, key=lambda d: d["rank"])
+
+
+def parallel_train(card):
+    """(b) DP + ZeRO-1 training on 2 gloo ranks against 1 rank, at full
+    width and in float32, and the elastic restart."""
+    import tempfile
+
+    base = ["--arch", "qwen2.5-3b", "--layers", str(PAR_TRAIN_LAYERS),
+            "--seq", "4096", "--batch", "2", "--steps", str(PAR_TRAIN_STEPS),
+            "--lr", str(PAR_TRAIN_LR), "--log-every", "1", "--summary"]
+    dp = ["--mesh", "2,1", "--backend", "gloo"]
+    one, two = _train_runs(base + ["--micro", "2"], base + dp)
+    l1 = [h["loss"] for h in one["history"]]
+    for d in two:
+        l2 = [h["loss"] for h in d["history"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+        assert rel <= RTOL_PAR_TRAIN, (l1, l2)
+        mb1, mb2 = one["history"][0]["moment_bytes"], \
+            d["history"][0]["moment_bytes"]
+        assert 2 * mb2 == mb1, (mb1, mb2)
+        step = statistics.median(h["step_s"] for h in d["history"][1:])
+        log(f"parallel (b) [{card}] qwen2.5-3b x {PAR_TRAIN_LAYERS} layers "
+            f"bf16, 2 x 4096 tokens, rank {d['rank']} of 2 (gloo, ZeRO-1): "
+            f"losses {[round(x, 6) for x in l2]}, max rel to 1 rank "
+            f"{rel:.3e} (bound {RTOL_PAR_TRAIN}); step {step:.4f} s (median "
+            f"of steps 2-{PAR_TRAIN_STEPS}); moment bytes {mb2:,} (1 rank "
+            f"{mb1:,}); peak {(d['peak_bytes'] or 0) / 1e9:.3f} GB")
+    step1 = statistics.median(h["step_s"] for h in one["history"][1:])
+    log(f"parallel (b) [{card}] 1 rank (2 microbatches): losses "
+        f"{[round(x, 6) for x in l1]}; step {step1:.4f} s; peak "
+        f"{(one['peak_bytes'] or 0) / 1e9:.3f} GB")
+
+    # float32 reduced, and the elastic restart: 2 ranks save, 1 resumes
+    ck = tempfile.mkdtemp(prefix="elastic-")
+    small = ["--arch", "qwen2.5-3b", "--reduced", "--seq", "32", "--batch",
+             "2", "--log-every", "1", "--summary"]
+    one, two = _train_runs(small + ["--micro", "2", "--steps", "4"],
+                           small + dp + ["--steps", "3", "--ckpt-dir", ck,
+                                         "--ckpt-every", "1"])
+    l1 = [h["loss"] for h in one["history"]]
+    rel = max(abs(a - b) / abs(b) for d in two
+              for a, b in zip([h["loss"] for h in d["history"]], l1))
+    assert rel <= RTOL_PAR_TRAIN_F32, rel
+    resumed = [json.loads(ln) for ln in run_ranks(
+        [sys.executable, "-m", "repro_torch.launch.train", *small, "--micro",
+         "2", "--steps", "4", "--ckpt-dir", ck], PAR_TIMEOUT_S,
+        "train resume").splitlines() if ln.startswith("{")][0]
+    (last,) = resumed["history"]
+    gap = abs(last["loss"] - l1[3]) / abs(l1[3])
+    assert last["step"] == 3 and gap <= RTOL_PAR_TRAIN_F32, (last, l1)
+    log(f"parallel (b): reduced qwen2.5-3b float32 on 2 ranks against 1: "
+        f"max rel {rel:.3e} (bound {RTOL_PAR_TRAIN_F32}); saved on 2 ranks "
+        f"at step 2, resumed on 1: step 3 loss {last['loss']:.8f} against "
+        f"the uninterrupted {l1[3]:.8f} (rel {gap:.3e})")
+
+
+# ------------------------------------------------------------ rank programs
+class _Holding:
+    """Passes each call on to a kernel wrapper and holds its output
+    against the plain version at once (so no rank keeps the calls)."""
+
+    def __init__(self, torch, fn, plain):
+        self.torch, self.fn, self.plain = torch, fn, plain
+        self.err = self.rel = 0.0
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        e, r = self.plain(self.torch, args, kwargs, out)
+        self.err, self.rel = max(self.err, e), max(self.rel, r)
+        return out
+
+
+def _hold_flash(torch, args, kw, out):
+    """The flash call against ``attention_ref`` one (batch row, kv head)
+    slice at a time, so the plain scores stay small."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    q, k, v = args[:3]
+    g = q.shape[2] // k.shape[2]
+    err, num, den = 0.0, 0.0, 0.0
+    for b in range(q.shape[0]):
+        for h in range(k.shape[2]):
+            want = attention_ref(q[b:b + 1, :, h * g:(h + 1) * g],
+                                 k[b:b + 1, :, h:h + 1],
+                                 v[b:b + 1, :, h:h + 1],
+                                 causal=kw.get("causal", True))
+            got = out[b:b + 1, :, h * g:(h + 1) * g]
+            err = max(err, hold(torch, got, want, TOL_FLASH_LM))
+            num += float(((got.float() - want.float()) ** 2).sum())
+            den += float((want.float() ** 2).sum())
+    rel = (num / den) ** 0.5
+    assert rel <= RTOL_NORM_FLASH_LM, rel
+    return err, rel
+
+
+def _hold_scan(torch, args, kw, out):
+    from repro_torch.kernels.mamba_scan import mamba_scan_ref
+    yr, hr = mamba_scan_ref(*args)
+    return max(hold(torch, out[0], yr, TOL_SCAN),
+               hold(torch, out[1], hr, TOL_SCAN)), 0.0
+
+
+def _ep_forward(torch, dev, mesh, moe_impl, holding=True):
+    """The full-width 8-layer jamba with the kernels on: the model, its
+    batch, the first forward's outputs, launches and holds."""
+    import types
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import sweep_bracket as sb
+    from repro_torch.models import layers, make_inputs, make_model
+    from repro_torch.models import mamba as mamba_mod
+
+    cfg = configs.get_arch(LM_ARCH).replace(n_layers=LM_LAYERS)
+    t0 = time.perf_counter()
+    model = make_model(cfg, use_kernel=True, moe_impl=moe_impl, device=dev,
+                       generator=torch.Generator(device=dev)
+                       .manual_seed(LM_SEED), mesh=mesh)
+    batch = make_inputs(cfg, configs.get_shape("train_4k"), seed=LM_SEED,
+                        batch_override=LM_BATCH, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hf = _Holding(torch, fa.flash_attention, _hold_flash)
+    hs = _Holding(torch, ms.mamba_scan, _hold_scan)
+    saved = layers.fa_ops, mamba_mod.ms_ops
+    if holding:
+        layers.fa_ops = types.SimpleNamespace(flash_attention=hf)
+        mamba_mod.ms_ops = types.SimpleNamespace(mamba_scan=hs)
+    counters = {"fused_bracket_segsum": sb.fused_bracket_segsum,
+                "segment_sum": sb.segment_sum,
+                "flash_attention": fa.flash_attention,
+                "mamba_scan": ms.mamba_scan}
+    try:
+        with torch.inference_mode():
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            logits, aux = model(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        layers.fa_ops, mamba_mod.ms_ops = saved
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    return model, batch, logits, aux, {
+        "launches": launches, "first_ms": first_ms, "build_s": build_s,
+        "err_flash": hf.err, "rel_flash": hf.rel, "err_scan": hs.err}
+
+
+def rank_world(out_dir):
+    """One rank of the 4-rank gloo world: (a), (c), (d)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.parallel import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_ranks("gloo", "cuda")
+    rank = dist.get_rank()
+    res = {"rank": rank}
+    try:
+        res["ep"] = rank_ep(torch, dist, transport, dev, rank)
+        res["ep_f32"] = rank_ep_f32(torch, dev)
+        res["sweep"] = rank_sweep(torch, np, dev, rank, out_dir)
+        res["pipe"] = rank_pipe(torch, np, dev)
+        res["routes"] = {f"{op} {r}": n
+                         for (op, r), n in sorted(transport.routes.items())}
+    finally:
+        dist.destroy_process_group()
+    (pathlib.Path(out_dir) / f"world{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def rank_ep(torch, dist, transport, dev, rank):
+    """(a) the EP-local forward on (data 1, model 4); rank 0 then builds the
+    whole model alone and compares."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    mesh = make_mesh(PAR_MESH, ("data", "model"), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(transport.routes)
+    model, batch, logits, aux, info = _ep_forward(torch, dev, mesh,
+                                                  "ep_local")
+    n_ar = transport.routes[("all_reduce", "direct")] \
+        - before.get(("all_reduce", "direct"), 0)
+    blk = moe.expert_block(model.cfg, mesh)
+    info.update(experts=[blk.start, blk.stop], moe_allreduces=n_ar,
+                moe_bytes=n_ar * batch["tokens"].numel() * model.cfg.d_model
+                * 4, params=model.param_count(),
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()))
+    times = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            model(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    info["fwd_ms"] = statistics.median(times)
+    info["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        loss = float(model.loss(batch))
+    info.update(loss=loss, aux=float(aux))
+    keep = logits.cpu() if rank == 0 else None
+    del model, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        whole, batch, wl, wa, _ = _ep_forward(torch, dev, None, "scatter",
+                                              holding=False)
+        ep = keep.to(dev).float()
+        wf = wl.float()
+        info["logits_rel"] = float(torch.linalg.vector_norm(ep - wf)
+                                   / torch.linalg.vector_norm(wf))
+        del ep, wf
+        with torch.inference_mode():
+            wloss = float(whole.loss(batch))
+        info.update(loss_whole=wloss, aux_whole=float(wa),
+                    loss_rel=abs(loss - wloss) / abs(wloss),
+                    aux_rel=abs(float(aux) - float(wa)) / abs(float(wa)),
+                    whole_peak_bytes=torch.cuda.max_memory_allocated())
+        del whole, wl
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return info
+
+
+def rank_ep_f32(torch, dev):
+    """(a) the reduced jamba (8 layers, 4 experts) in float32 with EP-local
+    over 4 model ranks against the scatter model on this rank: the logits'
+    largest relative gap."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import make_inputs, make_model
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = configs.get_arch(LM_ARCH).reduced(n_layers=8).replace(
+        attn_period=8, attn_offset=3)
+    mesh = make_mesh(PAR_MESH, ("data", "model"), "cuda")
+    batch = make_inputs(cfg, ShapeConfig("t", "train", 64, 2), device=dev)
+    out = {}
+    for impl, m in (("ep_local", mesh), ("scatter", None)):
+        model = make_model(cfg, moe_impl=impl, device=dev, mesh=m,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(0))
+        with torch.inference_mode():
+            out[impl] = model(batch)
+    (a, aa), (b, ba) = out["ep_local"], out["scatter"]
+    return max(float((a - b).abs().max() / b.abs().max()),
+               abs(float(aa) - float(ba)) / abs(float(ba)))
+
+
+def rank_sweep(torch, np, dev, rank, out_dir):
+    """(c) the streaming sweep over the ranks: launches, time, the first
+    chunk's pricing held against the plain version; rank 0 writes the
+    result."""
+    import pickle
+    import repro_torch.core as pt
+    from repro_torch.core import sweep_kernel as sk
+    from repro_torch.kernels import sweep_bracket as sb
+
+    cb = pickle.loads((pathlib.Path(out_dir) / "bundle.pkl").read_bytes())
+    seed = pt.adaptive_sample(pt.ModelParams.multinode(), S_STREAM, seed=1,
+                              mpi_transfer=["hockney", "loggp"],
+                              cxl_lat_ns=(250, 700),
+                              cxl_atomic_lat_ns=(300, 800))
+    plan = f"{STREAM_PLAN},devices={PAR_RANKS},device={DEVICE}"
+    views = []
+    fused = sk.price_grid_fused
+
+    def recording(cb_, view):
+        out = fused(cb_, view)
+        if not views:
+            views.append((view, {k: v.clone() for k, v in out.items()}))
+        return out
+
+    pt.price(cb, seed.subset(np.arange(PAR_WARM)), plan=plan)    # warm-up
+    sk.price_grid_fused = recording
+    counters = {"fused_bracket_segsum": sb.fused_bracket_segsum,
+                "segment_sum": sb.segment_sum}
+    try:
+        for c in counters.values():
+            c.launches = 0
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        res = pt.price(cb, seed, plan=plan)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        sk.price_grid_fused = fused
+    view, got = views[0]
+    want = sk.price_grid_torch(cb, view)
+    err = max(max_abs_err(got, want, TOL["f64"]), 0.0)
+    flat = [res.indices.astype(np.float64), res.speedups,
+            res.result.gain_ns.ravel()]
+    allf = torch.as_tensor(np.concatenate(flat), device=dev)
+    from repro_torch.parallel import transport
+    rows = transport.all_gather(allf, torch.distributed.group.WORLD)
+    equal = bool((rows == rows[0]).all())
+    if rank == 0:
+        agg = res.aggregates
+        np.savez(pathlib.Path(out_dir) / "sweep.npz", indices=res.indices,
+                 speedups=res.speedups, gain_ns=res.result.gain_ns,
+                 **{k: np.asarray(getattr(agg, k)) for k in (
+                     "count", "speedup_mean", "speedup_min", "speedup_max",
+                     "hist", "n_beneficial", "gain_sum")})
+    return {"launches": launches, "seconds": seconds, "err_bracket": err,
+            "equal": equal, "shard_rows": res.shard_rows}
+
+
+def rank_pipe(torch, np, dev):
+    """(d) the pipeline over the world's 4 stages and 5 compressed_psum
+    steps, on the card and on the CPU (one gloo group carries both); the
+    int8 payloads and scales put on the wire are recorded."""
+    import torch.distributed as dist
+    from repro_torch.parallel import pipeline as pl
+
+    group = dist.group.WORLD
+    stage = dist.get_rank()
+    p = PAR_PIPE
+    rng = np.random.default_rng(p["seed"])
+    ws = (rng.normal(size=(p["L"], p["D"], p["D"])) * 0.3).astype(np.float32)
+    xs = rng.normal(size=(p["M"], p["B"], p["D"])).astype(np.float32)
+    g_in = rng.normal(size=(5, PAR_RANKS, 4096)).astype(np.float32)
+    per = p["L"] // PAR_RANKS
+
+    def block_fn(w_stack, x):
+        for w in w_stack:
+            x = torch.tanh(x @ w)
+        return x
+
+    gather = pl.transport.all_gather
+    res = []
+    for where in (DEVICE, "cpu"):
+        w = torch.tensor(ws[stage * per:(stage + 1) * per], device=where,
+                         requires_grad=True)
+        out = pl.pipeline_apply(w, torch.tensor(xs, device=where), block_fn,
+                                group)
+        (out ** 2).sum().backward()
+        sent, r, outs = [], None, []
+
+        def recording(t, grp=None):
+            sent.append(t.cpu())
+            return gather(t, grp)
+
+        pl.transport.all_gather = recording
+        try:
+            for x in g_in:
+                o, r = pl.compressed_psum(torch.tensor(x[stage], device=where),
+                                          group, r)
+                outs.append(o)
+        finally:
+            pl.transport.all_gather = gather
+        res.append((out.detach().cpu(), w.grad.cpu(),
+                    torch.stack(outs).cpu(), sent))
+    (o1, g1, s1, w1), (o2, g2, s2, w2) = res
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    return {"pipe_out": rel(o1, o2), "pipe_grad": rel(g1, g2),
+            "psum_out": rel(s1, s2),
+            "psum_payload_equal": len(w1) == len(w2) == 10 and all(
+                torch.equal(a, b) for a, b in zip(w1, w2))}
+
+
+def rank_probe(out_dir):
+    """Which collectives gloo takes from CUDA tensors, 2 ranks on the card:
+    each of ``parallel.transport.GLOO_CUDA`` and the list all-to-all (which
+    the port does not use) is tried and recorded; then a point-to-point
+    send / receive of a CUDA tensor, which is expected to end the process
+    (the parent checks that it did not complete: the reason that route is
+    staged through host memory)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+
+    dev = init_ranks("gloo", "cuda")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    path = pathlib.Path(out_dir) / f"probe{rank}.json"
+    res = {}
+    ones = lambda: torch.ones(16, device=dev)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(ones()),
+        "all_gather": lambda: dist.all_gather([ones() for _ in range(n)],
+                                              ones()),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(16 * n, device=dev), torch.ones(16 * n, device=dev)),
+        "broadcast": lambda: dist.broadcast(ones(), 0),
+        "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+            ones(), torch.ones(16 * n, device=dev)),
+        "all_to_all": lambda: dist.all_to_all([ones() for _ in range(n)],
+                                              [ones() for _ in range(n)]),
+    }
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            res[name] = "ok"
+        except RuntimeError as e:
+            res[name] = f"refused: {e}"[:200]
+        dist.barrier()
+        path.write_text(json.dumps(res))
+    res["send/recv"] = "started"
+    path.write_text(json.dumps(res))
+    t = torch.ones(16, device=dev)
+    if rank == 0:
+        dist.send(t, 1)
+    else:
+        dist.recv(t, 0)
+    torch.cuda.synchronize()
+    res["send/recv"] = "ok"
+    path.write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_nccl(out_dir):
+    """(e) the EP-local forward as one NCCL rank (model axis 1): equal to
+    the scatter forward bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.parallel import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_ranks("nccl", "cuda")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        model, _, logits, aux, info = _ep_forward(torch, dev, mesh,
+                                                  "ep_local")
+        del model
+        torch.cuda.empty_cache()
+        whole, _, wl, wa, _ = _ep_forward(torch, dev, None, "scatter",
+                                          holding=False)
+        info.update(equal=bool(torch.equal(logits, wl)),
+                    aux_equal=bool(torch.equal(aux, wa)))
+        transport.all_reduce(aux.clone(), dist.group.WORLD)
+        info["routes"] = {f"{op} {r}": n
+                          for (op, r), n in sorted(transport.routes.items())}
+    finally:
+        dist.destroy_process_group()
+    (pathlib.Path(out_dir) / "nccl0.json").write_text(json.dumps(info))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2569,6 +3304,7 @@ def main() -> int:
     log(f"sweeps: phase {time.perf_counter() - t0:.1f} s")
     kernels[0]["launches_by_path"] = {
         "price": launches["fused_bracket_segsum"], **by_path}
+    cb_stream = bundles[f"stencil tile {STREAM_TILE}"][1]
     del bundles, results
     torch.cuda.empty_cache()
 
@@ -2624,7 +3360,17 @@ def main() -> int:
         k["launches_train"] = counters[k["name"]].launches
         assert k["launches_train"] == 0, k
 
-    # 15. result lines
+    # 15. the parallel layer over ranks sharing the card (kernels built
+    #     above; the ranks load them from disk)
+    par_launches, par_errs = phase_parallel(torch, np, pt, card, cb_stream)
+    for k in kernels:
+        k["launches_parallel"] = par_launches[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               par_errs.get(k["name"], 0.0))
+    for name in ("fused_bracket_segsum", "flash_attention", "mamba_scan"):
+        assert par_launches[name] > 0, (name, par_launches)
+
+    # 16. result lines
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2634,4 +3380,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:          # one rank of phase 15's worlds
+        sys.exit({"world": rank_world, "nccl": rank_nccl,
+                  "probe": rank_probe}[sys.argv[2]](sys.argv[3]))
     sys.exit(main())

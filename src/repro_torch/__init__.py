@@ -17,4 +17,12 @@ It imports ``torch`` and ``numpy``, never ``jax`` and never ``repro``.
   ``LanguageModel.forward`` / ``loss``) over the arch registry
   ``configs``; with ``use_kernel`` attention and the Mamba scan run the
   CUDA kernels of ``kernels.flash_attention`` and ``kernels.mamba_scan``.
+* Serving (``serve``), the advisor on compiled programs (``core.graph``,
+  ``core.advisor``) and training (``train``, ``launch.train``).
+* Parallelism over ``torch.distributed`` ranks: ``launch.mesh`` (process
+  groups, device meshes), ``parallel`` (the sharding rules, the GPipe
+  pipeline, the compressed all-reduce), EP-local MoE (``moe_impl=
+  "ep_local"`` with a mesh), data parallelism with ZeRO-1 in the train
+  step, elastic checkpoint restore, and the ``"distributed"`` sweep over
+  ranks.
 """

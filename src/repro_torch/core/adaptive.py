@@ -17,7 +17,10 @@ The counterpart of ``repro.core.adaptive``:
     (:func:`~repro_torch.core.sweep_kernel.price_topk_chunk`), so the full
     ``(S, n_calls)`` matrices never exist.  With ``plan.refine > 0`` it
     adds adaptive rounds re-sampled around the current speedup frontier,
-    then re-evaluates the survivors exactly.
+    then re-evaluates the survivors exactly.  Inside an initialized
+    ``torch.distributed`` process group each rank prices its own shard of
+    every chunk on its device, and the shards' candidates and aggregates
+    are all-gathered, so every rank returns the same result.
 
 Everything here but the chunk reduction is host-side NumPy.
 """
@@ -26,14 +29,17 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from ..parallel import transport
 from .execplan import ExecPlan
 from .params import ModelParams
 from .sweep import (CATEGORICAL_AXES, ParamGrid, SweepAggregates,
                     TopKSweepResult, _axis_values, _chunk_slices,
                     _ParamArrays, _scenario_view, _sweep_plan, padded_size)
 from .sweep_kernel import (DIST_CHUNK_DEFAULT, SPEEDUP_HIST_EDGES,
-                           price_topk_chunk)
+                           price_topk_chunk, topk_chunk_tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,6 +316,35 @@ class _StreamState:
 # The streaming executor
 # --------------------------------------------------------------------------
 
+def _rank_group(plan: ExecPlan):
+    """The world group when the process is one rank of an initialized
+    ``torch.distributed`` group, else ``None`` (the stacked form)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    world = dist.get_world_size()
+    if plan.devices is not None and plan.devices != world:
+        raise ValueError(f"plan.devices={plan.devices}, but the process "
+                         f"group has {world} ranks")
+    return dist.group.WORLD
+
+
+def _gather_shards(out: dict, group) -> dict:
+    """Every rank's one-shard chunk outputs (a leading axis of 1) as NumPy
+    arrays with a leading axis of ranks, in rank order: packed into one
+    float64 vector (indices and counts are below 2**53, so exact), one
+    all-gather, unpacked to the outputs' dtypes."""
+    names = sorted(out)
+    flat = torch.cat([out[n].reshape(-1).to(torch.float64) for n in names])
+    rows = transport.all_gather(flat, group).cpu().numpy()
+    res, at = {}, 0
+    for n in names:
+        shape, size = tuple(out[n].shape[1:]), out[n][0].numel()
+        dtype = np.dtype(str(out[n].dtype).removeprefix("torch."))
+        res[n] = rows[:, at:at + size].reshape(-1, *shape).astype(dtype)
+        at += size
+    return res
+
+
 def run_distributed(cb, scenarios, plan: ExecPlan, *, mpi_transfer=None,
                     free_transfer=None) -> TopKSweepResult:
     """The ``"distributed"`` streaming executor (registered in
@@ -327,6 +362,14 @@ def run_distributed(cb, scenarios, plan: ExecPlan, *, mpi_transfer=None,
     with seed ``r + 1`` and a window of ``0.25 * 0.5**r`` of each range.
     The surviving top-k are re-evaluated exactly with the matrix
     ``"fused"`` backend on ``plan.device``.
+
+    Over ranks: when a ``torch.distributed`` process group is initialized,
+    ``plan.devices`` (if given) must equal its world size, every rank must
+    call with the same arguments, and rank ``r`` prices rows ``[r * n /
+    R, (r + 1) * n / R)`` of each padded chunk of ``n`` rows, the shard the
+    stacked form gives its ``r``-th slot; the per-shard outputs are
+    all-gathered (one all-gather per chunk), so each rank merges the same
+    candidates and returns the same result.
     """
     dev = plan.torch_device()
     exact_plan = ExecPlan("fused", device=plan.device, x64=plan.x64)
@@ -347,7 +390,11 @@ def run_distributed(cb, scenarios, plan: ExecPlan, *, mpi_transfer=None,
                 gain_sum=np.zeros(C)),
             plan=plan, shard_rows=0)
 
+    group = _rank_group(plan)
     n_dev = plan.devices if plan.devices is not None else 1
+    if group is not None:
+        n_dev = dist.get_world_size(group)
+        rank = dist.get_rank(group)
     chunk = plan.chunk_scenarios or DIST_CHUNK_DEFAULT
     total = as_array_set(scenarios) if plan.refine > 0 else scenarios
     if not hasattr(total, "subset"):
@@ -365,14 +412,21 @@ def run_distributed(cb, scenarios, plan: ExecPlan, *, mpi_transfer=None,
         shard_rows = max(shard_rows, n_pad // n_dev)
         for sl in _chunk_slices(m, n_pad):
             size = sl.stop - sl.start
-            vs = view._slice(sl)._pad(n_pad).to(dev, plan.dtype)
+            vs = view._slice(sl)._pad(n_pad)
             valid = np.zeros(n_pad, dtype=bool)
             valid[:size] = True
             idx = np.empty(n_pad, dtype=np.int64)
             idx[:size] = offset + np.arange(sl.start, sl.stop)
             idx[size:] = idx[size - 1]       # padded copies, masked out
-            state.add(price_topk_chunk(cb, vs, valid, idx, k,
-                                       n_devices=n_dev))
+            if group is None:
+                state.add(price_topk_chunk(cb, vs.to(dev, plan.dtype), valid,
+                                           idx, k, n_devices=n_dev))
+                continue
+            n_loc = n_pad // n_dev
+            mine = slice(rank * n_loc, (rank + 1) * n_loc)
+            out = topk_chunk_tensors(cb, vs._slice(mine).to(dev, plan.dtype),
+                                     valid[mine], idx[mine], k)
+            state.add(_gather_shards(out, group))
 
     consume(total, 0)
     for r in range(plan.refine):

@@ -271,6 +271,14 @@ def price_topk_chunk(cb, view, valid, idx, k: int,
     1)`` exact bucket counts; ``n_beneficial`` / ``gain_sum`` ``(n_dev,
     n_calls)``.
     """
+    return {name: val.cpu().numpy() for name, val in
+            topk_chunk_tensors(cb, view, valid, idx, k, n_devices).items()}
+
+
+def topk_chunk_tensors(cb, view, valid, idx, k: int,
+                       n_devices: int = 1) -> dict:
+    """:func:`price_topk_chunk`'s outputs as tensors on the view's device
+    (the multi-rank sweep gathers them there)."""
     dev = view.mem_lat_ns.device
     valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
     idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
@@ -322,4 +330,4 @@ def price_topk_chunk(cb, view, valid, idx, k: int,
         "n_beneficial": ((gain > 0) & okc).sum(dim=1),
         "gain_sum": torch.where(okc, gain, 0.0).sum(dim=1),
     }
-    return {name: val.cpu().numpy() for name, val in out.items()}
+    return out

@@ -11,9 +11,10 @@ package's parameters, so that both compute the same function.
 .serve``); ``convert.caches_from_jax`` loads the reference's caches.
 """
 from .config import ArchConfig, ShapeConfig, SHAPES
-from .factory import abstract_params, make_inputs, make_model
+from .factory import (abstract_caches, abstract_params, decode_inputs,
+                      make_inputs, make_model)
 from .lm import LanguageModel
 
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "LanguageModel",
-           "abstract_params",
+           "abstract_params", "abstract_caches", "decode_inputs",
            "make_inputs", "make_model"]

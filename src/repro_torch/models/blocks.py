@@ -73,8 +73,8 @@ class Layer(layers.Params):
         self.spec = spec
 
 
-def init_layer(cfg: ArchConfig, spec: LayerSpec,
-               gen: torch.Generator) -> Layer:
+def init_layer(cfg: ArchConfig, spec: LayerSpec, gen: torch.Generator,
+               experts: slice | None = None) -> Layer:
     dt = layers.dtype_of(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
     p = {}
@@ -85,19 +85,21 @@ def init_layer(cfg: ArchConfig, spec: LayerSpec,
     if spec.ffn == "dense":
         p.update(ffn_norm=ones(), mlp=layers.init_mlp(cfg, gen))
     elif spec.ffn == "moe":
-        p.update(ffn_norm=ones(), moe=moe.init_moe(cfg, gen))
+        p.update(ffn_norm=ones(), moe=moe.init_moe(cfg, gen, experts))
     return Layer(spec, **p)
 
 
-def init_stack(cfg: ArchConfig, gen: torch.Generator) -> nn.ModuleList:
-    """Every layer of the stack, in depth order."""
-    return nn.ModuleList(init_layer(cfg, spec, gen)
+def init_stack(cfg: ArchConfig, gen: torch.Generator,
+               experts: slice | None = None) -> nn.ModuleList:
+    """Every layer of the stack, in depth order (MoE layers with only the
+    ``experts`` block, when given)."""
+    return nn.ModuleList(init_layer(cfg, spec, gen, experts)
                          for spec in layer_specs(cfg))
 
 
 # -------------------------------------------------------------------- apply
 def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
-         per_row: bool = False):
+         per_row: bool = False, mesh=None):
     """The layer's FFN half: (x, MoE aux loss or 0)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "dense":
@@ -106,13 +108,13 @@ def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
     elif spec.ffn == "moe":
         h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
         y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl,
-                             per_row=per_row)
+                             per_row=per_row, mesh=mesh)
         x = x + y
     return x, aux
 
 
 def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
-                 use_kernel: bool, moe_impl: str):
+                 use_kernel: bool, moe_impl: str, mesh=None):
     if spec.mixer == "attn":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
         x = x + layers.attention_block(p["attn"], h, cfg, positions,
@@ -120,23 +122,25 @@ def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
     elif spec.mixer == "mamba":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
         x = x + mamba.mamba_block(p["mamba"], h, cfg, use_kernel=use_kernel)
-    return _ffn(p, spec, x, cfg, moe_impl)
+    return _ffn(p, spec, x, cfg, moe_impl, mesh=mesh)
 
 
 def _block(layers_, x, aux, cfg: ArchConfig, positions, use_kernel: bool,
-           moe_impl: str):
+           moe_impl: str, mesh=None):
     """The layers of one pattern period; the aux loss is carried through,
     as the reference's scan carries it."""
     for layer in layers_:
         x, a = _apply_layer(layer, layer.spec, x, cfg, positions, use_kernel,
-                            moe_impl)
+                            moe_impl, mesh)
         aux = aux + a
     return x, aux
 
 
 def stack_apply(stack, x, cfg: ArchConfig, positions=None,
-                use_kernel: bool = False, moe_impl: str = "scatter"):
+                use_kernel: bool = False, moe_impl: str = "scatter",
+                mesh=None):
     """Forward through the whole stack.  Returns (x, total_aux_loss).
+    ``mesh`` is the ``DeviceMesh`` of ``moe_impl="ep_local"``.
 
     With ``cfg.remat`` and grad enabled, each pattern period (the
     reference's scanned block) is checkpointed: only its input is kept for
@@ -147,7 +151,8 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, len(stack), P):
-        args = (stack[i:i + P], x, aux, cfg, positions, use_kernel, moe_impl)
+        args = (stack[i:i + P], x, aux, cfg, positions, use_kernel, moe_impl,
+                mesh)
         x, aux = checkpoint(_block, *args, use_reentrant=False) if remat \
             else _block(*args)
     return x, aux
@@ -172,7 +177,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device):
 
 
 def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
-                  use_kernel: bool = False, moe_impl: str = "scatter"):
+                  use_kernel: bool = False, moe_impl: str = "scatter",
+                  mesh=None):
     """Forward producing decode caches (k/v padded to ``max_len``)."""
     S = x.shape[1]
     caches = []
@@ -193,12 +199,12 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
             caches.append(state)
         else:
             caches.append(None)
-        x, _ = _ffn(layer, spec, x, cfg, moe_impl)
+        x, _ = _ffn(layer, spec, x, cfg, moe_impl, mesh=mesh)
     return x, caches
 
 
 def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
-                 moe_impl: str = "scatter"):
+                 moe_impl: str = "scatter", mesh=None):
     """One step through the stack.  x: (B, S, d); ``pos`` an int (the write
     index of the whole batch) or a (B,) tensor (one per row).  Attention
     caches are written in place; returns (x, caches).  With a position per
@@ -221,5 +227,5 @@ def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
             new_caches.append(state)
         else:
             new_caches.append(None)
-        x, _ = _ffn(layer, spec, x, cfg, moe_impl, per_row)
+        x, _ = _ffn(layer, spec, x, cfg, moe_impl, per_row, mesh)
     return x, new_caches

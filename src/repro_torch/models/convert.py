@@ -146,9 +146,15 @@ class Leaf:
 def reference_leaves(model) -> list:
     """The model's parameters as the reference's leaves, in ``jax.tree``
     flatten order (the order of ``jax.tree.leaves(params)``)."""
-    P = len(layer_pattern(model.cfg))
+    return leaves_of(model.cfg, model.named_parameters())
+
+
+def leaves_of(cfg: ArchConfig, named) -> list:
+    """:func:`reference_leaves` of ``(name, tensor)`` pairs named as the
+    model's parameters (e.g. ``factory.abstract_params(cfg).items()``)."""
+    P = len(layer_pattern(cfg))
     groups: dict = {}
-    for name, t in model.named_parameters():
+    for name, t in named:
         key = tuple(name.split("."))
         if key[0] == "stack":
             layer = int(key[1])

@@ -3,7 +3,9 @@
 ``make_model``  — ArchConfig -> LanguageModel, its weights drawn from a
                   seeded ``torch.Generator`` on the device
 ``abstract_params`` — ArchConfig -> the parameters' names, shapes and
-                  dtypes, drawn from nothing (meta tensors)
+                  dtypes, drawn from nothing (meta tensors);
+                  ``abstract_caches`` / ``decode_inputs`` likewise for the
+                  decode caches and one decode step's operands
 ``make_inputs`` — (cfg, shape) -> batch of tensors, drawn with numpy
                   exactly as the JAX package's ``make_inputs`` draws them,
                   so both sides see bit-identical tokens, targets and
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import blocks
 from .config import ArchConfig, ShapeConfig
 from .lm import LanguageModel
 
@@ -33,16 +36,19 @@ def torch_device(device) -> torch.device:
 
 def make_model(cfg: ArchConfig, use_kernel: bool = False,
                moe_impl: str = "scatter", device="cuda",
-               generator: torch.Generator | None = None) -> LanguageModel:
+               generator: torch.Generator | None = None,
+               mesh=None) -> LanguageModel:
     """The model with its weights drawn on ``device`` from ``generator``
-    (a fresh one seeded with 0 when None; it must live on ``device``)."""
+    (a fresh one seeded with 0 when None; it must live on ``device``).
+    ``mesh`` (a ``DeviceMesh``) is the one ``moe_impl="ep_local"``
+    dispatches over: each rank then holds its block of the experts."""
     dev = torch_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif torch.device(generator.device).type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
     return LanguageModel(cfg, generator, use_kernel=use_kernel,
-                         moe_impl=moe_impl)
+                         moe_impl=moe_impl, mesh=mesh)
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
@@ -58,6 +64,14 @@ def abstract_params(cfg: ArchConfig) -> dict:
             for name, p in model.named_parameters()}
 
 
+def abstract_leaves(cfg: ArchConfig) -> list:
+    """The reference's leaves (``convert.reference_leaves``) of
+    :func:`abstract_params`: paths, stacked shapes and dtypes, as meta
+    tensors."""
+    from .convert import leaves_of
+    return leaves_of(cfg, abstract_params(cfg).items())
+
+
 def _concrete(shape, dtype, seed: int, device, vocab: int | None = None):
     rng = np.random.default_rng(seed)
     if dtype == torch.int32:
@@ -67,18 +81,49 @@ def _concrete(shape, dtype, seed: int, device, vocab: int | None = None):
     return torch.as_tensor(values).to(device=device, dtype=dtype)
 
 
+def abstract_caches(cfg: ArchConfig, batch: int, max_len: int) -> list:
+    """The decode caches of ``blocks.init_caches`` as meta tensors: one
+    entry per layer, shapes and dtypes only."""
+    return blocks.init_caches(cfg, batch, max_len, torch.device("meta"))
+
+
+def decode_inputs(cfg: ArchConfig, shape: ShapeConfig, abstract: bool = True,
+                  batch_override: int | None = None, device="cuda") -> tuple:
+    """``(batch, caches, pos)`` operands for one decode step with a
+    full-length cache — the ``decode_*`` / ``long_*`` cell contract.
+    Abstract: meta tensors, ``pos`` a 0-d int32 one; else the zeroed caches
+    on ``device`` and ``pos = seq_len - 1``."""
+    if not shape.is_decode:
+        raise ValueError(f"{shape.name} is a {shape.kind} shape, not decode")
+    B = batch_override or shape.global_batch
+    batch = make_inputs(cfg, shape, batch_override=batch_override,
+                        device=device, abstract=abstract)
+    if abstract:
+        return (batch, abstract_caches(cfg, B, shape.seq_len),
+                torch.empty((), dtype=torch.int32, device="meta"))
+    return (batch, blocks.init_caches(cfg, B, shape.seq_len,
+                                      torch_device(device)),
+            shape.seq_len - 1)
+
+
 def make_inputs(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
-                batch_override: int | None = None, device="cuda") -> dict:
+                batch_override: int | None = None, device="cuda",
+                abstract: bool = False) -> dict:
     """The training/prefill batch for one cell (``decode`` shapes get the
-    single-token decode batch)."""
-    dev = torch_device(device)
+    single-token decode batch); ``abstract``: meta tensors of the same
+    shapes and dtypes, drawn from nothing."""
+    dev = torch.device("meta") if abstract else torch_device(device)
     B = batch_override or shape.global_batch
     S = 1 if shape.is_decode else shape.seq_len
 
     def ints(shp):
+        if abstract:
+            return torch.empty(shp, dtype=torch.int32, device=dev)
         return _concrete(shp, torch.int32, seed, dev, vocab=cfg.vocab_size)
 
     def floats(shp):
+        if abstract:
+            return torch.empty(shp, dtype=torch.bfloat16, device=dev)
         return _concrete(shp, torch.bfloat16, seed + 1, dev)
 
     if cfg.frontend == "vision":

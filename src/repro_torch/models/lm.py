@@ -19,26 +19,33 @@ import math
 import torch
 from torch import nn
 
-from . import blocks, layers
+from . import blocks, layers, moe
 from .config import ArchConfig
 
 
 class LanguageModel(nn.Module):
     """The model's parameters, drawn from ``generator`` on its device, and
     its forward pass.  ``use_kernel`` runs attention and the SSM scan on the
-    CUDA kernels (forward only); ``moe_impl`` is ``"scatter"`` or
-    ``"dense"``."""
+    CUDA kernels (forward only); ``moe_impl`` is ``"scatter"``, ``"dense"``
+    or ``"ep_local"``.  With ``"ep_local"`` and a ``mesh`` whose ``model``
+    axis has R > 1 ranks, each MoE layer holds only this rank's E / R
+    experts (drawn from the same stream as the whole model's) and
+    dispatches over that axis; every other parameter is whole."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
-                 use_kernel: bool = False, moe_impl: str = "scatter"):
+                 use_kernel: bool = False, moe_impl: str = "scatter",
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.moe_impl = moe_impl
+        self.mesh = mesh
         gen = generator
         dt = layers.dtype_of(cfg)
+        experts = moe.expert_block(cfg, mesh) \
+            if moe_impl == "ep_local" and cfg.n_experts else None
         self.embed = layers.init_embedding(cfg, gen)
-        self.stack = blocks.init_stack(cfg, gen)
+        self.stack = blocks.init_stack(cfg, gen, experts)
         self.final_norm = nn.Parameter(
             torch.ones((cfg.d_model,), dtype=dt, device=gen.device))
         if cfg.frontend == "vision":
@@ -82,7 +89,7 @@ class LanguageModel(nn.Module):
         x = self._embed_inputs(batch)
         x, aux = blocks.stack_apply(self.stack, x, self.cfg,
                                     use_kernel=self.use_kernel,
-                                    moe_impl=self.moe_impl)
+                                    moe_impl=self.moe_impl, mesh=self.mesh)
         if self.cfg.frontend == "vision":
             x = x[:, self.cfg.img_seq:]       # logits only over text positions
         return self._head(x), aux
@@ -111,7 +118,8 @@ class LanguageModel(nn.Module):
         x = self._embed_inputs(batch)
         x, caches = blocks.stack_prefill(self.stack, x, self.cfg, max_len,
                                          use_kernel=self.use_kernel,
-                                         moe_impl=self.moe_impl)
+                                         moe_impl=self.moe_impl,
+                                         mesh=self.mesh)
         if last_index is None:
             x_last = x[:, -1:]
         else:
@@ -129,7 +137,8 @@ class LanguageModel(nn.Module):
         Decode runs the plain paths, as in the reference."""
         x = self._embed_inputs(batch)
         x, caches = blocks.stack_decode(self.stack, caches, x, self.cfg, pos,
-                                        moe_impl=self.moe_impl)
+                                        moe_impl=self.moe_impl,
+                                        mesh=self.mesh)
         return self._head(x), caches
 
     def init_caches(self, batch_size: int, max_len: int):

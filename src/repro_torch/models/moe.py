@@ -22,6 +22,11 @@ reference maps the model over the slots (``jax.vmap``), so that each
 slot's single token sees ``capacity(cfg, 1)`` and is never dropped;
 ``moe_ffn(..., per_row=True)`` gives each batch row its own group to match.
 The experts still run once, over every group's buffer.
+
+``ep_local`` is the expert-parallel dispatch over the ``model`` axis of a
+``DeviceMesh``: each model rank holds ``E / R`` of the experts
+(``init_moe(..., experts=)``) and dispatches only to them; see
+:func:`moe_ffn_ep_local`.
 """
 from __future__ import annotations
 
@@ -30,21 +35,51 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sharding, transport
 from .config import ArchConfig
 from .layers import Params, activation, dtype_of, normal
 
 
-def init_moe(cfg: ArchConfig, gen: torch.Generator) -> Params:
+def init_moe(cfg: ArchConfig, gen: torch.Generator,
+             experts: slice | None = None) -> Params:
     """The router (``(d, E)``, f32) and the stacked experts ``w_gate``,
-    ``w_up`` (``(E, d, f)``) and ``w_down`` (``(E, f, d)``)."""
+    ``w_up`` (``(E, d, f)``) and ``w_down`` (``(E, f, d)``).  ``experts``
+    keeps only those experts: each stacked tensor is drawn whole, from the
+    same stream, and cut at once, so a rank holds its block of the very
+    weights the whole model draws, never more than one whole tensor at a
+    time."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = dtype_of(cfg)
     s = 1.0 / math.sqrt(d)
-    return Params(router=normal(gen, (d, E), torch.float32, s),
-                  w_gate=normal(gen, (E, d, f), dt, s),
-                  w_up=normal(gen, (E, d, f), dt, s),
-                  w_down=normal(gen, (E, f, d), dt,
-                                1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers)))
+    keep = (lambda w: w) if experts is None \
+        else (lambda w: w[experts].clone())
+    router = normal(gen, (d, E), torch.float32, s)
+    w_gate = keep(normal(gen, (E, d, f), dt, s))
+    w_up = keep(normal(gen, (E, d, f), dt, s))
+    w_down = keep(normal(gen, (E, f, d), dt,
+                         1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers)))
+    return Params(router=router, w_gate=w_gate, w_up=w_up, w_down=w_down)
+
+
+def expert_block(cfg: ArchConfig, mesh) -> slice | None:
+    """The experts this rank holds under ``mesh`` (``None``: all of them):
+    the ``r``-th of ``R`` equal blocks, ``r`` the rank's coordinate on the
+    ``model`` axis of size ``R``."""
+    R = _model_size(mesh)
+    if R == 1:
+        return None
+    E = cfg.n_experts
+    if E % R:
+        raise ValueError(f"{cfg.name}: {E} experts do not split over a "
+                         f"model axis of {R}")
+    r = mesh.get_local_rank("model")
+    return slice(r * E // R, (r + 1) * E // R)
+
+
+def _model_size(mesh) -> int:
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("model"))
 
 
 def capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -150,19 +185,81 @@ def moe_ffn_scatter(p, x, cfg: ArchConfig, groups: int = 1):
     return y, aux_load_balance_loss(logits, topi, cfg)
 
 
+# ---------------------------------------------------------------- ep_local
+def moe_ffn_ep_local(p, x, cfg: ArchConfig, mesh=None):
+    """Expert-parallel LOCAL dispatch over the ``model`` axis of ``mesh``.
+
+    ``x`` (B, S, d) is this rank's token block, the same on every rank of
+    its ``model`` group (the rows of its data shard); ``p`` holds the whole
+    router and this rank's ``E / R`` experts (``expert_block``).  Each
+    model rank routes the tokens, sizes the capacity from its LOCAL token
+    count, fills only its own experts' buffers, and the one collective is
+    a float32 all-reduce of the combined (T, d) output over the ``model``
+    group, cast to ``x``'s dtype after it, as the reference's psum.  The
+    aux loss is averaged over the data ranks (the other mesh axes).
+
+    Gradients: each rank's graph holds only its experts, so what flows
+    back into the routing weights and the expert inputs is partial; both
+    pass an identity whose backward sums over the ``model`` group, and the
+    output's all-reduce passes the gradient through.  The aux loss is
+    computed from the router logits outside those identities, so its
+    (whole) gradient is counted once.
+
+    Without a mesh, or with a ``model`` axis of 1, this is the scatter
+    path.  In this slice the ``model`` axis carries the experts only:
+    every other parameter is whole on each model rank.
+    """
+    B, S, d = x.shape
+    R = _model_size(mesh)
+    if R == 1:
+        y, aux = moe_ffn_scatter(p, x.reshape(B * S, d), cfg)
+        return y.reshape(B, S, d), aux
+    group = mesh.get_group("model")
+    E, k = cfg.n_experts, cfg.experts_per_token
+    E_loc = p["w_gate"].shape[0]
+    if E_loc * R != E:
+        raise ValueError(f"rank holds {E_loc} experts; {E} over {R} ranks "
+                         f"is {E // R}")
+    lo = mesh.get_local_rank("model") * E_loc
+    T = B * S
+    xf = x.reshape(T, d)
+    topw, topi, logits = _route(p, xf, cfg)
+    aux = aux_load_balance_loss(logits, topi, cfg)
+    C = capacity(cfg, T)                   # per data shard: local tokens
+    flat_e, _, rank_in_e = _ranks(topi, E, 1)
+    local = (flat_e >= lo) & (flat_e < lo + E_loc) & (rank_in_e < C)
+    slot = torch.where(local, (flat_e - lo) * C + rank_in_e, E_loc * C)
+
+    xr = transport.sum_backward(xf, group).repeat_interleave(k, dim=0)
+    buf = xf.new_zeros((E_loc * C + 1, d)).index_copy(0, slot, xr)
+    h = _expert_mlp(p, buf[:E_loc * C].reshape(E_loc, C, d), cfg)
+    gathered = torch.cat([h.reshape(E_loc * C, d), h.new_zeros((1, d))])[slot]
+    w = transport.sum_backward(topw, group).reshape(-1)
+    back = gathered.float() * w[:, None] * local[:, None]
+    y = transport.sum_forward(back.reshape(T, k, d).sum(1), group)
+    dp = [a for a in mesh.mesh_dim_names if a != "model"]
+    if math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in dp) > 1:
+        aux = transport.mean_forward(aux, sharding.axes_group(mesh, dp))
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
 def moe_ffn(p, x, cfg: ArchConfig, impl: str = "scatter",
-            per_row: bool = False):
+            per_row: bool = False, mesh=None):
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar).  ``per_row`` routes
     each batch row on its own (capacity and ranks per row, the aux loss
-    over all rows)."""
+    over all rows).  ``impl="ep_local"`` dispatches over ``mesh``'s
+    ``model`` axis (:func:`moe_ffn_ep_local`)."""
     B, S, d = x.shape
     if impl == "ep_local":
-        raise NotImplementedError(
-            "moe_impl='ep_local' (expert-parallel dispatch over a device "
-            "mesh) is not ported yet; use 'scatter' or 'dense'")
+        if per_row:
+            raise NotImplementedError(
+                "moe_impl='ep_local' routes a batch together; per-row "
+                "routing (the continuous engines' decode) has no "
+                "expert-parallel path")
+        return moe_ffn_ep_local(p, x, cfg, mesh)
     if impl not in ("dense", "scatter"):
         raise ValueError(f"unknown moe_impl {impl!r}; known: 'dense', "
-                         "'scatter'")
+                         "'scatter', 'ep_local'")
     fn = moe_ffn_dense if impl == "dense" else moe_ffn_scatter
     y, aux = fn(p, x.reshape(B * S, d), cfg, groups=B if per_row else 1)
     return y.reshape(B, S, d), aux

@@ -1,0 +1,165 @@
+"""The collectives the parallel layer runs, and the route each one takes.
+
+Every collective of ``parallel``, ``models.moe`` (EP-local), ``train`` and
+the multi-rank sweep goes through this module, so that its route is decided
+in one place:
+
+* ``"direct"`` — the backend takes the tensor where it lies: NCCL on the
+  card, gloo on the CPU, and gloo on the card for the collectives it
+  implements for CUDA tensors (:data:`GLOO_CUDA`).
+* ``"host"`` — gloo on a CUDA tensor for a collective gloo runs on host
+  memory only: :func:`through_host` stages the buffers through pinned
+  host memory, runs the collective there and copies the result back.
+
+:data:`GLOO_CUDA` is what gloo accepted with CUDA tensors on an H100
+machine (torch 2.11, 4 ranks on one card): all-reduce (f32, f64, bf16),
+all-gather (list and into one tensor, int8 too), all-to-all of one tensor
+(even and uneven splits), broadcast and reduce-scatter.  A point-to-point
+send / receive of a CUDA tensor ends the process there (a
+``gloo::IoException`` from the TCP transport's ``writev``), and gloo
+refused the list form of all-to-all, which the port does not use.
+``chip_smoke.py`` checks both on every run; ``routes`` counts the calls
+per (collective, route), and it prints them.
+
+On one card shared by several gloo ranks these are the transport of the
+world, not a measure of NVLink or NCCL: every GEMM and kernel stays on
+the card, and each collective crosses host memory.
+"""
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+import torch.distributed as dist
+
+#: Collectives that gloo runs on CUDA tensors as they are.
+GLOO_CUDA = frozenset({"all_reduce", "all_gather", "all_to_all_single",
+                       "broadcast", "reduce_scatter"})
+
+#: Calls per (collective, route) in this process.
+routes: Counter = Counter()
+
+
+def route(op: str, t: torch.Tensor, group=None) -> str:
+    """``"host"`` where gloo would be handed a CUDA tensor for a collective
+    it runs on host memory only, else ``"direct"``."""
+    if t.is_cuda and dist.get_backend(group) == "gloo" \
+            and op not in GLOO_CUDA:
+        return "host"
+    return "direct"
+
+
+def through_host(fn, inputs, outputs):
+    """Run ``fn(*host_inputs, *host_outputs)`` on pinned host copies of the
+    device tensors ``inputs`` and ``outputs``, then copy each host output
+    back into its device tensor (an output ``fn`` leaves alone keeps its
+    values)."""
+    def pinned(t):
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=t.is_cuda).copy_(t)
+    host_in = [pinned(t) for t in inputs]
+    host_out = [pinned(t) for t in outputs]
+    fn(*host_in, *host_out)
+    for t, h in zip(outputs, host_out):
+        t.copy_(h)
+
+
+def _count(op: str, t: torch.Tensor, group) -> str:
+    r = route(op, t, group)
+    routes[(op, r)] += 1
+    return r
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place; returns ``t``."""
+    _count("all_reduce", t, group)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``(n, *t.shape)``: every rank's ``t`` in group-rank order."""
+    _count("all_gather", t, group)
+    n = dist.get_world_size(group)
+    out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+    return out
+
+
+def shift(t: torch.Tensor, group, delta: int) -> torch.Tensor:
+    """Send ``t`` to group rank ``rank + delta`` and return what arrives
+    from ``rank - delta`` (zeros where no such rank exists): the pipeline's
+    stage hand-off, point to point."""
+    me, n = dist.get_rank(group), dist.get_world_size(group)
+    t = t.contiguous()
+    out = torch.zeros_like(t)
+    dst, src = me + delta, me - delta
+    r = _count("send", t, group)
+    _count("recv", t, group)
+
+    def p2p(send_buf, recv_buf):
+        ops = []
+        if 0 <= dst < n:
+            ops.append(dist.P2POp(dist.isend, send_buf,
+                                  dist.get_global_rank(group, dst), group))
+        if 0 <= src < n:
+            ops.append(dist.P2POp(dist.irecv, recv_buf,
+                                  dist.get_global_rank(group, src), group))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+
+    if r == "host":
+        through_host(p2p, [t], [out])
+    else:
+        p2p(t, out)
+    return out
+
+
+# ------------------------------------------------ collectives under autograd
+class _SumForward(torch.autograd.Function):
+    """Forward: the sum over the group.  Backward: the gradient as it is —
+    every rank's downstream computes the same function of the sum, so each
+    already holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Forward: the tensor as it is.  Backward: the sum of the gradients
+    over the group — each rank's graph holds only its part of what the
+    tensor feeds."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _MeanForward(torch.autograd.Function):
+    """Forward: the mean over the group.  Backward: the gradient as it is,
+    so a rank's loss carries the gradient of its own term (data
+    parallelism averages the gradients afterwards)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group) / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+sum_forward = _SumForward.apply          # (x, group)
+sum_backward = _SumBackward.apply        # (x, group)
+mean_forward = _MeanForward.apply        # (x, group)

@@ -9,7 +9,11 @@ other.
   * written into a temporary directory, then renamed into place, so a
     worker dying mid-save never corrupts the latest checkpoint;
   * ``AsyncCheckpointer`` snapshots to host memory synchronously and
-    writes in a background thread.
+    writes in a background thread;
+  * elastic restore: the files hold whole leaves whatever mesh wrote them
+    (over data ranks, rank 0 writes the gathered leaves), and
+    ``restore(..., shardings=, mesh=)`` places each leaf as this rank's
+    block on any other mesh.
 
 A tree is nested dicts / lists whose leaves are tensors (or numpy arrays).
 bfloat16 leaves: numpy writes an ``ml_dtypes.bfloat16`` array with the
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.convert import flatten, nest, to_numpy
+from ..parallel.sharding import local_shard
 
 MANIFEST = "manifest.json"
 BF16 = "bfloat16"
@@ -142,10 +147,21 @@ def cleanup(directory, keep_last: int = 3):
                       ignore_errors=True)
 
 
-def restore(directory, step: int, like) -> tuple:
-    """Load a checkpoint into the structure of ``like`` (a tree of tensors):
-    ``(tree, extra)``, each leaf cast to its ``like`` leaf's dtype and put
-    on its device."""
+def _at(tree, path):
+    """The entry of ``tree`` at ``path`` (a spec tuple is an entry)."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def restore(directory, step: int, like, shardings=None, mesh=None) -> tuple:
+    """Load a checkpoint into the structure of ``like`` (a tree of tensors
+    with the leaves' whole shapes): ``(tree, extra)``, each leaf cast to
+    its ``like`` leaf's dtype and put on its device.
+
+    ``shardings``: the elastic path — the structure of ``like`` with a spec
+    (``parallel.sharding``) or ``None`` at each leaf; a leaf with a spec
+    comes back as this rank's block of it on ``mesh``."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((d / MANIFEST).read_text())
     pairs = []
@@ -155,5 +171,8 @@ def restore(directory, step: int, like) -> tuple:
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
                              f"{tuple(ref.shape)}")
+        s = None if shardings is None else _at(shardings, path)
+        if s is not None:
+            t = local_shard(t, s, mesh).clone()
         pairs.append((path, t.to(device=ref.device, dtype=ref.dtype)))
     return nest(pairs), manifest["extra"]

@@ -8,14 +8,24 @@ reference_leaves``), updated in place.  Gradients are taken with
 each one's gradients are added into buffers of ``accum_dtype`` (float32),
 one per leaf, as the reference's scan adds them; ``.grad`` would add in the
 parameters' dtype.
+
+Data parallelism (``mesh=``): each rank takes its rows of the global batch
+(``parallel.batch_pspecs``: contiguous blocks over the data axes, in mesh
+order), splits them into its microbatches as above, and the gradients and
+the loss are summed in float32 over the data ranks and divided by their
+count — the global batch's mean.  The ``model`` axis must be 1 here (it
+carries experts and, later, tensor parallelism; see ``launch.train``).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from .optimizer import AdamWConfig, adafactor_update, adamw_update
+from ..parallel import sharding, transport
+from .optimizer import (AdamWConfig, adafactor_update, adamw_update,
+                        zero1_blocks)
 
 
 class TrainMetrics(NamedTuple):
@@ -71,23 +81,77 @@ def loss_and_grads(loss_fn: Callable, params, batch: dict, n_micro: int = 1,
     return loss_acc / n_micro, [a.div_(n_micro) for a in acc]
 
 
+def data_group(mesh):
+    """The process group over ``mesh``'s data axes and its size."""
+    group = sharding.axes_group(mesh, sharding.data_axes(mesh))
+    return group, dist.get_world_size(group)
+
+
+def check_data_mesh(mesh) -> None:
+    """Training over ``mesh`` runs data parallelism only: its ``model`` axis
+    must be 1."""
+    if sharding.axis_sizes(mesh).get(sharding.MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            "training on a mesh whose 'model' axis exceeds 1 needs tensor "
+            "parallelism, which is slice 11 of the port; use a (data, 1) "
+            "mesh")
+
+
+def local_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of the global ``batch`` (``batch_pspecs``)."""
+    specs = sharding.batch_pspecs(batch, mesh)
+    return {k: sharding.local_shard(x, specs[k], mesh)
+            for k, x in batch.items()}
+
+
+def reduce_over_data(loss, grads, group, n: int) -> tuple:
+    """The loss and gradients summed in float32 over the data ranks and
+    divided by their count."""
+    loss = transport.all_reduce(loss.float().clone(), group) / n
+    out = []
+    for g in grads:
+        g = g.float() if g.dtype != torch.float32 else g
+        out.append(transport.all_reduce(g, group).div_(n))
+    return loss, out
+
+
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
                     n_micro: int = 1, accum_dtype=torch.float32,
-                    optimizer: str = "adamw") -> Callable:
+                    optimizer: str = "adamw", mesh=None,
+                    zero1: bool = False) -> Callable:
     """``loss_fn(microbatch) -> scalar``, a function of the tensors of the
     leaves the step is given; returns the train step.
 
     ``accum_dtype``: the gradient-accumulation buffers' dtype (bfloat16
     halves them for the 400B-class archs at a documented precision cost).
     ``optimizer``: ``"adamw"`` or ``"adafactor"`` (the state must come from
-    the matching ``*_init``)."""
+    the matching ``*_init``).  ``mesh``: data parallelism over its data
+    axes; the step then takes the GLOBAL batch.  ``zero1``: AdamW's moments
+    are this rank's blocks (``adamw_init(..., blocks=zero1_blocks(params,
+    mesh))``); Adafactor's state stays whole on every rank."""
     opt_update = {"adamw": adamw_update,
                   "adafactor": adafactor_update}[optimizer]
+    if mesh is not None:
+        check_data_mesh(mesh)
+        group, n_data = data_group(mesh)
+    use_blocks = mesh is not None and zero1 and optimizer == "adamw"
+    blocks = None
 
     def train_step(params, opt_state, batch):
+        nonlocal blocks
+        if mesh is not None:
+            batch = local_batch(batch, mesh)
         loss, grads = loss_and_grads(loss_fn, params, batch, n_micro,
                                      accum_dtype)
-        params, opt_state, om = opt_update(opt_cfg, grads, opt_state, params)
+        kw = {}
+        if mesh is not None:
+            loss, grads = reduce_over_data(loss, grads, group, n_data)
+        if use_blocks:
+            if blocks is None:
+                blocks = zero1_blocks(params, mesh)
+            kw = {"blocks": blocks, "mesh": mesh}
+        params, opt_state, om = opt_update(opt_cfg, grads, opt_state, params,
+                                           **kw)
         return params, opt_state, TrainMetrics(loss=loss,
                                                grad_norm=om["grad_norm"],
                                                lr=om["lr"])

@@ -15,6 +15,12 @@ The reference donates its parameters and state to the jitted step; here
 the update writes them in place: the state tensors directly, the
 parameters by ``copy_`` block by block, with no second copy of either.
 Its arithmetic is the reference's, in float32, element for element.
+
+ZeRO-1 (:func:`zero1_blocks`): over the data ranks of a mesh, AdamW's
+``mu`` / ``nu`` of a leaf hold only this rank's block of
+``parallel.zero1_pspecs`` (the leaf's largest dim that the data ranks
+divide); each rank updates its block of the parameters and the blocks are
+all-gathered.  The arithmetic per element is the same as without it.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ..parallel import sharding
 
 F32 = torch.float32
 
@@ -60,12 +68,60 @@ def _count() -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32)
 
 
-def adamw_init(params, opt_dtype=F32) -> dict:
+@dataclass(frozen=True)
+class Zero1Block:
+    """This rank's block of one leaf under ZeRO-1: ``count`` equal blocks
+    along ``dim``, this one at ``index``; ``spec`` names the data axes
+    that split ``dim`` (for the all-gather)."""
+
+    dim: int
+    index: int
+    count: int
+    spec: tuple
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        size = x.shape[self.dim] // self.count
+        return x.narrow(self.dim, self.index * size, size)
+
+    def shape(self, shape) -> tuple:
+        shape = list(shape)
+        shape[self.dim] //= self.count
+        return tuple(shape)
+
+
+def zero1_blocks(params, mesh) -> list:
+    """One :class:`Zero1Block` per leaf (``None`` where no dim divides over
+    the data ranks): the data-axes entry of ``zero1_pspecs`` over the
+    sanitized ``param_pspecs``, as the reference lays out its optimizer
+    state."""
+    base = sharding.sanitize_pspecs(params, sharding.param_pspecs(params),
+                                    mesh)
+    dp = sharding.data_axes(mesh)
+    coord = mesh.get_coordinate()
+    out = []
+    for leaf, s in zip(params, sharding.zero1_pspecs(params, base, mesh)):
+        dims = [i for i, e in enumerate(s)
+                if set(sharding.axes_of(e)) & set(dp)]
+        if not dims:
+            out.append(None)
+            continue
+        entry = s[dims[0]]
+        index, count = sharding.block_index(entry, mesh, coord)
+        blk = [None] * leaf.ndim
+        blk[dims[0]] = entry
+        out.append(Zero1Block(dims[0], index, count, sharding.spec(*blk)))
+    return out
+
+
+def adamw_init(params, opt_dtype=F32, blocks=None) -> dict:
     """First and second moments, zero, one per leaf (float32 by default;
     ``opt_dtype=torch.bfloat16`` is the reference's memory recipe for the
-    400B-class archs)."""
-    zeros = [torch.zeros(p.shape, dtype=opt_dtype, device=p.device)
-             for p in params]
+    400B-class archs).  ``blocks`` (from :func:`zero1_blocks`): each
+    moment only this rank's block of its leaf."""
+    blocks = blocks or [None] * len(params)
+    zeros = [torch.zeros(b.shape(p.shape) if b else p.shape,
+                         dtype=opt_dtype, device=p.device)
+             for p, b in zip(params, blocks)]
     return {"mu": zeros, "nu": [torch.zeros_like(z) for z in zeros],
             "count": _count()}
 
@@ -89,10 +145,13 @@ def _moment(m: torch.Tensor, beta: float, x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: dict, params):
+def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
+                 blocks=None, mesh=None):
     """One AdamW step over the leaves ``params`` with one gradient per
     leaf.  Writes the parameters and ``state`` in place and returns
-    ``(params, state, {"grad_norm", "lr"})``."""
+    ``(params, state, {"grad_norm", "lr"})``.  With ZeRO-1 ``blocks`` (and
+    their ``mesh``), a leaf with a block is updated on that block only and
+    all-gathered over the data ranks."""
     gnorm = global_norm(grads)
     scale = _clip_scale(cfg, gnorm)
     count = state["count"] + 1
@@ -101,25 +160,38 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params):
     bc1 = float(1 - _f32(cfg.b1) ** cf)
     bc2 = float(1 - _f32(cfg.b2) ** cf)
     step_lr = float(lr)
-    for leaf, grad, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+    blocks = blocks or [None] * len(params)
+    for leaf, grad, mu, nu, blk in zip(params, grads, state["mu"],
+                                       state["nu"], blocks):
         # decoupled weight decay on matrices only (ndim >= 2 of the leaf)
         wd = cfg.weight_decay if leaf.ndim >= 2 else 0.0
-        for p, g, m, v in zip(leaf.tensors, leaf.parts(grad),
-                              leaf.parts(mu), leaf.parts(nu)):
-            g = g.float() * scale
-            _moment(m, cfg.b1, g)
-            _moment(v, cfg.b2, torch.square(g))
-            denom = (v.float() / bc2).sqrt_().add_(cfg.eps)
-            upd = torch.div(m.float(), bc1, out=g).div_(denom)
-            del denom
-            p32 = p.float()                 # p itself when p is float32
-            if wd:
-                upd.add_(p32, alpha=wd)
-            p32.add_(upd, alpha=-step_lr)
-            if p32 is not p:
-                p.copy_(p32)
+        if blk is None:
+            for p, g, m, v in zip(leaf.tensors, leaf.parts(grad),
+                                  leaf.parts(mu), leaf.parts(nu)):
+                _adamw_leaf(cfg, p, g, m, v, scale, bc1, bc2, wd, step_lr)
+            continue
+        p = blk.take(leaf.value()).clone()
+        _adamw_leaf(cfg, p, blk.take(grad), mu, nu, scale, bc1, bc2, wd,
+                    step_lr)
+        leaf.assign(sharding.gather(p, blk.spec, mesh))
     state["count"] = count
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _adamw_leaf(cfg, p, g, m, v, scale, bc1, bc2, wd, step_lr) -> None:
+    """AdamW on one tensor ``p`` and its moments, in place."""
+    g = g.float() * scale
+    _moment(m, cfg.b1, g)
+    _moment(v, cfg.b2, torch.square(g))
+    denom = (v.float() / bc2).sqrt_().add_(cfg.eps)
+    upd = torch.div(m.float(), bc1, out=g).div_(denom)
+    del denom
+    p32 = p.float()                 # p itself when p is float32
+    if wd:
+        upd.add_(p32, alpha=wd)
+    p32.add_(upd, alpha=-step_lr)
+    if p32 is not p:
+        p.copy_(p32)
 
 
 # -------------------------------------------------------------- adafactor

@@ -1,0 +1,301 @@
+"""Rank programs for ``tests/test_torch_distributed.py``: each runs in its
+own spawned process, one rank of a gloo world on the CPU, and imports
+only ``torch``, ``numpy`` and the port (never the JAX package).
+
+``start_world`` starts the ranks (``file://`` rendezvous in the test's
+temporary directory, so concurrent test workers never share a port) and
+``join_world`` joins them within a time limit (after which it kills them
+and fails) and returns each rank's result.  One world runs several
+checks, each a ``part`` whose result or traceback is recorded by name.
+"""
+from __future__ import annotations
+
+import multiprocessing
+import pickle
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+RANK_TIMEOUT_S = 60.0           # a collective's wait before it raises
+
+
+def start_world(n: int, task: str, directory, **kw) -> list:
+    """Start ``TASKS[task](rank, n, **kw)`` on ``n`` gloo ranks; returns
+    their processes (for :func:`join_world`)."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_entry, daemon=True,
+                         args=(r, n, str(directory), task, kw))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_world(procs: list, task: str, directory,
+               timeout: float = 240.0) -> list:
+    """Join a world within ``timeout`` seconds (past it, kill its ranks and
+    fail); returns the ranks' results in rank order."""
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    assert not hung, f"{task}: ranks {hung} still running after {timeout} s"
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * len(procs), f"{task}: exit codes {codes}"
+    out = []
+    for r in range(len(procs)):
+        with open(f"{directory}/{task}-{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _entry(rank, n, directory, task, kw):
+    from repro_torch.launch.mesh import init_ranks
+    torch.set_num_threads(1)
+    init_ranks("gloo", "cpu", init_method=f"file://{directory}/{task}.init",
+               rank=rank, world_size=n, timeout_s=RANK_TIMEOUT_S)
+    try:
+        res = TASKS[task](rank, n, **kw)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{directory}/{task}-{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _parts(res: dict, name: str, fn) -> None:
+    t0 = time.perf_counter()
+    try:
+        res[name] = fn()
+    except Exception:                       # recorded; the test fails on it
+        res[name] = {"error": traceback.format_exc()}
+    res.setdefault("_seconds", {})[name] = time.perf_counter() - t0
+
+
+def _mesh(shape, axes=("data", "model")):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes, "cpu")
+
+
+# --------------------------------------------------------------- the parts
+def pipeline(ws, xs):
+    """``pipeline_apply`` over ``pod`` on a (pod 2, data 2) mesh: the
+    output and this stage's gradient of sum(out ** 2)."""
+    from repro_torch.parallel import pipeline_apply, stage_block_counts
+    mesh = _mesh((2, 2), ("pod", "data"))
+    group = mesh.get_group("pod")
+    stage = dist.get_rank(group)
+    per = stage_block_counts(len(ws), dist.get_world_size(group))[stage]
+    w = torch.tensor(ws[stage * per:(stage + 1) * per], requires_grad=True)
+
+    def block_fn(w_stack, x):
+        for wi in w_stack:
+            x = torch.tanh(x @ wi)
+        return x
+
+    out = pipeline_apply(w, torch.tensor(xs), block_fn, group)
+    (out ** 2).sum().backward()
+    return {"out": out.detach().numpy(), "grad": w.grad.numpy(),
+            "stage": stage, "per": per}
+
+
+def compressed(xs):
+    """Five error-feedback steps of ``compressed_psum`` over the world,
+    rank ``r`` reducing ``xs[step, r]``; the int8 payloads and scales it
+    put on the wire are recorded."""
+    from repro_torch.parallel import pipeline, transport
+    sent = []
+    gather = transport.all_gather
+
+    def recording(t, group=None):
+        sent.append(t.clone())
+        return gather(t, group)
+
+    pipeline.transport.all_gather = recording
+    try:
+        res, outs = None, []
+        for x in xs:
+            out, res = pipeline.compressed_psum(
+                torch.tensor(x[dist.get_rank()]), dist.group.WORLD, res)
+            outs.append(out.numpy())
+    finally:
+        pipeline.transport.all_gather = gather
+    return {"out": np.stack(outs),
+            "q": np.stack([t.numpy() for t in sent[0::2]]),
+            "scale": np.array([float(t) for t in sent[1::2]])}
+
+
+def _moe_cfg():
+    from repro_torch.configs import get_arch
+    return get_arch("phi3.5-moe-42b-a6.6b").reduced().replace(
+        capacity_factor=8.0)
+
+
+def ep_moe(shape, p, x):
+    """``moe_ffn_ep_local`` of this rank's rows of ``x`` with its experts of
+    ``p`` on a (data, model) mesh of ``shape``."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import batch_pspecs, local_shard
+    cfg = _moe_cfg()
+    mesh = _mesh(shape)
+    blk = moe.expert_block(cfg, mesh)
+    mine = {k: torch.tensor(v) if k == "router"
+            else torch.tensor(v)[blk] for k, v in p.items()}
+    xt = torch.tensor(x)
+    xl = local_shard(xt, batch_pspecs({"x": xt}, mesh)["x"], mesh)
+    y, aux = moe.moe_ffn_ep_local(mine, xl, cfg, mesh)
+    return {"y": y.numpy(), "aux": float(aux), "coord": mesh.get_coordinate(),
+            "experts": (blk.start, blk.stop)}
+
+
+def ep_grads(shape, batch, seed):
+    """The reduced phi3.5-moe (capacity factor 8) with ``ep_local`` on a
+    (data, model) mesh: this rank's logits and loss on its rows, and every
+    parameter's gradient averaged over the data ranks (an expert leaf: this
+    rank's block)."""
+    from repro_torch.models import make_model
+    from repro_torch.parallel import batch_pspecs, local_shard, transport
+    cfg = _moe_cfg()
+    mesh = _mesh(shape)
+    model = make_model(cfg, moe_impl="ep_local", device="cpu", mesh=mesh,
+                       generator=torch.Generator().manual_seed(seed))
+    b = {k: torch.tensor(v) for k, v in batch.items()}
+    specs = batch_pspecs(b, mesh)
+    b = {k: local_shard(v, specs[k], mesh) for k, v in b.items()}
+    logits, aux = model(b)
+    loss = model.loss(b)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    group, n_data = mesh.get_group("data"), mesh.size(0)
+    grads = [transport.all_reduce(g.clone(), group) / n_data for g in grads]
+    return {"logits": logits.detach().numpy(), "aux": float(aux),
+            "loss": float(loss), "coord": mesh.get_coordinate(),
+            "grads": {n: g.numpy() for n, g in zip(names, grads)},
+            "shapes": {n: tuple(p.shape)
+                       for n, p in model.named_parameters()}}
+
+
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def dp_train(arch, zero1, steps, seq):
+    """``steps`` DP (+ ZeRO-1) train steps of a reduced arch over a (world,
+    1) mesh, one row per rank: losses, the whole leaves after, and this
+    rank's moment bytes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import make_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.train import make_data
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             zero1_blocks)
+    n = dist.get_world_size()
+    cfg = get_arch(arch).reduced()
+    mesh = _mesh((n, 1))
+    model = make_model(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    params = reference_leaves(model)
+    blocks = zero1_blocks(params, mesh) if zero1 else None
+    opt = adamw_init(params, blocks=blocks)
+    step = make_train_step(model.loss, AdamWConfig(**TRAIN_OPT), mesh=mesh,
+                           zero1=zero1)
+    data = make_data(cfg, ShapeConfig("t", "train", seq, n), seed=0,
+                     device="cpu")
+    losses = []
+    for i in range(steps):
+        params, opt, m = step(params, opt, data.batch(i))
+        losses.append(float(m.loss))
+    return {"losses": losses,
+            "leaves": [leaf.value().numpy() for leaf in params],
+            "moment_bytes": sum(x.numel() * x.element_size()
+                                for k in ("mu", "nu") for x in opt[k]),
+            "sharded": sum(b is not None for b in blocks or [])}
+
+
+def elastic(directory):
+    """Save the reduced qwen2.5-3b's parameters from a (1, 4) mesh (rank 0
+    writes whole leaves), restore them onto (2, 2) as each rank's block of
+    ``param_pspecs``, and hold every block and the gathered leaves to the
+    saved values."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import make_model
+    from repro_torch.models.convert import flatten, nest, reference_leaves
+    from repro_torch.parallel import (gather, local_shard, param_pspecs,
+                                      sanitize_pspecs)
+    from repro_torch.train import checkpoint as ckpt
+    cfg = get_arch("qwen2.5-3b").reduced()
+    model = make_model(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    leaves = reference_leaves(model)
+    paths = [leaf.path for leaf in leaves]
+    _mesh((1, 4))
+    if dist.get_rank() == 0:
+        ckpt.save(directory, 3, nest((p, leaf.value())
+                                     for p, leaf in zip(paths, leaves)))
+    dist.barrier()
+    mesh2 = _mesh((2, 2))
+    specs = sanitize_pspecs(leaves, param_pspecs(leaves), mesh2)
+    like = nest((leaf.path, torch.empty(leaf.shape, dtype=leaf.dtype))
+                for leaf in leaves)
+    restored, _ = ckpt.restore(directory, 3, like,
+                               shardings=nest(zip(paths, specs)), mesh=mesh2)
+    block_err = gather_err = 0.0
+    n_split = 0
+    for leaf, s, (_, blk) in zip(leaves, specs, flatten(restored)):
+        full = leaf.value()
+        want = local_shard(full, s, mesh2)
+        n_split += blk.numel() < full.numel()
+        block_err = max(block_err, float((blk - want).abs().max()))
+        gather_err = max(gather_err,
+                         float((gather(blk, s, mesh2) - full).abs().max()))
+    return {"block_err": block_err, "gather_err": gather_err,
+            "n_split": n_split, "n_leaves": len(leaves)}
+
+
+def sweep(cb, cases):
+    """The ``"distributed"`` plan over the world's ranks: per case (``(n,
+    seed, plan)``) the result's indices, speedups, gains, aggregates and
+    shard rows."""
+    from repro_torch.core import ExecPlan, ModelParams, adaptive_sample, price
+    out = []
+    for n, seed, plan in cases:
+        g = adaptive_sample(ModelParams.multinode(), n, seed=seed,
+                            mpi_transfer=["hockney", "loggp"],
+                            cxl_lat_ns=(250.0, 700.0),
+                            cxl_atomic_lat_ns=(300.0, 800.0))
+        t0 = time.perf_counter()
+        res = price(cb, g, plan=ExecPlan.parse(plan))
+        agg = res.aggregates
+        out.append({"indices": res.indices, "speedups": res.speedups,
+                    "gain_ns": res.result.gain_ns,
+                    "n_scenarios": len(res.scenarios),
+                    "shard_rows": res.shard_rows,
+                    "seconds": time.perf_counter() - t0,
+                    "agg": {k: getattr(agg, k) for k in (
+                        "count", "speedup_mean", "speedup_min",
+                        "speedup_max", "hist", "n_beneficial",
+                        "gain_sum")}})
+    return out
+
+
+# ----------------------------------------------------------------- worlds
+def world(rank, n, **kw):
+    """Every part named in ``kw["parts"]``, in order, with its keyword
+    arguments."""
+    res = {}
+    for name, args in kw["parts"]:
+        _parts(res, name, lambda: PARTS[name.split(":")[0]](**args))
+    return res
+
+
+PARTS = {"pipeline": pipeline, "compressed": compressed, "ep_moe": ep_moe,
+         "ep_grads": ep_grads, "dp_train": dp_train, "elastic": elastic,
+         "sweep": sweep}
+TASKS = {"world": world}

@@ -209,11 +209,28 @@ def test_moe_capacity_drops_in_flat_order(impl):
 
 
 def test_moe_ep_local_is_not_ported_yet():
-    _, cfg = _cfgs("phi3.5-moe-42b-a6.6b")
+    """``ep_local`` is ported (its mesh paths: tests/test_torch_distributed
+    .py).  Without a mesh it is the scatter path, as the reference's
+    ``ep_local`` without an ambient mesh; per-row routing, which neither
+    package has for it, raises."""
+    rng = np.random.default_rng(3)
+    ref_cfg, cfg, jp, p, xt = _moe_case(rng.normal(size=(64, 4)),
+                                        rng.normal(size=(2, 16, 64)))
+    ref = ref_moe.moe_ffn(jp, jnp.asarray(xt), ref_cfg, impl="ep_local")
+    with torch.no_grad():
+        y, aux = moe.moe_ffn(p, torch.as_tensor(xt), cfg, impl="ep_local")
+        ys, auxs = moe.moe_ffn(p, torch.as_tensor(xt), cfg, impl="scatter")
+    assert torch.equal(y, ys) and torch.equal(aux, auxs)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref[0]), **LOGITS)
+    np.testing.assert_allclose(float(aux), float(ref[1]), **SCALAR)
     model = make_model(cfg, moe_impl="ep_local", device="cpu")
     batch = make_inputs(cfg, ShapeConfig("t", "train", 8, 1), device="cpu")
+    with torch.no_grad():
+        logits, _ = model(batch)
+    assert logits.shape == (1, 8, cfg.vocab_size)
     with pytest.raises(NotImplementedError, match="ep_local"):
-        model(batch)
+        moe.moe_ffn(p, torch.as_tensor(xt), cfg, impl="ep_local",
+                    per_row=True)
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):

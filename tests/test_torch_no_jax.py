@@ -21,8 +21,14 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "repro" or k.startswith("repro."))
-print(json.dumps({"modules": len(names), "bad": bad}))
+print(json.dumps({"modules": len(names), "names": names, "bad": bad}))
 """
+
+#: The modules of the parallel slice: the probe must import each of them.
+PARALLEL_MODULES = {"repro_torch.parallel", "repro_torch.parallel.sharding",
+                    "repro_torch.parallel.pipeline",
+                    "repro_torch.parallel.transport",
+                    "repro_torch.launch.mesh"}
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -31,8 +37,23 @@ def test_importing_every_port_module_loads_no_jax():
                           text=True, env=env, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout)
-    assert out["modules"] >= 70
+    assert out["modules"] >= 75
+    assert PARALLEL_MODULES <= set(out["names"])
     assert out["bad"] == [], f"the port imported {out['bad']}"
+
+
+def test_parallel_entry_points_load_no_jax():
+    """``import repro_torch.parallel, repro_torch.launch.mesh`` in a fresh
+    interpreter leaves jax and the JAX package out of ``sys.modules``."""
+    code = ("import json, sys; import repro_torch.parallel, "
+            "repro_torch.launch.mesh; print(json.dumps(sorted(k for k in "
+            "sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
+            "'repro'))))")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout) == []
 
 
 def test_no_port_module_imports_torch_testing_internals():

@@ -1,0 +1,193 @@
+"""The port's sharding rules (``repro_torch.parallel.sharding``) against the
+JAX package's ``repro.parallel.sharding``: the spec trees of every
+function, for all ten archs at full width, on the (1, 4), (2, 2), (16, 16)
+and (2, 16, 16) meshes, exactly.
+
+The reference functions read only ``mesh.shape`` and ``mesh.axis_names``,
+so its side takes a ``jax.sharding.AbstractMesh``; the port's takes a
+``DeviceMesh`` built under a fake process group of the mesh's size (no
+peers).  Both sides start from abstract parameters (no weight drawn).
+Cache specs: the port's caches are per layer, so layer ``i * P + pos``'s
+spec is the reference's stacked spec at pattern position ``pos`` without
+its leading ``n_blocks`` entry."""
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh, PartitionSpec as P
+
+from repro import parallel as ref
+from repro.configs import ARCHS
+from repro.models import factory as ref_factory
+from repro_torch.configs import get_arch
+from repro_torch.models import factory
+from repro_torch.models.blocks import layer_pattern
+from repro_torch.models.config import ShapeConfig
+from repro_torch import parallel as par
+from repro_torch.parallel import sharding
+
+MESHES = [((1, 4), ("data", "model")), ((2, 2), ("data", "model")),
+          ((16, 16), ("data", "model")),
+          ((2, 16, 16), ("pod", "data", "model"))]
+MESH_IDS = ["1x4", "2x2", "16x16", "2x16x16"]
+
+
+@pytest.fixture(scope="module", params=list(zip(MESHES, MESH_IDS)),
+                ids=MESH_IDS)
+def meshes(request):
+    """(port DeviceMesh under a fake group, reference AbstractMesh)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    (shape, axes), _ = request.param
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    yield mesh, AbstractMesh(shape, axes)
+    dist.destroy_process_group()
+
+
+_ABSTRACT: dict = {}
+
+
+def abstract(name):
+    """(port leaves, reference abstract params) of one full-width arch,
+    built once per worker."""
+    if name not in _ABSTRACT:
+        _ABSTRACT[name] = (factory.abstract_leaves(get_arch(name)),
+                           ref_factory.abstract_params(ARCHS[name]))
+    return _ABSTRACT[name]
+
+
+def ref_leaves(tree):
+    return [tuple(s) for s in
+            jax.tree.leaves(tree, is_leaf=lambda x: isinstance(x, P))]
+
+
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_param_spec_trees_equal_the_reference(meshes, name):
+    mesh, amesh = meshes
+    leaves, params = abstract(name)
+    assert [leaf.shape for leaf in leaves] == \
+        [tuple(x.shape) for x in jax.tree.leaves(params)]
+    got = par.param_pspecs(leaves)
+    want = ref.param_pspecs(params)
+    assert got == ref_leaves(want)
+    got_s = par.sanitize_pspecs(leaves, got, mesh)
+    want_s = ref.sharding.sanitize_pspecs(params, want, amesh)
+    assert got_s == ref_leaves(want_s)
+    assert par.zero1_pspecs(leaves, got_s, mesh) == \
+        ref_leaves(ref.zero1_pspecs(params, want_s, amesh))
+    fsdp_axes = tuple(par.data_axes(mesh)) + ("model",)
+    assert par.zero1_pspecs(leaves, got, mesh, axes=fsdp_axes) == \
+        ref_leaves(ref.zero1_pspecs(params, want, amesh, axes=fsdp_axes))
+    for threshold in (par.FSDP_THRESHOLD_BYTES, 7.0e9):
+        g, used = par.fsdp_pspecs(leaves, got, mesh, threshold)
+        w, wused = ref.fsdp_pspecs(params, want, amesh, threshold)
+        assert used == wused
+        assert g == ref_leaves(w)
+    # the port's per-layer tensors: a stacked spec loses its first entry
+    for leaf, s in zip(leaves, got):
+        per = par.layer_spec(leaf, s)
+        assert len(per) <= leaf.tensors[0].ndim
+        assert per == (s[1:] if leaf.stacked else s)
+
+
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_batch_and_cache_spec_trees_equal_the_reference(meshes, name):
+    mesh, amesh = meshes
+    cfg, rcfg = get_arch(name), ARCHS[name]
+    for kind, seq, batch in (("train", 4096, 32), ("train", 2048, 3),
+                             ("decode", 4096, 16), ("decode", 4096, 1)):
+        shape = ShapeConfig("t", kind, seq, batch)
+        got = par.batch_pspecs(
+            factory.make_inputs(cfg, shape, abstract=True), mesh)
+        want = ref.batch_pspecs(
+            ref_factory.make_inputs(rcfg, shape, abstract=True), amesh)
+        assert got == {k: tuple(v) for k, v in want.items()}
+    for B, L in ((16, 4096), (1, 4096), (2, 96)):
+        got = par.cache_pspecs(factory.abstract_caches(cfg, B, L), mesh)
+        want = ref.cache_pspecs(ref_factory.abstract_caches(rcfg, B, L),
+                                amesh)
+        Pn = len(layer_pattern(cfg))
+        assert len(got) == cfg.n_layers and len(want) == Pn
+        for i, g in enumerate(got):
+            w = want[i % Pn]
+            if w is None:
+                assert g is None
+            elif isinstance(w, dict):
+                assert g == {k: tuple(v)[1:] for k, v in w.items()}
+            else:
+                assert tuple(g) == tuple(tuple(v)[1:] for v in w)
+
+
+def test_decode_inputs_match_the_reference():
+    cfg, rcfg = get_arch("jamba-v0.1-52b"), ARCHS["jamba-v0.1-52b"]
+    shape = ShapeConfig("d", "decode", 512, 4)
+    batch, caches, pos = factory.decode_inputs(cfg, shape)
+    rbatch, rcaches, rpos = ref_factory.decode_inputs(rcfg, shape)
+    assert {k: tuple(v.shape) for k, v in batch.items()} == \
+        {k: tuple(v.shape) for k, v in rbatch.items()}
+    assert pos.device.type == "meta" and pos.dtype == torch.int32
+    assert tuple(pos.shape) == tuple(rpos.shape)
+    Pn = len(layer_pattern(cfg))
+    for i, c in enumerate(caches):
+        r = rcaches[i % Pn]
+        got = [tuple(x.shape) for x in
+               (c.values() if isinstance(c, dict) else c)]
+        want = [tuple(x.shape)[1:] for x in
+                (r.values() if isinstance(r, dict) else r)]
+        assert got == want
+    small = get_arch("qwen2.5-3b").reduced()
+    batch, caches, pos = factory.decode_inputs(small, shape, abstract=False,
+                                               device="cpu")
+    assert pos == 511 and caches[0]["k"].shape == \
+        (4, 512, small.n_kv_heads, small.resolved_head_dim)
+    assert batch["tokens"].shape == (4, 1)
+    with pytest.raises(ValueError, match="not decode"):
+        factory.decode_inputs(small, ShapeConfig("t", "train", 8, 2))
+
+
+def test_placements_local_shard_and_blocks(meshes):
+    """Each rank's block (its mesh coordinates) tiles the tensor exactly
+    once; DTensor placements name the same dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, _ = meshes
+    sizes = sharding.axis_sizes(mesh)
+    dp = par.data_axes(mesh)
+    for s in (sharding.spec("model", None), sharding.spec(None, dp),
+              sharding.spec(dp, "model"), sharding.spec()):
+        pl = par.placements(s, mesh)
+        for a, p in zip(mesh.mesh_dim_names, pl):
+            dims = [i for i, e in enumerate(s)
+                    if a in sharding.axes_of(e)]
+            assert p == (Shard(dims[0]) if dims else Replicate())
+        t = torch.arange(64 * 32, dtype=torch.float32).reshape(64, 32)
+        seen = torch.zeros_like(t)
+        for coord in np.ndindex(*mesh.shape):
+            blk = par.local_shard(t, s, mesh, coord=list(coord))
+            covered = 1
+            for e in s:
+                covered *= math.prod(sizes[a] for a in sharding.axes_of(e))
+            assert blk.numel() * covered == t.numel()
+            seen.view(-1)[blk.reshape(-1).long()] += 1
+        replicas = math.prod(mesh.shape) // covered
+        assert torch.all(seen == replicas)
+
+
+def test_exports_the_reference_names():
+    """``repro_torch.parallel`` exports every name of the reference's
+    ``__all__`` (``named`` maps specs to DTensor placements)."""
+    assert set(ref.__all__) <= set(par.__all__)
+    for name in par.__all__:
+        assert hasattr(par, name), name
+
+
+def test_stage_block_counts():
+    assert par.stage_block_counts(8, 4) == [2, 2, 2, 2]
+    assert par.stage_block_counts(8, 4) == \
+        ref.stage_block_counts(8, 4)
+    with pytest.raises(ValueError, match="not divisible"):
+        par.stage_block_counts(7, 2)

@@ -170,14 +170,22 @@ failure exits non-zero and no result line is printed:
                 send / receive of one ends the process, so the port stages
                 it through host memory); (a) ``jamba-v0.1-52b`` at its
                 published widths (8 layers, bf16, 2 x 4096 tokens, kernels
-                on) with ``moe_impl="ep_local"`` on a (data 1, model 4)
-                mesh of 4 ranks, 4 of the 16 experts each: every flash and
-                scan launch of every rank held against its plain version
-                as it happens, the launches read from the wrappers, the MoE
-                all-reduces counted (4 a forward, float32), each rank's
-                forward time and peak memory; loss, aux and logits against
-                the whole model's scatter forward (bound 3e-2), and the
-                reduced jamba in float32 (1e-5); (c) the streaming
+                on) tensor parallel over a (data 1, model 4) mesh of 4
+                ranks (attention by query head, mamba by channel, the MLP
+                by column, the vocabulary), its MoE layers
+                ``moe_impl="ep_local"`` with 4 of the 16 experts each:
+                every flash and scan launch of every rank held against its
+                plain version as it happens, the launches read from the
+                wrappers, the collectives and their bytes counted per
+                forward by route, each rank's parameters, forward time and
+                peak memory; loss, aux and logits against the whole
+                model's scatter forward (bound 3e-2), and the reduced
+                jamba in float32 (1e-5); (f) on the same model, TP
+                ``prefill`` of 2 x 1,024-token prompts into a 4,096 cache
+                (kernels held) and 32 greedy ``decode_step``s, every
+                step's logits against the whole model's fed the same
+                tokens (3e-2), the greedy tokens that agree, the prefill
+                and decode step times per rank; (c) the streaming
                 ``"distributed:topk=64,refine=1,devices=4"`` sweep over
                 524,288 + 524,288 scenarios on the tile 4096 bundle, a
                 shard per rank: 17 bracket launches per rank (each rank's
@@ -192,7 +200,12 @@ failure exits non-zero and no result line is printed:
                 tokens, DP + ZeRO-1 on 2 gloo ranks against 1 rank (losses
                 within 1e-3, each rank's moments half), the reduced qwen in
                 float32 (1e-6), and the elastic restart (saved on 2 ranks,
-                resumed on 1, equal to the uninterrupted run);
+                resumed on 1, equal to the uninterrupted run); (g) the
+                same launcher tensor parallel on (data 2, model 2), 4
+                ranks, against (b)'s one rank (losses within 3e-2, bf16),
+                its step, peak and moments per rank; the reduced qwen in
+                float32 (1e-5), its checkpoint restored on (4, 1) and
+                saved again byte for byte;
  16. the ``kernels`` JSON line (the bracket kernel's launches also by
      path, the advisor's among them; the LM kernels' launches of the
      forward and of serving; ``launches_train``, 0 for each;
@@ -2531,9 +2544,10 @@ def train_launchers():
 
 #: The parallel phase: ranks of a ``torch.distributed`` world sharing the
 #: one card over gloo (NCCL refuses two ranks on one GPU), each computing
-#: on the card; (a) EP-local jamba at full width on a (data 1, model 4)
-#: mesh against the whole model's scatter forward (the bf16 bound of the
-#: LM tests), and the reduced jamba in float32; (b) DP + ZeRO-1 training
+#: on the card; (a) TP + EP-local jamba at full width on a (data 1, model
+#: 4) mesh against the whole model's scatter forward (the bf16 bound of
+#: the LM tests), and the reduced jamba in float32; (f) its TP prefill and
+#: greedy decode against the whole model's; (b) DP + ZeRO-1 training
 #: of qwen2.5-3b at its published widths cut to PAR_TRAIN_LAYERS layers
 #: (so that two ranks, each with its weights, float32 gradients, half the
 #: moments and one 4,096-token row's activations, fit the card beside each
@@ -2541,15 +2555,28 @@ def train_launchers():
 #: restart from 2 ranks onto 1; (c) the streaming sweep over 4 ranks
 #: against the stacked 4-shard run; (d) the pipeline and the compressed
 #: all-reduce, card against CPU; (e) the EP-local forward as one NCCL rank
-#: against scatter, bit for bit.
+#: against scatter, bit for bit; (g) TP + DP + ZeRO-1 training on (2, 2)
+#: against (b)'s one rank, and the elastic restore (2, 2) -> (4, 1).
 PAR_RANKS, PAR_MESH = 4, (1, 4)
 PAR_TIMEOUT_S = 480
 PAR_TRAIN_LAYERS, PAR_TRAIN_STEPS, PAR_TRAIN_LR = 8, 3, 1e-4
-RTOL_PAR_EP = 3e-2            # the bf16 bound of tests/test_torch_models.py
+# the bf16 bound of tests/test_torch_models.py, on the loss and the aux
+# loss: tensor parallelism splits every row-parallel product into partial
+# sums, each rounded to bf16 before the float32 sum (with experts alone
+# over the ranks the forward was bit-exact: the dense leaves were whole)
+RTOL_PAR_EP = 3e-2
+# The logits: top-k routing is not continuous, so bf16 rounding reroutes
+# some tokens (logits about 0.15 apart with free routing, PERF.md); the
+# whole model replays the TP ranks' routing, and then TP must be no further
+# from the float32 model (the same weights cast up, the same routing) than
+# the whole bf16 model is, within this factor (two bf16 roundings of one
+# function; on the CPU at d_model 256-1024 the ratio was 1.03)
+RATIO_PAR_TP_F32 = 1.25
 RTOL_PAR_F32 = 1e-5
 RTOL_PAR_TRAIN, RTOL_PAR_TRAIN_F32 = 1e-3, 1e-6
+RTOL_PAR_TP_TRAIN, RTOL_PAR_TP_TRAIN_F32 = 3e-2, 1e-5
+PAR_TP_PROMPT, PAR_TP_CACHE, PAR_TP_DECODE = (2, 1024), 4096, 32
 PAR_PIPE = dict(L=8, D=64, M=6, B=3, seed=0)
-PAR_MOE_ALLREDUCES = 4        # one per MoE layer of the 8-layer jamba
 PAR_WARM = 4096               # scenarios of the sweeps' untimed first call
 
 
@@ -2650,36 +2677,69 @@ def phase_parallel(torch, np, pt, card, cb):
         ep = r["ep"]
         for k in launches:
             launches[k] += ep["launches"].get(k, 0) \
+                + ep["f_launches"].get(k, 0) \
                 + r["sweep"]["launches"].get(k, 0)
         errs["flash_attention"] = max(errs["flash_attention"],
-                                      ep["err_flash"])
-        errs["mamba_scan"] = max(errs["mamba_scan"], ep["err_scan"])
+                                      ep["err_flash"], ep["f_err_flash"])
+        errs["mamba_scan"] = max(errs["mamba_scan"], ep["err_scan"],
+                                 ep["f_err_scan"])
         errs["fused_bracket_segsum"] = max(errs["fused_bracket_segsum"],
                                            r["sweep"]["err_bracket"])
         assert ep["launches"]["flash_attention"] == 1, ep["launches"]
         assert ep["launches"]["mamba_scan"] == 7, ep["launches"]
-        assert ep["moe_allreduces"] == PAR_MOE_ALLREDUCES, ep
-        log(f"parallel (a) [{card}] rank {r['rank']}: experts "
+        assert ep["fwd_allreduces"] == ep["tp_allreduces"], ep
+        for k in ("flash_attention", "mamba_scan"):
+            assert ep["f_launches"][k] == ep["launches"][k], ep
+        log(f"parallel (a) [{card}] rank {r['rank']}: TP + EP, experts "
             f"{ep['experts']}, {ep['params'] / 1e9:.3f} B parameters "
-            f"({ep['param_bytes'] / 1e9:.3f} GB), built in "
+            f"({ep['param_bytes'] / 1e9:.3f} GB) of {ep['whole_params'] / 1e9:.3f} B, built in "
             f"{ep['build_s']:.2f} s; forward {ep['fwd_ms']:.2f} ms (median "
             f"of 3, ranks aligned by a barrier; first {ep['first_ms']:.2f} "
-            f"ms); peak {ep['peak_bytes'] / 1e9:.3f} GB; MoE all-reduces "
-            f"{ep['moe_allreduces']} per forward, {ep['moe_bytes']:,} bytes "
-            f"(float32); launches {ep['launches']}; holds: flash "
-            f"{ep['err_flash']:.3e} (rel norm {ep['rel_flash']:.3e}), scan "
-            f"{ep['err_scan']:.3e}")
+            f"ms); peak {ep['peak_bytes'] / 1e9:.3f} GB; collectives per "
+            f"forward (calls, bytes put in) {ep['fwd_collectives']}; "
+            f"launches {ep['launches']}; kernel shapes {ep['shapes']}; "
+            f"holds: flash {ep['err_flash']:.3e} (rel norm "
+            f"{ep['rel_flash']:.3e}), scan {ep['err_scan']:.3e}")
+        log(f"parallel (f) [{card}] rank {r['rank']}: TP prefill of "
+            f"{PAR_TP_PROMPT[0]} x {PAR_TP_PROMPT[1]} tokens into a "
+            f"{PAR_TP_CACHE} cache {ep['prefill_ms']:.2f} ms (median of 2 "
+            f"after a first of {ep['prefill_first_ms']:.2f} ms), "
+            f"{PAR_TP_DECODE} greedy decode steps {ep['decode_ms']:.2f} ms "
+            f"a step (median), {ep['decode_collectives']} collectives a "
+            f"step; launches {ep['f_launches']}; holds: flash "
+            f"{ep['f_err_flash']:.3e}, scan {ep['f_err_scan']:.3e}")
     c0 = ranks[0]["ep"]
-    log(f"parallel (a): EP-local loss {c0['loss']:.6f} aux {c0['aux']:.6f} "
+    log(f"parallel (a): TP + EP loss {c0['loss']:.6f} aux {c0['aux']:.6f} "
         f"against the whole model's scatter forward {c0['loss_whole']:.6f} "
         f"/ {c0['aux_whole']:.6f}: loss rel {c0['loss_rel']:.3e}, aux rel "
-        f"{c0['aux_rel']:.3e}, logits relative norm {c0['logits_rel']:.3e} "
-        f"(bound {RTOL_PAR_EP}); whole model peak "
-        f"{c0['whole_peak_bytes'] / 1e9:.3f} GB; float32 reduced jamba on "
-        f"{PAR_RANKS} ranks: max rel {max(r['ep_f32'] for r in ranks):.3e} "
-        f"(bound {RTOL_PAR_F32})")
-    for key in ("loss_rel", "aux_rel", "logits_rel"):
+        f"{c0['aux_rel']:.3e} (bound {RTOL_PAR_EP}); logits relative norm "
+        f"{c0['logits_rel']:.3e} with free routing (the whole model routes "
+        f"{c0['rerouted']} of {c0['routed']} tokens otherwise, per MoE "
+        f"layer), {c0['same_rel']:.3e} with the TP ranks' routing; against "
+        f"the float32 model (same weights, same routing): TP "
+        f"{c0['tp_f32']:.3e}, the whole bf16 model {c0['whole_f32']:.3e} "
+        f"(bound: TP within {RATIO_PAR_TP_F32} x the whole's + "
+        f"{RTOL_PAR_F32}); whole model "
+        f"peak {c0['whole_peak_bytes'] / 1e9:.3f} GB (float32: "
+        f"{c0['f32_peak_bytes'] / 1e9:.3f} GB); float32 reduced jamba TP + "
+        f"EP on {PAR_RANKS} ranks: max rel "
+        f"{max(r['ep_f32'] for r in ranks):.3e} (bound {RTOL_PAR_F32})")
+    log(f"parallel (f): the prefill's logits with free routing "
+        f"{c0['f_free_rel']:.3e} from the whole model's; all "
+        f"{1 + PAR_TP_DECODE} steps' logits, the whole model fed the same "
+        f"tokens "
+        f"and the TP ranks' routing ({c0['f_rerouted']} token-layers "
+        f"rerouted): {c0['f_same_rel']:.3e}; against the float32 model: TP "
+        f"{c0['f_tp_f32']:.3e}, the whole bf16 model "
+        f"{c0['f_whole_f32']:.3e} (bound: within {RATIO_PAR_TP_F32} x); "
+        f"greedy tokens that agree {c0['f_agree']} of {c0['f_tokens']}; the "
+        f"whole model's prefill {c0['f_whole_prefill_ms']:.2f} ms, decode "
+        f"step {c0['f_whole_decode_ms']:.2f} ms")
+    for key in ("loss_rel", "aux_rel"):
         assert c0[key] <= RTOL_PAR_EP, (key, c0[key])
+    for tp, whole in (("tp_f32", "whole_f32"), ("f_tp_f32", "f_whole_f32")):
+        assert c0[tp] <= RATIO_PAR_TP_F32 * c0[whole] + RTOL_PAR_F32, \
+            (tp, c0[tp], c0[whole])
     assert max(r["ep_f32"] for r in ranks) <= RTOL_PAR_F32
 
     # (c) against the stacked 4-shard run in this process
@@ -2784,7 +2844,9 @@ def _train_runs(cmd_1, cmd_2):
 
 def parallel_train(card):
     """(b) DP + ZeRO-1 training on 2 gloo ranks against 1 rank, at full
-    width and in float32, and the elastic restart."""
+    width and in float32, and the elastic restart; (g) the same launcher
+    tensor parallel on (2, 2) against (b)'s one rank, and its elastic
+    restore onto (4, 1)."""
     import tempfile
 
     base = ["--arch", "qwen2.5-3b", "--layers", str(PAR_TRAIN_LAYERS),
@@ -2792,6 +2854,7 @@ def parallel_train(card):
             "--lr", str(PAR_TRAIN_LR), "--log-every", "1", "--summary"]
     dp = ["--mesh", "2,1", "--backend", "gloo"]
     one, two = _train_runs(base + ["--micro", "2"], base + dp)
+    one_full = one
     l1 = [h["loss"] for h in one["history"]]
     for d in two:
         l2 = [h["loss"] for h in d["history"]]
@@ -2834,6 +2897,68 @@ def parallel_train(card):
         f"max rel {rel:.3e} (bound {RTOL_PAR_TRAIN_F32}); saved on 2 ranks "
         f"at step 2, resumed on 1: step 3 loss {last['loss']:.8f} against "
         f"the uninterrupted {l1[3]:.8f} (rel {gap:.3e})")
+    parallel_tp_train(card, base, one_full, small, l1)
+
+
+def _four_ranks(args, what: str) -> list:
+    """The 4 ranks' summaries of the train launcher under torchrun."""
+    four = [json.loads(ln) for ln in run_ranks(
+        _torchrun(4, "-m", "repro_torch.launch.train", *args),
+        PAR_TIMEOUT_S, what).splitlines() if ln.startswith("{")]
+    assert sorted(d["rank"] for d in four) == [0, 1, 2, 3], four
+    return sorted(four, key=lambda d: d["rank"])
+
+
+def parallel_tp_train(card, base, one, small, l1_small):
+    """(g) TP + DP + ZeRO-1 training through the launcher on (data 2, model
+    2): qwen2.5-3b at its widths cut to 8 layers against (b)'s one rank;
+    the reduced qwen in float32 against its one rank, its checkpoint
+    restored on (4, 1) and saved again byte for byte."""
+    import filecmp
+    import shutil
+    import tempfile
+
+    tp = ["--mesh", "2,2", "--backend", "gloo"]
+    t0 = time.perf_counter()
+    four = _four_ranks(base + tp, "train TP")
+    l1 = [h["loss"] for h in one["history"]]
+    mb1 = one["history"][0]["moment_bytes"]
+    for d in four:
+        l4 = [h["loss"] for h in d["history"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(l4, l1))
+        assert rel <= RTOL_PAR_TP_TRAIN, (l1, l4)
+        mb = d["history"][0]["moment_bytes"]
+        assert 2 * mb < mb1, (mb, mb1)
+        step = statistics.median(h["step_s"] for h in d["history"][1:])
+        log(f"parallel (g) [{card}] qwen2.5-3b x {PAR_TRAIN_LAYERS} layers "
+            f"bf16, 2 x 4096 tokens, rank {d['rank']} of 4 on (data 2, model "
+            f"2) (gloo, TP + ZeRO-1): losses {[round(x, 6) for x in l4]}, "
+            f"max rel to 1 rank {rel:.3e} (bound {RTOL_PAR_TP_TRAIN}); step "
+            f"{step:.4f} s (median of steps 2-{PAR_TRAIN_STEPS}); moment "
+            f"bytes {mb:,} (1 rank {mb1:,}); peak "
+            f"{(d['peak_bytes'] or 0) / 1e9:.3f} GB")
+    log(f"parallel (g): {time.perf_counter() - t0:.1f} s of wall time")
+
+    ck = pathlib.Path(tempfile.mkdtemp(prefix="tp-elastic-"))
+    four = _four_ranks(small + tp + ["--steps", "3", "--ckpt-dir",
+                                     str(ck / "a"), "--ckpt-every", "1"],
+                       "train TP reduced")
+    rel = max(abs(a - b) / abs(b) for d in four
+              for a, b in zip([h["loss"] for h in d["history"]], l1_small))
+    assert rel <= RTOL_PAR_TP_TRAIN_F32, rel
+    shutil.copytree(ck / "a", ck / "b")
+    _four_ranks(small + ["--mesh", "4,1", "--backend", "gloo", "--steps",
+                         "3", "--ckpt-dir", str(ck / "b")],
+                "train restore on (4, 1)")
+    a, b = ck / "a" / "step_00000002", ck / "b" / "step_00000002"
+    files = sorted(p.name for p in a.iterdir())
+    same, differ, errors = filecmp.cmpfiles(a, b, files, shallow=False)
+    assert len(same) == len(files) > 3 and not differ and not errors, \
+        (differ, errors)
+    log(f"parallel (g): reduced qwen2.5-3b float32 on (2, 2) against 1 "
+        f"rank: max rel {rel:.3e} (bound {RTOL_PAR_TP_TRAIN_F32}); its step "
+        f"2 checkpoint restored on (4, 1) and saved again: {len(same)} of "
+        f"{len(files)} files equal byte for byte")
 
 
 # ------------------------------------------------------------ rank programs
@@ -2844,8 +2969,10 @@ class _Holding:
     def __init__(self, torch, fn, plain):
         self.torch, self.fn, self.plain = torch, fn, plain
         self.err = self.rel = 0.0
+        self.shapes = None
 
     def __call__(self, *args, **kwargs):
+        self.shapes = [list(a.shape) for a in args[:2]]
         out = self.fn(*args, **kwargs)
         e, r = self.plain(self.torch, args, kwargs, out)
         self.err, self.rel = max(self.err, e), max(self.rel, r)
@@ -2925,7 +3052,8 @@ def _ep_forward(torch, dev, mesh, moe_impl, holding=True):
     assert bool(torch.isfinite(logits).all()), "non-finite logits"
     return model, batch, logits, aux, {
         "launches": launches, "first_ms": first_ms, "build_s": build_s,
-        "err_flash": hf.err, "rel_flash": hf.rel, "err_scan": hs.err}
+        "err_flash": hf.err, "rel_flash": hf.rel, "err_scan": hs.err,
+        "shapes": {"flash q, k": hf.shapes, "scan x, dt": hs.shapes}}
 
 
 def rank_world(out_dir):
@@ -2954,23 +3082,84 @@ def rank_world(out_dir):
     return 0
 
 
+def _collectives(transport, before=None) -> dict:
+    """``{"op route": [calls, bytes put in]}`` since ``before`` (a
+    snapshot: ``_collectives(transport)``)."""
+    before = before or {}
+    out = {}
+    for (op, r), n in sorted(transport.routes.items()):
+        k = f"{op} {r}"
+        calls = n - before.get(k, [0, 0])[0]
+        if calls:
+            out[k] = [calls, transport.volume[(op, r)]
+                      - before.get(k, [0, 0])[1]]
+    return out
+
+
+def _tp_allreduces(cfg) -> int:
+    """All-reduces of one TP + EP forward: the embedding's, one a layer for
+    attention, the MLP and MoE, two a mamba layer (``x_proj``'s partial
+    sums and ``out_proj``'s)."""
+    from repro_torch.models.blocks import layer_specs
+    return 1 + sum((s.mixer == "attn") + 2 * (s.mixer == "mamba")
+                   + (s.ffn != "none") for s in layer_specs(cfg))
+
+
+class _Routes:
+    """Within ``with``: records each MoE routing call's top-k experts, or,
+    given ``replay`` (another run's records, in call order), routes with
+    those instead and counts the tokens whose own choice differed."""
+
+    def __init__(self, torch, replay=None):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.orig = torch, moe, moe._route
+        self.replay = None if replay is None else iter(replay)
+        self.seen, self.rerouted = [], []
+
+    def __enter__(self):
+        def route(p, x, cfg):
+            w, i, logits = self.orig(p, x, cfg)
+            if self.replay is not None:
+                want = next(self.replay).to(i.device)
+                self.rerouted.append(int((want != i).any(-1).sum()))
+                i = want
+                w = self.torch.softmax(logits.gather(-1, i), dim=-1)
+            self.seen.append(i.cpu())
+            return w, i, logits
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+
+def _rel(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
 def rank_ep(torch, dist, transport, dev, rank):
-    """(a) the EP-local forward on (data 1, model 4); rank 0 then builds the
-    whole model alone and compares."""
+    """(a) the TP + EP forward on (data 1, model 4), then (f) TP prefill
+    and decode on the same model; rank 0 then builds the whole model alone
+    and compares both, with free routing and with the TP ranks' routing,
+    in bf16 and cast to float32."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe
 
     mesh = make_mesh(PAR_MESH, ("data", "model"), "cuda")
     torch.cuda.reset_peak_memory_stats()
-    before = dict(transport.routes)
-    model, batch, logits, aux, info = _ep_forward(torch, dev, mesh,
-                                                  "ep_local")
-    n_ar = transport.routes[("all_reduce", "direct")] \
-        - before.get(("all_reduce", "direct"), 0)
+    before = _collectives(transport)
+    with _Routes(torch) as routes:
+        model, batch, logits, aux, info = _ep_forward(torch, dev, mesh,
+                                                      "ep_local")
+    coll = _collectives(transport, before)
     blk = moe.expert_block(model.cfg, mesh)
-    info.update(experts=[blk.start, blk.stop], moe_allreduces=n_ar,
-                moe_bytes=n_ar * batch["tokens"].numel() * model.cfg.d_model
-                * 4, params=model.param_count(),
+    info.update(experts=[blk.start, blk.stop], fwd_collectives=coll,
+                fwd_allreduces=sum(v[0] for k, v in coll.items()
+                                   if k.startswith("all_reduce")),
+                tp_allreduces=_tp_allreduces(model.cfg),
+                params=model.param_count(),
+                whole_params=model.whole_param_count(),
                 param_bytes=sum(p.numel() * p.element_size()
                                 for p in model.parameters()))
     times = []
@@ -2987,35 +3176,172 @@ def rank_ep(torch, dist, transport, dev, rank):
     with torch.inference_mode():
         loss = float(model.loss(batch))
     info.update(loss=loss, aux=float(aux))
-    keep = logits.cpu() if rank == 0 else None
-    del model, logits
+    served = _tp_serve(torch, dist, transport, model, dev)
+    info.update(served.pop("info"))
+    keep = (logits.cpu(), routes.seen, served) if rank == 0 else None
+    del model, logits, served
     torch.cuda.empty_cache()
     dist.barrier()
     if rank == 0:
-        torch.cuda.reset_peak_memory_stats()
-        whole, batch, wl, wa, _ = _ep_forward(torch, dev, None, "scatter",
-                                              holding=False)
-        ep = keep.to(dev).float()
-        wf = wl.float()
-        info["logits_rel"] = float(torch.linalg.vector_norm(ep - wf)
-                                   / torch.linalg.vector_norm(wf))
-        del ep, wf
-        with torch.inference_mode():
-            wloss = float(whole.loss(batch))
-        info.update(loss_whole=wloss, aux_whole=float(wa),
-                    loss_rel=abs(loss - wloss) / abs(wloss),
-                    aux_rel=abs(float(aux) - float(wa)) / abs(float(wa)),
-                    whole_peak_bytes=torch.cuda.max_memory_allocated())
-        del whole, wl
-        torch.cuda.empty_cache()
+        info.update(_whole_compare(torch, dev, loss, aux, *keep))
     dist.barrier()
     return info
 
 
+def _whole_compare(torch, dev, loss, aux, tp_logits, tp_routes, served):
+    """Rank 0, alone on the card: the whole model's forward with free
+    routing (loss, aux, logits) and with the TP ranks' routing, in bf16
+    and with its weights cast to float32; then (f) on it likewise."""
+    torch.cuda.reset_peak_memory_stats()
+    whole, batch, wl, wa, _ = _ep_forward(torch, dev, None, "scatter",
+                                          holding=False)
+    tp = tp_logits.to(dev)
+    out = {"logits_rel": _rel(torch, tp, wl)}
+    del wl
+    with torch.inference_mode():
+        wloss = float(whole.loss(batch))
+        with _Routes(torch, tp_routes) as same:
+            same_logits = whole(batch)[0]
+    out.update(loss_whole=wloss, aux_whole=float(wa),
+               loss_rel=abs(loss - wloss) / abs(wloss),
+               aux_rel=abs(float(aux) - float(wa)) / abs(float(wa)),
+               rerouted=same.rerouted, routed=int(tp_routes[0].shape[0]),
+               same_rel=_rel(torch, tp, same_logits),
+               whole_peak_bytes=torch.cuda.max_memory_allocated())
+    steps16 = _whole_serve(torch, whole, dev, served)
+    whole.float()                        # the same weights, cast up
+    whole.cfg = whole.cfg.replace(dtype="float32")
+    with torch.inference_mode(), _Routes(torch, tp_routes):
+        f32 = whole(batch)[0]
+    out.update(tp_f32=_rel(torch, tp, f32),
+               whole_f32=_rel(torch, same_logits, f32),
+               f32_peak_bytes=torch.cuda.max_memory_allocated())
+    del tp, same_logits, f32
+    torch.cuda.empty_cache()
+    steps32 = _whole_serve(torch, whole, dev, served)
+    del whole
+    torch.cuda.empty_cache()
+    tp_steps = torch.cat([x.flatten() for x in served["logits"]])
+    w16 = torch.cat([x.flatten() for x in steps16["logits"]])
+    w32 = torch.cat([x.flatten() for x in steps32["logits"]])
+    agree = sum(int((x.argmax(-1) == t).sum())
+                for x, t in zip(steps16["logits"], served["tokens"]))
+    out.update(f_free_rel=steps16["free_rel"],
+               f_rerouted=sum(steps16["rerouted"]),
+               f_same_rel=_rel(torch, tp_steps, w16),
+               f_tp_f32=_rel(torch, tp_steps, w32),
+               f_whole_f32=_rel(torch, w16, w32), f_agree=agree,
+               f_tokens=sum(t.numel() for t in served["tokens"]),
+               f_whole_prefill_ms=steps16["prefill_ms"],
+               f_whole_decode_ms=steps16["decode_ms"])
+    return out
+
+
+def _tp_serve(torch, dist, transport, model, dev) -> dict:
+    """(f) TP prefill of ``PAR_TP_PROMPT`` tokens into a ``PAR_TP_CACHE``
+    cache, its kernel launches held against their plain versions, then
+    ``PAR_TP_DECODE`` greedy decode steps: the prompt, the tokens and the
+    logits of every step (on the host), and the times."""
+    import types
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import layers
+    from repro_torch.models import mamba as mamba_mod
+
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompt = torch.randint(0, model.cfg.vocab_size, PAR_TP_PROMPT,
+                           generator=gen, device=dev, dtype=torch.int32)
+    hf = _Holding(torch, fa.flash_attention, _hold_flash)
+    hs = _Holding(torch, ms.mamba_scan, _hold_scan)
+    saved = layers.fa_ops, mamba_mod.ms_ops
+    layers.fa_ops = types.SimpleNamespace(flash_attention=hf)
+    mamba_mod.ms_ops = types.SimpleNamespace(mamba_scan=hs)
+    counters = {"flash_attention": fa.flash_attention,
+                "mamba_scan": ms.mamba_scan}
+    try:
+        with torch.inference_mode(), _Routes(torch) as routes:
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            logits, caches = model.prefill({"tokens": prompt}, PAR_TP_CACHE)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        layers.fa_ops, mamba_mod.ms_ops = saved
+    times = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            model.prefill({"tokens": prompt}, PAR_TP_CACHE)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        tok = logits.argmax(-1)
+        tokens, outs, steps = [tok.cpu()], [logits.float().cpu()], []
+        before = _collectives(transport)
+        with _Routes(torch) as decode_routes:
+            for i in range(PAR_TP_DECODE):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(caches, {"tokens": tok},
+                                                   PAR_TP_PROMPT[1] + i)
+                tok = logits.argmax(-1)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0) * 1e3)
+                tokens.append(tok.cpu())
+                outs.append(logits.float().cpu())
+        coll = _collectives(transport, before)
+    return {"prompt": prompt.cpu(), "tokens": tokens, "logits": outs,
+            "routes": routes.seen + decode_routes.seen,
+            "info": {"prefill_first_ms": first,
+                     "prefill_ms": statistics.median(times),
+                     "decode_ms": statistics.median(steps),
+                     "decode_collectives": {
+                         k: [v[0] / PAR_TP_DECODE, v[1] / PAR_TP_DECODE]
+                         for k, v in coll.items()},
+                     "f_launches": launches, "f_err_flash": hf.err,
+                     "f_err_scan": hs.err}}
+
+
+def _whole_serve(torch, whole, dev, served) -> dict:
+    """(f) on the whole model: its prefill of the same prompt, then each
+    decode step fed the TP run's token, every MoE layer routed as the TP
+    ranks routed it: the logits of every step (on the host), the prefill's
+    logits with free routing against the TP run's, the tokens rerouted,
+    and the times."""
+    tokens = served["tokens"]
+    prompt = {"tokens": served["prompt"].to(dev)}
+    with torch.inference_mode():
+        free_rel = _rel(torch, served["logits"][0],
+                        whole.prefill(prompt, PAR_TP_CACHE)[0].cpu())
+        with _Routes(torch, served["routes"]) as same:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = whole.prefill(prompt, PAR_TP_CACHE)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            outs, steps = [logits.float().cpu()], []
+            for i in range(PAR_TP_DECODE):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = whole.decode_step(
+                    caches, {"tokens": tokens[i].to(dev)},
+                    PAR_TP_PROMPT[1] + i)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0) * 1e3)
+                outs.append(logits.float().cpu())
+    return {"logits": outs, "free_rel": free_rel, "rerouted": same.rerouted,
+            "prefill_ms": prefill_ms, "decode_ms": statistics.median(steps)}
+
+
 def rank_ep_f32(torch, dev):
-    """(a) the reduced jamba (8 layers, 4 experts) in float32 with EP-local
-    over 4 model ranks against the scatter model on this rank: the logits'
-    largest relative gap."""
+    """(a) the reduced jamba (8 layers, 4 experts) in float32, tensor
+    parallel with EP-local experts over 4 model ranks, against the scatter
+    model on this rank: the logits' largest relative gap."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import make_inputs, make_model

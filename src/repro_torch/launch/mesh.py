@@ -101,9 +101,9 @@ def make_mesh(shape, axes, device_type: str = "cuda"):
 def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
     """(16, 16) single-pod / (2, 16, 16) two-pod production mesh.
 
-    Axes: ``data`` carries batch DP + ZeRO-1; ``model`` carries experts
-    (and, from the next slice, tensor parallelism); ``pod`` is DP across
-    pods.  Needs a world of 256 (512) ranks."""
+    Axes: ``data`` carries batch DP + ZeRO-1; ``model`` carries tensor
+    and expert parallelism; ``pod`` is DP across pods.  Needs a world of
+    256 (512) ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type)

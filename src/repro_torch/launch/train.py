@@ -1,26 +1,27 @@
 """Training driver: the train loop with fault-tolerant checkpointing, the
-JAX package's ``launch/train.py``, on one device or over the data ranks of
-a mesh (data parallelism, AdamW's moments ZeRO-1-sharded by default).
+JAX package's ``launch/train.py``, on one device or over the ranks of a
+mesh: data parallelism over its data axes (AdamW's moments ZeRO-1-sharded
+by default) and tensor parallelism over its ``model`` axis (the model
+built on the mesh; MoE archs dispatch ``ep_local``).
 
 Fault-tolerance contract:
   * restart-safe: on launch, restores the latest checkpoint if present;
   * deterministic data: batches are pure functions of (seed, step), so a
     restore resumes the exact batch stream;
-  * elastic: the checkpoints hold whole leaves (rank 0 writes the gathered
-    moments), so a run on any number of data ranks resumes another's.
+  * elastic: the checkpoints hold whole leaves (rank 0 writes the
+    parameters and moments gathered over the data and model ranks), so a
+    run on any mesh resumes another's.
 
 The checkpoints have the reference's layout and leaves (``{"params",
 "opt"}``, see ``train.checkpoint``), so either package restores the
 other's.  A save in flight is finished before :func:`train` returns or
 raises.  The model is built without the kernels, as the reference's
 trainer builds it; it runs on the card unless ``device`` names another.
-A mesh's ``model`` axis must be 1: it carries experts and tensor
-parallelism, and training over it is slice 11 of the port.
 
     python -m repro_torch.launch.train --arch qwen2.5-3b --reduced --steps 20
-    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --arch qwen2.5-3b --reduced --steps 20 \
-        --mesh 2,1 --backend gloo --device cpu
+        --mesh 2,2 --backend gloo --device cpu
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from ..models.convert import flatten, nest, reference_leaves
 from ..train import checkpoint as ckpt
 from ..parallel import sharding
 from ..train.data import make_data
-from ..train.loop import check_data_mesh, make_train_step
+from ..train.loop import make_train_step
 from ..train.optimizer import AdamWConfig, adamw_init, zero1_blocks
 from . import mesh as meshes
 
@@ -48,22 +49,23 @@ def _tree(params, opt_state, host: bool = False, blocks=None,
           mesh=None) -> dict:
     """The reference's checkpoint tree (``{"params", "opt"}``) of the leaves
     and the AdamW state, the moments gathered from their ZeRO-1 ``blocks``
-    (a collective: every data rank calls it); with ``host``, empty host
-    tensors of the leaves' whole shapes and dtypes instead, for
-    ``restore`` to read into (a restart then copies each leaf, or this
-    rank's block, onto the device, so it holds no second copy of the state
-    there)."""
+    and every leaf from its blocks over ``model`` (a collective: every
+    rank calls it); with ``host``, empty host tensors of the leaves' whole
+    shapes and dtypes instead, for ``restore`` to read into (a restart
+    then copies each leaf, or this rank's block, onto the device, so it
+    holds no second copy of the state there)."""
     blocks = blocks or [None] * len(params)
     cols = {"params": params, "mu": opt_state["mu"], "nu": opt_state["nu"]}
     if host:
-        cols = {k: [torch.empty(leaf.shape, dtype=x.dtype)
+        cols = {k: [torch.empty(leaf.whole_shape, dtype=x.dtype)
                     for leaf, x in zip(params, v)]
                 for k, v in cols.items()}
     else:
-        cols["params"] = [leaf.value() for leaf in params]
+        cols["params"] = [leaf.gather(leaf.value()) for leaf in params]
         for k in ("mu", "nu"):
-            cols[k] = [x if b is None else sharding.gather(x, b.spec, mesh)
-                       for x, b in zip(cols[k], blocks)]
+            cols[k] = [leaf.gather(
+                x if b is None else sharding.gather(x, b.spec, mesh))
+                for leaf, x, b in zip(params, cols[k], blocks)]
     paths = [leaf.path for leaf in params]
     tree = {k: nest(zip(paths, v)) for k, v in cols.items()}
     return {"params": tree["params"],
@@ -72,12 +74,19 @@ def _tree(params, opt_state, host: bool = False, blocks=None,
 
 
 def _shardings(params, blocks) -> dict:
-    """``restore``'s shardings of :func:`_tree`: each moment's ZeRO-1 block
-    spec, everything else whole."""
+    """``restore``'s shardings of :func:`_tree`: each leaf's block under
+    its executed layout (``Leaf.take``), and each moment's ZeRO-1 block of
+    that."""
+    blocks = blocks or [None] * len(params)
     paths = [leaf.path for leaf in params]
-    moments = nest(zip(paths, [None if b is None else b.spec
-                               for b in blocks]))
-    return {"params": nest(zip(paths, [None] * len(paths))),
+
+    def moment(leaf, b):
+        if b is None:
+            return leaf.take
+        return lambda t: b.take(leaf.take(t))
+    moments = nest(zip(paths, [moment(leaf, b)
+                               for leaf, b in zip(params, blocks)]))
+    return {"params": nest(zip(paths, [leaf.take for leaf in params])),
             "opt": {"count": None, "mu": moments, "nu": moments}}
 
 
@@ -100,21 +109,22 @@ def train(cfg, shape: ShapeConfig, n_steps: int,
           zero1: bool = True):
     """Returns (the trained model, history list of dicts).
 
-    ``mesh``: data parallelism over its data axes (every rank of the
-    process group calls :func:`train` with the same arguments; each takes
-    its rows of every global batch); ``zero1``: AdamW's moments as each
-    rank's block.  A history entry holds the step's loss (the global
+    ``mesh``: data parallelism over its data axes and tensor parallelism
+    over its ``model`` axis (every rank of the process group calls
+    :func:`train` with the same arguments; each takes its data rows of
+    every global batch); ``zero1``: AdamW's moments as each rank's block.  A history entry holds the step's loss (the global
     batch's), grad norm, lr, its wall time ``step_s`` and this rank's
     moment bytes."""
     dev = factory.torch_device(device)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=n_steps)
     rank = 0
     if mesh is not None:
-        check_data_mesh(mesh)
         rank = dist.get_rank()
+    tp = sharding.model_axis(mesh) is not None
     model = factory.make_model(
         cfg, device=dev, generator=torch.Generator(device=dev)
-        .manual_seed(seed))
+        .manual_seed(seed), mesh=mesh,
+        moe_impl="ep_local" if tp and cfg.n_experts else "scatter")
     data = make_data(cfg, shape, seed=seed, device=dev)
     params = reference_leaves(model)
     blocks = zero1_blocks(params, mesh) if mesh is not None and zero1 \
@@ -135,8 +145,7 @@ def train(cfg, shape: ShapeConfig, n_steps: int,
         if restore and latest is not None:
             restored, extra = ckpt.restore(
                 ckpt_dir, latest, _tree(params, opt_state, host=True),
-                shardings=_shardings(params, blocks) if blocks else None,
-                mesh=mesh)
+                shardings=_shardings(params, blocks), mesh=mesh)
             _load(params, opt_state, restored)
             start_step = int(extra.get("step", latest)) + 1
             log(f"[train] restored step {latest}, resuming at {start_step}")
@@ -196,7 +205,7 @@ def main(argv=None) -> int:
                     help="torch device to train on (default: the card)")
     ap.add_argument("--mesh", default=None,
                     help="D,M or P,D,M: the mesh over the axes data,model "
-                    "(pod,data,model) of the torchrun world; M must be 1")
+                    "(pod,data,model) of the torchrun world")
     ap.add_argument("--backend", default=None,
                     help="gloo or nccl (needed with --mesh)")
     ap.add_argument("--layers", type=int, default=None,
@@ -245,7 +254,7 @@ def main(argv=None) -> int:
                 "peak_bytes": torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else None}) + "\n")
             sys.stdout.flush()
-        if mesh is None or dist.get_rank() == 0:
+        if history and (mesh is None or dist.get_rank() == 0):
             print(f"final loss: {history[-1]['loss']:.4f}")
     finally:
         if mesh is not None:

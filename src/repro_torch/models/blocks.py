@@ -9,6 +9,13 @@ PyTorch runs eagerly, so the port keeps the layers in a ``ModuleList`` in
 depth order and loops over them: layer ``i * len(pattern) + pos`` is the
 reference's block ``i``, position ``pos`` (``models.convert`` maps one to
 the other).
+
+``mesh``: the ``DeviceMesh`` whose ``model`` axis carries tensor and
+expert parallelism; every function here threads it to the layers.  The
+reference pins the residual stream to its activation spec at each block
+boundary (``_pin_act``, a GSPMD hint); here the residual is whole on
+every model rank by construction (every row-parallel output is summed),
+so nothing stands in for it.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import sharding
 from . import layers, mamba, moe
 from .config import ArchConfig
 
@@ -74,26 +82,27 @@ class Layer(layers.Params):
 
 
 def init_layer(cfg: ArchConfig, spec: LayerSpec, gen: torch.Generator,
-               experts: slice | None = None) -> Layer:
+               keep=layers.whole) -> Layer:
     dt = layers.dtype_of(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
     p = {}
     if spec.mixer == "attn":
-        p.update(mixer_norm=ones(), attn=layers.init_attention(cfg, gen))
+        p.update(mixer_norm=ones(),
+                 attn=layers.init_attention(cfg, gen, keep))
     elif spec.mixer == "mamba":
-        p.update(mixer_norm=ones(), mamba=mamba.init_mamba(cfg, gen))
+        p.update(mixer_norm=ones(), mamba=mamba.init_mamba(cfg, gen, keep))
     if spec.ffn == "dense":
-        p.update(ffn_norm=ones(), mlp=layers.init_mlp(cfg, gen))
+        p.update(ffn_norm=ones(), mlp=layers.init_mlp(cfg, gen, keep=keep))
     elif spec.ffn == "moe":
-        p.update(ffn_norm=ones(), moe=moe.init_moe(cfg, gen, experts))
+        p.update(ffn_norm=ones(), moe=moe.init_moe(cfg, gen, keep=keep))
     return Layer(spec, **p)
 
 
 def init_stack(cfg: ArchConfig, gen: torch.Generator,
-               experts: slice | None = None) -> nn.ModuleList:
-    """Every layer of the stack, in depth order (MoE layers with only the
-    ``experts`` block, when given)."""
-    return nn.ModuleList(init_layer(cfg, spec, gen, experts)
+               keep=layers.whole) -> nn.ModuleList:
+    """Every layer of the stack, in depth order (``keep(name, tensor)``:
+    the block of each tensor a rank holds)."""
+    return nn.ModuleList(init_layer(cfg, spec, gen, keep)
                          for spec in layer_specs(cfg))
 
 
@@ -104,7 +113,8 @@ def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "dense":
         h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + layers.mlp_block(p["mlp"], h, cfg)
+        x = x + layers.mlp_block(p["mlp"], h, cfg,
+                                 tp=sharding.model_axis(mesh))
     elif spec.ffn == "moe":
         h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
         y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl,
@@ -115,13 +125,15 @@ def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
 
 def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
                  use_kernel: bool, moe_impl: str, mesh=None):
+    tp = sharding.model_axis(mesh)
     if spec.mixer == "attn":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
         x = x + layers.attention_block(p["attn"], h, cfg, positions,
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel, tp=tp)
     elif spec.mixer == "mamba":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-        x = x + mamba.mamba_block(p["mamba"], h, cfg, use_kernel=use_kernel)
+        x = x + mamba.mamba_block(p["mamba"], h, cfg, use_kernel=use_kernel,
+                                  tp=tp)
     return _ffn(p, spec, x, cfg, moe_impl, mesh=mesh)
 
 
@@ -140,13 +152,15 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
                 use_kernel: bool = False, moe_impl: str = "scatter",
                 mesh=None):
     """Forward through the whole stack.  Returns (x, total_aux_loss).
-    ``mesh`` is the ``DeviceMesh`` of ``moe_impl="ep_local"``.
+    ``mesh``: tensor and expert parallelism over its ``model`` axis.
 
     With ``cfg.remat`` and grad enabled, each pattern period (the
     reference's scanned block) is checkpointed: only its input is kept for
     the backward pass, which recomputes the rest, as the reference's
     ``jax.checkpoint(block_body)`` does.  The values are the same either
-    way."""
+    way.  A recomputed period runs its collectives again, inside the
+    backward pass; every rank builds the same graph, so they run in the
+    same order on every rank."""
     P = len(layer_pattern(cfg))
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -159,18 +173,23 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
 
 
 # ----------------------------------------------------------- prefill/decode
-def init_caches(cfg: ArchConfig, batch: int, max_len: int, device):
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
+                tp=None):
     """Zeroed decode caches, one entry per layer: attention -> {"k": (B,
-    max_len, Hkv, D), "v": ...}; mamba -> MambaState; FFN-only -> None."""
+    max_len, Hkv, D), "v": ...}; mamba -> MambaState; FFN-only -> None.
+    With ``tp`` (a ``sharding.ModelAxis``): this rank's block of each
+    (``sharding.cache_layout``)."""
     dt = layers.dtype_of(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    heads = layers.attn_heads(cfg, tp)
+    nkv = cfg.n_kv_heads if heads is None else len(heads.kv)
+    shape = (batch, max_len, nkv, cfg.resolved_head_dim)
     caches = []
     for spec in layer_specs(cfg):
         if spec.mixer == "attn":
             caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
                            "v": torch.zeros(shape, dtype=dt, device=device)})
         elif spec.mixer == "mamba":
-            caches.append(mamba.init_mamba_state(cfg, batch, device))
+            caches.append(mamba.init_mamba_state(cfg, batch, device, tp))
         else:
             caches.append(None)
     return caches
@@ -181,20 +200,21 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
                   mesh=None):
     """Forward producing decode caches (k/v padded to ``max_len``)."""
     S = x.shape[1]
+    tp = sharding.model_axis(mesh)
     caches = []
     for layer in stack:
         spec = layer.spec
         if spec.mixer == "attn":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, k, v = layers.attention_prefill(layer["attn"], h, cfg,
-                                                 use_kernel)
+                                                 use_kernel, tp)
             x = x + out
             pad = (0, 0, 0, 0, 0, max_len - S)
             caches.append({"k": F.pad(k, pad), "v": F.pad(v, pad)})
         elif spec.mixer == "mamba":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, state = mamba.mamba_prefill(layer["mamba"], h, cfg,
-                                             use_kernel)
+                                             use_kernel, tp)
             x = x + out
             caches.append(state)
         else:
@@ -211,18 +231,19 @@ def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
     row, each row is a sequence of its own, so the MoE layers route each
     row on its own too (see ``models.moe``)."""
     per_row = torch.is_tensor(pos) and pos.ndim == 1
+    tp = sharding.model_axis(mesh)
     new_caches = []
     for layer, c in zip(stack, caches):
         spec = layer.spec
         if spec.mixer == "attn":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, ck, cv = layers.attention_decode(layer["attn"], h, cfg,
-                                                  c["k"], c["v"], pos)
+                                                  c["k"], c["v"], pos, tp)
             x = x + out
             new_caches.append({"k": ck, "v": cv})
         elif spec.mixer == "mamba":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
-            out, state = mamba.mamba_decode(layer["mamba"], h, cfg, c)
+            out, state = mamba.mamba_decode(layer["mamba"], h, cfg, c, tp)
             x = x + out
             new_caches.append(state)
         else:

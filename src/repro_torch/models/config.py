@@ -7,7 +7,9 @@ port's forward reads every field that shapes the function.  ``remat``
 selects activation checkpointing under grad (each pattern period of the
 stack, as the JAX package's ``jax.checkpoint`` of its scanned block); it
 changes no value.  ``scan_layers`` (how the JAX package compiles the stack)
-and ``attn_expand_kv`` (a sharding hint) change nothing on one device.
+changes nothing; ``attn_expand_kv`` repeats k / v to one per query head
+on each tensor-parallel rank (``models.layers``), which changes no value
+either.
 """
 from __future__ import annotations
 

@@ -16,6 +16,15 @@ row and column moments and the int8 scale of gradient compression see the
 shapes the reference sees, and a checkpoint holds one file per leaf.
 :func:`flatten` / :func:`nest` walk such trees in ``jax.tree`` order (dict
 keys sorted, list entries in order).
+
+Under tensor parallelism (a model built with a ``mesh`` whose ``model``
+axis is R > 1) a leaf's tensors are this rank's blocks: ``Leaf.layout``
+(``parallel.sharding.param_layout``) says which, ``Leaf.whole_shape`` is
+the reference's shape, ``Leaf.take`` cuts a whole value to the block and
+``Leaf.gather`` puts the ranks' blocks back together (a collective).
+``params_from_jax`` / ``caches_from_jax`` with a ``mesh`` carry the
+reference's whole leaves into a rank's blocks, ``params_to_jax`` gathers
+them back.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel import sharding
 from .blocks import layer_pattern, n_blocks
 from .config import ArchConfig
 from .mamba import MambaState
@@ -87,10 +97,14 @@ def nest(pairs) -> dict:
 class Leaf:
     """One leaf of the reference's parameter tree and the port tensors that
     make it up: block ``i`` of a stacked leaf (``path[0] == "stack"``) is
-    ``tensors[i]``; any other leaf is one tensor."""
+    ``tensors[i]``; any other leaf is one tensor.  ``layout`` is the
+    executed layout of each port tensor over the ``model`` axis (``axis``,
+    ``None`` when R is 1): the tensors are rank ``axis.rank``'s blocks."""
 
     path: tuple
     tensors: tuple
+    layout: sharding.Layout = sharding.WHOLE
+    axis: sharding.ModelAxis | None = None
 
     @property
     def stacked(self) -> bool:
@@ -98,9 +112,29 @@ class Leaf:
 
     @property
     def shape(self) -> tuple:
+        """The shape of this rank's value of the leaf."""
         t = self.tensors[0]
         return (len(self.tensors), *t.shape) if self.stacked \
             else tuple(t.shape)
+
+    @property
+    def whole_shape(self) -> tuple:
+        """The reference leaf's shape."""
+        return self.layout.whole_shape(self.shape, int(self.stacked))
+
+    def take(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a tensor of the whole leaf's shape."""
+        if self.axis is None:
+            return whole
+        return self.layout.take(whole, self.axis.rank, int(self.stacked))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's block ``x`` (one all-gather over
+        the ``model`` group where the leaf is split; every rank calls
+        it)."""
+        if self.axis is None:
+            return x
+        return self.layout.gather(x, self.axis, int(self.stacked))
 
     @property
     def ndim(self) -> int:
@@ -145,32 +179,42 @@ class Leaf:
 
 def reference_leaves(model) -> list:
     """The model's parameters as the reference's leaves, in ``jax.tree``
-    flatten order (the order of ``jax.tree.leaves(params)``)."""
-    return leaves_of(model.cfg, model.named_parameters())
+    flatten order (the order of ``jax.tree.leaves(params)``); under tensor
+    parallelism, this rank's blocks with their layout."""
+    return leaves_of(model.cfg, model.named_parameters(),
+                     getattr(model, "tp", None))
 
 
-def leaves_of(cfg: ArchConfig, named) -> list:
+def leaves_of(cfg: ArchConfig, named, axis=None) -> list:
     """:func:`reference_leaves` of ``(name, tensor)`` pairs named as the
-    model's parameters (e.g. ``factory.abstract_params(cfg).items()``)."""
+    model's parameters (e.g. ``factory.abstract_params(cfg).items()``);
+    ``axis``: the ``model`` axis whose rank's blocks they are."""
     P = len(layer_pattern(cfg))
     groups: dict = {}
+    layouts: dict = {}
+    R = 1 if axis is None else axis.size
     for name, t in named:
         key = tuple(name.split("."))
+        lay = sharding.param_layout(cfg, name, t.ndim, R)
         if key[0] == "stack":
             layer = int(key[1])
             key = ("stack", layer % P, *key[2:])
             groups.setdefault(key, {})[layer // P] = t
         else:
             groups[key] = {0: t}
-    return [Leaf(path, tuple(blocks[i] for i in range(len(blocks))))
+        layouts[key] = lay
+    return [Leaf(path, tuple(blocks[i] for i in range(len(blocks))),
+                 layouts[path], axis)
             for path, blocks in sorted(groups.items())]
 
 
 def params_to_jax(model) -> dict:
     """The model's parameters as the reference's nested tree of numpy
     arrays (the inverse of :func:`params_from_jax`; bfloat16 leaves as
-    their ``uint16`` bits, see :func:`to_numpy`)."""
-    return nest((leaf.path, to_numpy(leaf.value()))
+    their ``uint16`` bits, see :func:`to_numpy`).  Under tensor
+    parallelism every leaf is gathered whole: every rank of the ``model``
+    group calls it."""
+    return nest((leaf.path, to_numpy(leaf.gather(leaf.value())))
                 for leaf in reference_leaves(model))
 
 
@@ -182,9 +226,11 @@ def _flatten(tree, prefix: str, out: dict) -> None:
         out[prefix[:-1]] = tree
 
 
-def params_from_jax(cfg: ArchConfig, tree) -> dict:
+def params_from_jax(cfg: ArchConfig, tree, mesh=None) -> dict:
     """The reference's parameter tree as a state dict of
-    ``LanguageModel(cfg, ...)`` (load it with ``load_state_dict``)."""
+    ``LanguageModel(cfg, ...)`` (load it with ``load_state_dict``); with a
+    ``mesh``, of ``LanguageModel(cfg, ..., mesh=mesh)``: each tensor this
+    rank's block."""
     flat = {}
     for key, value in tree.items():
         if key != "stack":
@@ -203,13 +249,31 @@ def params_from_jax(cfg: ArchConfig, tree) -> dict:
                                  f"{leaf.shape[0]} blocks, the config {nb}")
             for i in range(nb):
                 flat[f"stack.{i * P + pos}.{name}"] = leaf[i]
-    return {k: to_tensor(v) for k, v in flat.items()}
+    axis = sharding.model_axis(mesh)
+    out = {}
+    for k, v in flat.items():
+        t = to_tensor(v)
+        if axis is not None:
+            lay = sharding.param_layout(cfg, k, t.ndim, axis.size)
+            t = lay.take(t, axis.rank).clone()
+        out[k] = t
+    return out
 
 
-def caches_from_jax(cfg: ArchConfig, caches) -> list:
+def caches_from_jax(cfg: ArchConfig, caches, mesh=None) -> list:
     """The reference's decode caches (one entry per pattern position,
     stacked along ``n_blocks``: ``{"k", "v"}`` dicts, ``MambaState``s or
-    ``None``; numpy leaves) as the port's per-layer list."""
+    ``None``; numpy leaves) as the port's per-layer list; with a ``mesh``,
+    this rank's block of each (``sharding.cache_layout``)."""
+    axis = sharding.model_axis(mesh)
+
+    def cut(x, kind, which):
+        t = to_tensor(x)
+        if axis is None:
+            return t
+        lay = sharding.cache_layout(cfg, kind, which, axis.size)
+        return lay.take(t, axis.rank).clone()
+
     P, nb = len(layer_pattern(cfg)), n_blocks(cfg)
     if len(caches) != P:
         raise ValueError(f"{cfg.name}: {len(caches)} cache entries, the "
@@ -220,10 +284,10 @@ def caches_from_jax(cfg: ArchConfig, caches) -> list:
             if c is None:
                 continue
             if isinstance(c, dict):
-                out[i * P + pos] = {k: to_tensor(np.asarray(v)[i])
+                out[i * P + pos] = {k: cut(np.asarray(v)[i], "attn", k)
                                     for k, v in c.items()}
             else:
                 out[i * P + pos] = MambaState(
-                    conv=to_tensor(np.asarray(c[0])[i]),
-                    ssm=to_tensor(np.asarray(c[1])[i]))
+                    conv=cut(np.asarray(c[0])[i], "mamba", "conv"),
+                    ssm=cut(np.asarray(c[1])[i], "mamba", "ssm"))
     return out

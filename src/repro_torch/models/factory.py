@@ -3,9 +3,10 @@
 ``make_model``  — ArchConfig -> LanguageModel, its weights drawn from a
                   seeded ``torch.Generator`` on the device
 ``abstract_params`` — ArchConfig -> the parameters' names, shapes and
-                  dtypes, drawn from nothing (meta tensors);
-                  ``abstract_caches`` / ``decode_inputs`` likewise for the
-                  decode caches and one decode step's operands
+                  dtypes, drawn from nothing (meta tensors; a rank's
+                  blocks with a ``mesh``); ``abstract_caches`` /
+                  ``decode_inputs`` likewise for the decode caches and one
+                  decode step's operands
 ``make_inputs`` — (cfg, shape) -> batch of tensors, drawn with numpy
                   exactly as the JAX package's ``make_inputs`` draws them,
                   so both sides see bit-identical tokens, targets and
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import sharding
 from . import blocks
 from .config import ArchConfig, ShapeConfig
 from .lm import LanguageModel
@@ -40,8 +42,11 @@ def make_model(cfg: ArchConfig, use_kernel: bool = False,
                mesh=None) -> LanguageModel:
     """The model with its weights drawn on ``device`` from ``generator``
     (a fresh one seeded with 0 when None; it must live on ``device``).
-    ``mesh`` (a ``DeviceMesh``) is the one ``moe_impl="ep_local"``
-    dispatches over: each rank then holds its block of the experts."""
+    ``mesh`` (a ``DeviceMesh``): tensor and expert parallelism over its
+    ``model`` axis — each tensor is drawn whole from the same stream as
+    the whole model's and cut to this rank's block at once, so a rank's
+    weights equal the whole model's and only one tensor at a time is
+    ever whole."""
     dev = torch_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -51,17 +56,25 @@ def make_model(cfg: ArchConfig, use_kernel: bool = False,
                          moe_impl=moe_impl, mesh=mesh)
 
 
-def abstract_params(cfg: ArchConfig) -> dict:
+def abstract_params(cfg: ArchConfig, mesh=None) -> dict:
     """``{name: meta tensor}`` for every parameter of ``cfg``'s model, in
     ``named_parameters`` order: names, shapes and dtypes without drawing
     or allocating a weight (the JAX package's ``abstract_params``).  The
     model is built under a fake mode, so a 13B-parameter config costs its
-    shapes only."""
+    shapes only.  With a ``mesh``: this rank's blocks
+    (``parallel.sharding.param_layout``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         model = LanguageModel(cfg, torch.Generator(device="cpu"))
-    return {name: torch.empty(p.shape, dtype=p.dtype, device="meta")
-            for name, p in model.named_parameters()}
+    axis = sharding.model_axis(mesh)
+    out = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if axis is not None:
+            shape = sharding.param_layout(cfg, name, p.ndim, axis.size) \
+                .shape(shape, axis.rank)
+        out[name] = torch.empty(shape, dtype=p.dtype, device="meta")
+    return out
 
 
 def abstract_leaves(cfg: ArchConfig) -> list:
@@ -81,10 +94,13 @@ def _concrete(shape, dtype, seed: int, device, vocab: int | None = None):
     return torch.as_tensor(values).to(device=device, dtype=dtype)
 
 
-def abstract_caches(cfg: ArchConfig, batch: int, max_len: int) -> list:
+def abstract_caches(cfg: ArchConfig, batch: int, max_len: int,
+                    mesh=None) -> list:
     """The decode caches of ``blocks.init_caches`` as meta tensors: one
-    entry per layer, shapes and dtypes only."""
-    return blocks.init_caches(cfg, batch, max_len, torch.device("meta"))
+    entry per layer, shapes and dtypes only (this rank's blocks with a
+    ``mesh``)."""
+    return blocks.init_caches(cfg, batch, max_len, torch.device("meta"),
+                              sharding.model_axis(mesh))
 
 
 def decode_inputs(cfg: ArchConfig, shape: ShapeConfig, abstract: bool = True,

@@ -5,7 +5,17 @@ Parameters live in :class:`Params` modules that read like the reference's
 parameter dicts (``p["wq"]``, ``"wqkv" in p``), in the reference's layouts
 (``x @ w`` with ``w`` of shape ``(in, out)``), so the reference's
 parameters load one to one (``models.convert``).  Initialisation draws from
-an explicit ``torch.Generator`` on the target device.
+an explicit ``torch.Generator`` on the target device; ``keep(name,
+tensor)`` keeps a rank's block of each tensor as soon as it is drawn.
+
+Tensor parallelism (``tp``, a ``parallel.sharding.ModelAxis``): each
+function takes this rank's block of the parameters
+(``parallel.sharding.param_layout``) and the residual stream whole, as
+every rank holds it.  A column-parallel product's input passes Megatron's
+*f* (``transport.sum_backward``: identity, its gradient summed over the
+``model`` group); a row-parallel product's partial sums pass *g*
+(``transport.row_sum``: added in float32, then cast back).  A module
+whose heads or channels do not split over the ranks runs whole.
 """
 from __future__ import annotations
 
@@ -17,11 +27,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import ops as fa_ops
+from ..parallel import sharding, transport
 from .config import ArchConfig
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The default ``keep``: every tensor whole."""
+    return t
 
 
 def normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
@@ -95,51 +111,78 @@ def _pad_heads_cols(w, nq, nq_pad, hd, nkv, axis=1):
     return torch.cat([grouped, pad], dim=1).reshape(nq_pad * hd, d)
 
 
-def init_attention(cfg: ArchConfig, gen: torch.Generator) -> Params:
+def init_attention(cfg: ArchConfig, gen: torch.Generator,
+                   keep=whole) -> Params:
     """``wq``/``wk``/``wv`` (or the fused ``wqkv``), optional biases, and
-    ``wo``."""
+    ``wo``; ``keep(name, tensor)`` the block of each to hold."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     nq_pad = cfg.padded_heads
     s = 1.0 / math.sqrt(d)
     dt = dtype_of(cfg)
-    wo = _pad_heads_cols(
+    wo = keep("attn.wo", _pad_heads_cols(
         normal(gen, (nq * hd, d), dt, s / math.sqrt(cfg.n_layers)),
-        nq, nq_pad, hd, nkv, axis=0)
+        nq, nq_pad, hd, nkv, axis=0))
     wq = _pad_heads_cols(normal(gen, (d, nq * hd), dt, s), nq, nq_pad, hd,
                          nkv)
-    zeros = lambda n: torch.zeros((n,), dtype=dt, device=gen.device)
+    zeros = lambda name, n: keep(name, torch.zeros((n,), dtype=dt,
+                                                   device=gen.device))
     if cfg.fused_proj:
         p = {"wqkv": torch.cat([wq, normal(gen, (d, 2 * nkv * hd), dt, s)],
                                dim=1), "wo": wo}
         if cfg.qkv_bias:
-            p["bqkv"] = zeros((nq_pad + 2 * nkv) * hd)
+            p["bqkv"] = zeros("attn.bqkv", (nq_pad + 2 * nkv) * hd)
         return Params(**p)
-    p = {"wq": wq, "wk": normal(gen, (d, nkv * hd), dt, s),
-         "wv": normal(gen, (d, nkv * hd), dt, s), "wo": wo}
+    wq = keep("attn.wq", wq)
+    p = {"wq": wq, "wk": keep("attn.wk", normal(gen, (d, nkv * hd), dt, s)),
+         "wv": keep("attn.wv", normal(gen, (d, nkv * hd), dt, s)), "wo": wo}
     if cfg.qkv_bias:
-        p.update(bq=zeros(nq_pad * hd), bk=zeros(nkv * hd),
-                 bv=zeros(nkv * hd))
+        p.update(bq=zeros("attn.bq", nq_pad * hd),
+                 bk=zeros("attn.bk", nkv * hd), bv=zeros("attn.bv", nkv * hd))
     return Params(**p)
 
 
-def _project_qkv(p, x, cfg: ArchConfig, positions):
+def attn_heads(cfg: ArchConfig, tp) -> Optional[sharding.Heads]:
+    """This rank's heads under ``tp`` (``None``: attention runs whole)."""
+    return None if tp is None else sharding.head_split(cfg, tp.size,
+                                                       tp.rank)
+
+
+def _project_qkv(p, x, cfg: ArchConfig, positions, tp=None):
+    """q (B, S, Hq, D) and k / v (B, S, Hkv, D): with ``tp``, this rank's
+    query heads and the kv heads they read.  Where two ranks hold one kv
+    head, its columns' gradients are summed over them
+    (``sharding.shared_grad``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    nq = cfg.padded_heads
+    heads = attn_heads(cfg, tp)
+    nq, nkv = cfg.padded_heads, cfg.n_kv_heads
+    if heads is not None:
+        nq, nkv = heads.nq, len(heads.kv)
+        x = transport.sum_backward(x, tp.group)
     if "wqkv" in p:
-        qkv = x @ p["wqkv"]
-        if cfg.qkv_bias:
-            qkv = qkv + p["bqkv"]
-        q, k, v = qkv.split([nq * hd, cfg.n_kv_heads * hd,
-                             cfg.n_kv_heads * hd], dim=-1)
+        w, b = p["wqkv"], p["bqkv"] if cfg.qkv_bias else None
+        if heads is not None:       # the whole fused leaf, by its columns
+            cols = torch.tensor(sharding.qkv_columns(cfg, heads),
+                                device=x.device)
+            w = transport.sum_backward(w, tp.group).index_select(1, cols)
+            if b is not None:
+                b = transport.sum_backward(b, tp.group).index_select(0, cols)
+        qkv = x @ w
+        if b is not None:
+            qkv = qkv + b
+        q, k, v = qkv.split([nq * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+        if heads is not None:
+            kv = {n: sharding.shared_grad(t, sharding.param_layout(
+                cfg, f"attn.{n}", t.ndim, tp.size), tp) for n, t in kv.items()}
+        q, k, v = x @ p["wq"], x @ kv["wk"], x @ kv["wv"]
         if cfg.qkv_bias:
-            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+            q, k, v = q + p["bq"], k + kv["bk"], v + kv["bv"]
     q = q.reshape(B, S, nq, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -225,18 +268,43 @@ def chunked_attention(q, k, v, causal: bool = True,
 
 
 def attention_block(p, x, cfg: ArchConfig, positions=None,
-                    use_kernel: bool = False):
+                    use_kernel: bool = False, tp=None):
     """Full-sequence (training / prefill) attention.
 
-    ``cfg.attn_expand_kv`` is a sharding hint of the JAX package (repeat the
-    kv heads and pin the head axis to the model mesh axis); on one device it
-    changes nothing, so it is not acted on here.
+    With ``tp``, each rank attends with its query heads and the kv heads
+    they read; where those query heads do not cover whole kv groups
+    (``sharding.Heads.expand``), or ``cfg.attn_expand_kv`` asks for it,
+    k / v are repeated to one per query head, as the reference's
+    ``_expand_and_pin_heads`` does, so the kernel's ``Hq % Hkv == 0``
+    holds.  ``head_pad_multiple`` (padded query heads, zero-saddled) is in
+    ``cfg.padded_heads``, which the heads are split from.  Neither changes
+    a value.
     """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    return _attend(q, k, v, use_kernel) @ p["wo"]
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    heads = attn_heads(cfg, tp)
+    k, v = _expand(k, v, heads, cfg.attn_expand_kv)
+    return _out(_attend(q, k, v, use_kernel) @ p["wo"], tp, heads)
+
+
+def _expand(k, v, heads, always: bool = False):
+    """k / v repeated to one per query head where the rank's query heads
+    do not cover whole kv groups, or ``always`` (the cache keeps the kv
+    heads)."""
+    if heads is None or (heads.expand is None and not always):
+        return k, v
+    per = heads.nq // len(heads.kv)
+    idx = torch.tensor(heads.expand or [j // per for j in range(heads.nq)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out(y, tp, split):
+    """A row-parallel output: summed over the ``model`` group where the
+    module is split."""
+    return y if tp is None or split is None else transport.row_sum(y, tp.group)
 
 
 def _attend(q, k, v, use_kernel: bool):
@@ -255,15 +323,19 @@ def _attend(q, k, v, use_kernel: bool):
     return gqa_attention(q, k, v, causal=True)
 
 
-def attention_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False):
+def attention_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False,
+                      tp=None):
     """Full-sequence attention that also returns the (k, v) cache rows:
-    ``(out, k (B, S, Hkv, D), v)``."""
+    ``(out, k (B, S, Hkv, D), v)`` (with ``tp``: this rank's kv heads)."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    return _attend(q, k, v, use_kernel) @ p["wo"], k, v
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    heads = attn_heads(cfg, tp)
+    out = _attend(q, *_expand(k, v, heads, cfg.attn_expand_kv),
+                  use_kernel) @ p["wo"]
+    return _out(out, tp, heads), k, v
 
 
-def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos):
+def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None):
     """Decode step with a pre-filled KV cache; writes the new rows into
     ``cache_k`` / ``cache_v`` in place and attends over the whole cache.
 
@@ -272,6 +344,8 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos):
     D); ``pos`` is the index of the FIRST new token, an int for the whole
     batch or a (B,) tensor with one per row (the slots of a continuous
     engine, each at its own position).  Returns (out, cache_k, cache_v).
+    With ``tp`` the caches hold this rank's kv heads
+    (``sharding.cache_layout``).
     """
     B, S = x.shape[0], x.shape[1]
     steps = torch.arange(S, device=x.device)
@@ -279,31 +353,33 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos):
         positions = pos.to(x.device)[:, None] + steps          # (B, S)
     else:
         positions = (int(pos) + steps).expand(B, S)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
     rows = torch.arange(B, device=x.device)[:, None]
     cache_k[rows, positions] = k
     cache_v[rows, positions] = v
     kv_pos = torch.arange(cache_k.shape[1], device=x.device)
-    out = gqa_attention(q, cache_k, cache_v, causal=True,
+    heads = attn_heads(cfg, tp)
+    out = gqa_attention(q, *_expand(cache_k, cache_v, heads), causal=True,
                         kv_positions=kv_pos, q_positions=positions)
-    return out @ p["wo"], cache_k, cache_v
+    return _out(out @ p["wo"], tp, heads), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------- MLPs
 def init_mlp(cfg: ArchConfig, gen: torch.Generator,
-             d_ff: Optional[int] = None) -> Params:
+             d_ff: Optional[int] = None, keep=whole) -> Params:
     """Gated MLP: ``w_gate``/``w_up`` (or the fused ``w_gateup``) and
     ``w_down``."""
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     dt = dtype_of(cfg)
     s = 1.0 / math.sqrt(d)
-    down = normal(gen, (f, d), dt,
-                  1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers))
+    down = keep("mlp.w_down", normal(
+        gen, (f, d), dt, 1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers)))
     if cfg.fused_proj:
         return Params(w_gateup=normal(gen, (d, 2 * f), dt, s), w_down=down)
-    return Params(w_gate=normal(gen, (d, f), dt, s),
-                  w_up=normal(gen, (d, f), dt, s), w_down=down)
+    return Params(w_gate=keep("mlp.w_gate", normal(gen, (d, f), dt, s)),
+                  w_up=keep("mlp.w_up", normal(gen, (d, f), dt, s)),
+                  w_down=down)
 
 
 def activation(cfg: ArchConfig, gate):
@@ -311,35 +387,60 @@ def activation(cfg: ArchConfig, gate):
         else F.silu(gate)
 
 
-def mlp_block(p, x, cfg: ArchConfig):
+def mlp_block(p, x, cfg: ArchConfig, tp=None):
+    """The gated MLP; with ``tp``, this rank's ``d_ff / R`` columns of
+    ``w_gate`` / ``w_up`` (of each half of the fused ``w_gateup``, held
+    whole) and rows of ``w_down``, one all-reduce."""
+    split = None if tp is None else sharding.channel_split(cfg.d_ff, tp.size)
+    if split is not None:
+        x = transport.sum_backward(x, tp.group)
     if "w_gateup" in p:
-        gate, up = (x @ p["w_gateup"]).chunk(2, dim=-1)
+        w = p["w_gateup"]
+        if split is not None:
+            lo, n = split[tp.rank]
+            cols = torch.cat([torch.arange(lo, lo + n, device=x.device),
+                              cfg.d_ff + torch.arange(lo, lo + n,
+                                                      device=x.device)])
+            w = transport.sum_backward(w, tp.group).index_select(1, cols)
+        gate, up = (x @ w).chunk(2, dim=-1)
     else:
         gate, up = x @ p["w_gate"], x @ p["w_up"]
-    return (activation(cfg, gate) * up) @ p["w_down"]
+    return _out((activation(cfg, gate) * up) @ p["w_down"], tp, split)
 
 
 # ----------------------------------------------------------------- embedding
-def init_embedding(cfg: ArchConfig, gen: torch.Generator) -> Params:
+def init_embedding(cfg: ArchConfig, gen: torch.Generator,
+                   keep=whole) -> Params:
     """Table/head sized to ``padded_vocab``; padding logits are masked in
     ``unembed``, padding rows are never gathered."""
     dt = dtype_of(cfg)
     v = cfg.padded_vocab
-    p = {"table": normal(gen, (v, cfg.d_model), dt, 0.02)}
+    p = {"table": keep("embed.table",
+                       normal(gen, (v, cfg.d_model), dt, 0.02))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = normal(gen, (cfg.d_model, v), dt,
-                              1.0 / math.sqrt(cfg.d_model))
+        p["lm_head"] = keep("embed.lm_head", normal(
+            gen, (cfg.d_model, v), dt, 1.0 / math.sqrt(cfg.d_model)))
     return Params(**p)
 
 
-def embed(p, tokens):
-    return p["table"][tokens]
+def embed(p, tokens, tp=None, lo: int = 0):
+    """The table's rows of ``tokens``; with ``tp``, from this rank's rows
+    ``[lo, lo + len(table))`` of a vocab-sharded table, all-reduced
+    (``transport.vocab_embed``)."""
+    if tp is None:
+        return p["table"][tokens]
+    return transport.vocab_embed(p["table"], tokens, lo, tp.group)
 
 
-def unembed(p, x, vocab_size: Optional[int] = None):
+def unembed(p, x, vocab_size: Optional[int] = None, tp=None, lo: int = 0):
+    """Logits of the head (or the tied table); with ``tp``, this rank's
+    vocab columns ``[lo, lo + n)``, not gathered.  Padding logits are
+    masked by their global vocab index."""
+    if tp is not None:
+        x = transport.sum_backward(x, tp.group)
     logits = x @ p["lm_head"] if "lm_head" in p else x @ p["table"].T
     v = logits.shape[-1]
-    if vocab_size is not None and vocab_size < v:
-        pad = torch.arange(v, device=logits.device) >= vocab_size
+    if vocab_size is not None and vocab_size < lo + v:
+        pad = lo + torch.arange(v, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits

@@ -19,6 +19,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel import sharding, transport
 from . import blocks, layers, moe
 from .config import ArchConfig
 
@@ -27,10 +28,17 @@ class LanguageModel(nn.Module):
     """The model's parameters, drawn from ``generator`` on its device, and
     its forward pass.  ``use_kernel`` runs attention and the SSM scan on the
     CUDA kernels (forward only); ``moe_impl`` is ``"scatter"``, ``"dense"``
-    or ``"ep_local"``.  With ``"ep_local"`` and a ``mesh`` whose ``model``
-    axis has R > 1 ranks, each MoE layer holds only this rank's E / R
-    experts (drawn from the same stream as the whole model's) and
-    dispatches over that axis; every other parameter is whole."""
+    or ``"ep_local"``.
+
+    With a ``mesh`` whose ``model`` axis has R > 1 ranks, every parameter
+    is this rank's block of the executed layout
+    (``parallel.sharding.param_layout``: the reference's "tp" layout), each
+    tensor drawn whole from the same stream as the whole model's and cut at
+    once, so a rank holds the very weights of the whole model: attention by
+    query head, the dense MLP by ``d_ff`` column, mamba by ``d_inner``
+    channel, the embedding and the head by vocabulary, and the MoE layers'
+    E / R experts (``moe_impl="ep_local"``, which a MoE arch then needs).
+    The data axes do not change what a rank holds."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  use_kernel: bool = False, moe_impl: str = "scatter",
@@ -40,12 +48,25 @@ class LanguageModel(nn.Module):
         self.use_kernel = use_kernel
         self.moe_impl = moe_impl
         self.mesh = mesh
+        self.tp = tp = sharding.model_axis(mesh)
+        self.vocab = sharding.vocab_block(cfg, tp)
         gen = generator
         dt = layers.dtype_of(cfg)
-        experts = moe.expert_block(cfg, mesh) \
-            if moe_impl == "ep_local" and cfg.n_experts else None
-        self.embed = layers.init_embedding(cfg, gen)
-        self.stack = blocks.init_stack(cfg, gen, experts)
+        keep = layers.whole
+        if tp is not None:
+            if cfg.n_experts and moe_impl != "ep_local":
+                raise ValueError(
+                    f"{cfg.name}: on a model axis of {tp.size} the experts "
+                    "are split over the ranks; moe_impl='ep_local' "
+                    f"dispatches to them (got {moe_impl!r})")
+            if cfg.n_experts:
+                moe.expert_block(cfg, mesh)           # raises if E % R
+
+            def keep(name, t):
+                lay = sharding.param_layout(cfg, name, t.ndim, tp.size)
+                return t if lay.whole else lay.take(t, tp.rank).clone()
+        self.embed = layers.init_embedding(cfg, gen, keep)
+        self.stack = blocks.init_stack(cfg, gen, keep)
         self.final_norm = nn.Parameter(
             torch.ones((cfg.d_model,), dtype=dt, device=gen.device))
         if cfg.frontend == "vision":
@@ -56,50 +77,85 @@ class LanguageModel(nn.Module):
             self.frame_proj = nn.Parameter(layers.normal(
                 gen, (cfg.frontend_dim, cfg.d_model), dt,
                 1.0 / math.sqrt(cfg.frontend_dim)))
-            self.lm_heads = nn.Parameter(layers.normal(
+            self.lm_heads = nn.Parameter(keep("lm_heads", layers.normal(
                 gen, (cfg.d_model, cfg.n_codebooks * cfg.vocab_size), dt,
-                1.0 / math.sqrt(cfg.d_model)))
+                1.0 / math.sqrt(cfg.d_model))))
 
     # ------------------------------------------------------------- embedding
+    def _vocab_tp(self):
+        """(the model axis, this rank's first vocab entry) where the
+        vocabulary is split, else (None, 0): indivisible vocabularies run
+        whole, with no all-reduce."""
+        if self.vocab is None:
+            return None, 0
+        return self.tp, self.vocab[0]
+
     def _embed_inputs(self, batch):
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
+        tp, lo = self._vocab_tp()
         if cfg.frontend == "vision":
             img = batch["image_embeds"].to(dt) @ self.mm_proj
-            txt = layers.embed(self.embed, batch["tokens"])
+            txt = layers.embed(self.embed, batch["tokens"], tp, lo)
             return torch.cat([img, txt], dim=1)
         if cfg.frontend == "audio":
             return batch["frame_embeds"].to(dt) @ self.frame_proj
-        return layers.embed(self.embed, batch["tokens"])
+        return layers.embed(self.embed, batch["tokens"], tp, lo)
 
-    def _head(self, x):
+    def _head_local(self, x):
+        """This rank's logits: its vocab block (per codebook for audio)
+        where the vocabulary is split, else all of them."""
         cfg = self.cfg
+        tp, lo = self._vocab_tp()
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         if cfg.frontend == "audio":
+            if tp is not None:
+                x = transport.sum_backward(x, tp.group)
             logits = x @ self.lm_heads
-            return logits.reshape(*x.shape[:-1], cfg.n_codebooks,
-                                  cfg.vocab_size)
+            return logits.reshape(*x.shape[:-1], cfg.n_codebooks, -1)
         return layers.unembed(self.embed, x,
                               vocab_size=cfg.vocab_size
-                              if cfg.vocab_pad else None)
+                              if cfg.vocab_pad else None, tp=tp, lo=lo)
+
+    def _head(self, x):
+        """The whole logits: this rank's block gathered over ``model``."""
+        logits = self._head_local(x)
+        tp, _ = self._vocab_tp()
+        return logits if tp is None else transport.gather_last(logits,
+                                                               tp.group)
 
     # --------------------------------------------------------------- forward
-    def forward(self, batch):
-        """Training-shape forward.  Returns (logits, aux_loss)."""
+    def _trunk(self, batch):
         x = self._embed_inputs(batch)
         x, aux = blocks.stack_apply(self.stack, x, self.cfg,
                                     use_kernel=self.use_kernel,
                                     moe_impl=self.moe_impl, mesh=self.mesh)
         if self.cfg.frontend == "vision":
             x = x[:, self.cfg.img_seq:]       # logits only over text positions
+        return x, aux
+
+    def forward(self, batch):
+        """Training-shape forward.  Returns (logits, aux_loss); under
+        tensor parallelism the logits are gathered over ``model`` for the
+        caller (every rank returns them whole)."""
+        x, aux = self._trunk(batch)
         return self._head(x), aux
 
     def loss(self, batch):
-        """Mean next-token cross-entropy (+0.01 * MoE aux loss)."""
-        logits, aux = self.forward(batch)
+        """Mean next-token cross-entropy (+0.01 * MoE aux loss).  Under
+        tensor parallelism the cross-entropy runs over this rank's vocab
+        block (``transport.vocab_cross_entropy``): the logits are never
+        gathered."""
+        x, aux = self._trunk(batch)
+        logits = self._head_local(x)
+        targets = batch["targets"].long()
+        tp, lo = self._vocab_tp()
+        if tp is not None:
+            ce = transport.vocab_cross_entropy(logits, targets, lo, tp.group)
+            return ce.mean() + 0.01 * aux
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+        gold = logits.gather(-1, targets[..., None])[..., 0]
         return (lse - gold).mean() + 0.01 * aux
 
     # --------------------------------------------------------------- serving
@@ -142,7 +198,10 @@ class LanguageModel(nn.Module):
         return self._head(x), caches
 
     def init_caches(self, batch_size: int, max_len: int):
-        return blocks.init_caches(self.cfg, batch_size, max_len, self.device)
+        """Zeroed decode caches (this rank's block of each under tensor
+        parallelism: ``sharding.cache_layout``)."""
+        return blocks.init_caches(self.cfg, batch_size, max_len, self.device,
+                                  self.tp)
 
     @property
     def device(self) -> torch.device:
@@ -151,7 +210,17 @@ class LanguageModel(nn.Module):
 
     # ------------------------------------------------------------- counting
     def param_count(self) -> int:
+        """The parameters this rank holds."""
         return sum(p.numel() for p in self.parameters())
+
+    def whole_param_count(self) -> int:
+        """The whole model's parameters, whatever this rank holds."""
+        R = 1 if self.tp is None else self.tp.size
+        total = 0
+        for name, p in self.named_parameters():
+            lay = sharding.param_layout(self.cfg, name, p.ndim, R)
+            total += math.prod(lay.whole_shape(p.shape))
+        return total
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE counts top-k of E experts)."""

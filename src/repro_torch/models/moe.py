@@ -25,8 +25,9 @@ The experts still run once, over every group's buffer.
 
 ``ep_local`` is the expert-parallel dispatch over the ``model`` axis of a
 ``DeviceMesh``: each model rank holds ``E / R`` of the experts
-(``init_moe(..., experts=)``) and dispatches only to them; see
-:func:`moe_ffn_ep_local`.
+(``init_moe(..., keep=)``) and dispatches only to them; see
+:func:`moe_ffn_ep_local`.  Under tensor parallelism its input is the
+replicated residual every model rank holds.
 """
 from __future__ import annotations
 
@@ -37,27 +38,24 @@ import torch.nn.functional as F
 
 from ..parallel import sharding, transport
 from .config import ArchConfig
-from .layers import Params, activation, dtype_of, normal
+from .layers import Params, activation, dtype_of, normal, whole
 
 
-def init_moe(cfg: ArchConfig, gen: torch.Generator,
-             experts: slice | None = None) -> Params:
+def init_moe(cfg: ArchConfig, gen: torch.Generator, keep=whole) -> Params:
     """The router (``(d, E)``, f32) and the stacked experts ``w_gate``,
-    ``w_up`` (``(E, d, f)``) and ``w_down`` (``(E, f, d)``).  ``experts``
-    keeps only those experts: each stacked tensor is drawn whole, from the
-    same stream, and cut at once, so a rank holds its block of the very
-    weights the whole model draws, never more than one whole tensor at a
-    time."""
+    ``w_up`` (``(E, d, f)``) and ``w_down`` (``(E, f, d)``).
+    ``keep(name, tensor)`` gives the block a rank holds (its experts): each
+    stacked tensor is drawn whole, from the same stream, and cut at once,
+    so a rank holds its block of the very weights the whole model draws,
+    never more than one whole tensor at a time."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = dtype_of(cfg)
     s = 1.0 / math.sqrt(d)
-    keep = (lambda w: w) if experts is None \
-        else (lambda w: w[experts].clone())
-    router = normal(gen, (d, E), torch.float32, s)
-    w_gate = keep(normal(gen, (E, d, f), dt, s))
-    w_up = keep(normal(gen, (E, d, f), dt, s))
-    w_down = keep(normal(gen, (E, f, d), dt,
-                         1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers)))
+    router = keep("moe.router", normal(gen, (d, E), torch.float32, s))
+    w_gate = keep("moe.w_gate", normal(gen, (E, d, f), dt, s))
+    w_up = keep("moe.w_up", normal(gen, (E, d, f), dt, s))
+    w_down = keep("moe.w_down", normal(
+        gen, (E, f, d), dt, 1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers)))
     return Params(router=router, w_gate=w_gate, w_up=w_up, w_down=w_down)
 
 
@@ -206,8 +204,9 @@ def moe_ffn_ep_local(p, x, cfg: ArchConfig, mesh=None):
     (whole) gradient is counted once.
 
     Without a mesh, or with a ``model`` axis of 1, this is the scatter
-    path.  In this slice the ``model`` axis carries the experts only:
-    every other parameter is whole on each model rank.
+    path.  The rest of the layer is tensor parallel over the same axis
+    (``models.layers``), so ``x`` is the replicated residual stream, whose
+    gradient every model rank holds whole.
     """
     B, S, d = x.shape
     R = _model_size(mesh)

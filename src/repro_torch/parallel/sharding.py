@@ -1,13 +1,14 @@
 """Sharding rules for every parameter / batch / cache leaf: the JAX
-package's ``parallel/sharding.py`` over a ``torch.distributed`` mesh.
+package's ``parallel/sharding.py`` over a ``torch.distributed`` mesh, and
+the layout the port executes under them.
 
 Mesh-axis conventions:
   * ``data`` (+ ``pod`` on the multi-pod mesh) — batch data parallelism and
     ZeRO-1 optimizer-state sharding.
-  * ``model`` — expert parallelism for MoE.  The reference also puts
-    tensor parallelism of attention, the MLP, mamba and the vocabulary on
-    it; the rules below name those dims, but in the port every leaf other
-    than the experts is still whole on each model rank.
+  * ``model`` — Megatron-style tensor parallelism of attention (by query
+    head), the dense MLP (by ``d_ff`` column), mamba (by ``d_inner``
+    channel) and the vocabulary (embedding rows, head columns), and expert
+    parallelism for MoE: the reference's "tp" layout.
 
 A spec is a tuple with one entry per leading dim of a leaf: an axis name,
 a tuple of axis names (the dim split over their product, first axis
@@ -23,13 +24,56 @@ with ``path``, ``shape`` and ``ndim``), a stacked leaf being one
 ``(n_blocks, ...)`` leaf, and return one spec per leaf.  On the port's
 per-layer tensors a stacked leaf's spec loses its leading ``n_blocks``
 entry (:func:`layer_spec`).
+
+The executed layout (:func:`param_layout`, :class:`Layout`): what each of
+the R ranks of the ``model`` axis holds of every port tensor.  It is the
+block of the sanitized spec (``sanitize_pspecs(param_pspecs)``) except
+where that block would cut a head, a ``[x | z]`` pair or a codebook, and
+the ranks would then not compute the model's function:
+
+=================  ==========================  ===============================
+leaf               the spec's block            the executed block, and why
+=================  ==========================  ===============================
+``wk wv bk bv``    ``Hkv * D / R`` columns:    the kv heads this rank's query
+(Hkv % R != 0)     mid-head when Hkv < R or    heads read (two ranks may hold
+                   Hkv % R != 0                the same head); where the query
+                                               heads do not cover whole kv
+                                               groups, k / v are repeated to
+                                               one per query head (the
+                                               reference's
+                                               ``_expand_and_pin_heads``)
+``in_proj``        ``2 * d_inner / R``         columns ``c`` of ``x`` and the
+                   contiguous columns: rank 0  same ``c`` of ``z``: a
+                   would hold ``x`` only       channel's gate stays with it
+``lm_heads``       ``K * V / R`` contiguous    each codebook's vocab block:
+(K codebooks)      columns, across codebooks   the cross-entropy is per
+                                               codebook
+any leaf of a      its dim split R ways        whole on every rank: the heads
+module whose       where the dim divides       (``padded_heads``), channels
+heads, channels                                (``d_inner``) or vocabulary
+or vocabulary do                               (codebook ``V``) do not split
+not split over R                               over R, so the module runs
+                                               whole, with no collective
+decode caches      ``cache_pspecs``: L over    the kv heads the rank's query
+(attention, when   ``model`` (sequence-        heads read, over the whole
+Hkv % R != 0)      parallel cache)             length (a sequence-sharded
+                                               cache is not ported)
+=================  ==========================  ===============================
+
+The fused ``wqkv`` / ``bqkv`` / ``w_gateup`` have no rule, so their spec
+and their block are the whole leaf; each rank multiplies by its own
+columns of it.  :func:`departures` names, for a model's leaves, the ones
+whose executed block differs from the spec's.
 """
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
+from . import transport
 from .transport import all_gather
 
 MODEL_AXIS = "model"
@@ -335,3 +379,380 @@ def gather(shard: torch.Tensor, s, mesh) -> torch.Tensor:
             parts = all_gather(t, mesh.get_group(a))
             t = torch.cat(list(parts.unbind(0)), dim=dim)
     return t
+
+
+# ------------------------------------------------------ the executed layout
+@dataclass(frozen=True)
+class ModelAxis:
+    """The ``model`` axis of a mesh as the layers use it: its process
+    group, its size R and this rank's coordinate on it."""
+
+    group: object
+    size: int
+    rank: int
+
+
+def model_axis(mesh) -> ModelAxis | None:
+    """The ``model`` axis of ``mesh``; ``None`` without a mesh or with a
+    ``model`` axis of 1 (every leaf whole)."""
+    if mesh is None or MODEL_AXIS not in mesh.mesh_dim_names:
+        return None
+    R = axis_sizes(mesh)[MODEL_AXIS]
+    if R == 1:
+        return None
+    return ModelAxis(mesh.get_group(MODEL_AXIS), R,
+                     mesh.get_local_rank(MODEL_AXIS))
+
+
+@dataclass(frozen=True)
+class Layout:
+    """One port tensor over the R ranks of the ``model`` axis: along
+    ``dim`` rank ``j`` holds the entries ``index[j]`` of the whole dim (of
+    ``size`` entries), in that order; ``dim is None``: every rank holds the
+    whole tensor.  An entry may be held by several ranks (a kv head two
+    ranks' query heads read)."""
+
+    dim: int | None = None
+    index: tuple = ()
+    size: int = 0
+
+    @property
+    def whole(self) -> bool:
+        return self.dim is None
+
+    @functools.cached_property
+    def counts(self) -> tuple:
+        """How many ranks hold each entry of the whole dim."""
+        c = [0] * self.size
+        for idx in self.index:
+            for i in idx:
+                c[i] += 1
+        return tuple(c)
+
+    @property
+    def shared(self) -> bool:
+        return any(c > 1 for c in self.counts)
+
+    def _index(self, r: int, device) -> torch.Tensor:
+        return torch.tensor(self.index[r], dtype=torch.long, device=device)
+
+    def _range(self, r: int):
+        """``(start, length)`` when rank ``r``'s entries are contiguous."""
+        idx = self.index[r]
+        if idx and list(idx) == list(range(idx[0], idx[0] + len(idx))):
+            return idx[0], len(idx)
+        return None
+
+    def take(self, t: torch.Tensor, r: int, offset: int = 0) -> torch.Tensor:
+        """Rank ``r``'s block of the whole tensor ``t`` (``offset``: leading
+        dims before the port tensor's, 1 for a stacked leaf): a view when
+        its entries are contiguous."""
+        if self.whole:
+            return t
+        dim = self.dim + offset
+        rng = self._range(r)
+        if rng is not None:
+            return t.narrow(dim, *rng)
+        return t.index_select(dim, self._index(r, t.device))
+
+    def shape(self, whole_shape, r: int, offset: int = 0) -> tuple:
+        shape = list(whole_shape)
+        if not self.whole:
+            shape[self.dim + offset] = len(self.index[r])
+        return tuple(shape)
+
+    def whole_shape(self, shape, offset: int = 0) -> tuple:
+        shape = list(shape)
+        if not self.whole:
+            shape[self.dim + offset] = self.size
+        return tuple(shape)
+
+    def weights(self, r: int, ndim: int, offset: int = 0,
+                device=None) -> torch.Tensor:
+        """1 / (the ranks holding it) for each of rank ``r``'s entries,
+        shaped to broadcast along the dim: a sum over the ranks of a
+        weighted sum counts every whole entry once."""
+        w = torch.tensor([1.0 / self.counts[i] for i in self.index[r]],
+                         dtype=torch.float32, device=device)
+        shape = [1] * ndim
+        shape[self.dim + offset] = -1
+        return w.reshape(shape)
+
+    def gather(self, t: torch.Tensor, axis: ModelAxis,
+               offset: int = 0) -> torch.Tensor:
+        """The whole tensor from each rank's block ``t``: one all-gather
+        over the ``model`` group (blocks padded to the longest), then every
+        block written at its entries.  Every rank of the group calls it."""
+        if self.whole:
+            return t
+        dim = self.dim + offset
+        longest = max(len(i) for i in self.index)
+        pad = list(t.shape)
+        pad[dim] = longest - t.shape[dim]
+        padded = torch.cat([t, t.new_zeros(pad)], dim) if pad[dim] else t
+        parts = all_gather(padded, axis.group)
+        shape = list(t.shape)
+        shape[dim] = self.size
+        out = t.new_zeros(shape)
+        for j, part in enumerate(parts.unbind(0)):
+            n = len(self.index[j])
+            out.index_copy_(dim, self._index(j, t.device),
+                            part.narrow(dim, 0, n))
+        return out
+
+
+WHOLE = Layout()
+
+
+def _even(n: int, R: int) -> tuple:
+    """R contiguous equal blocks of ``range(n)``."""
+    return tuple(tuple(range(j * n // R, (j + 1) * n // R)) for j in range(R))
+
+
+def _units(blocks, width: int) -> tuple:
+    """Each rank's unit indices (heads) as entries of width ``width``."""
+    return tuple(tuple(u * width + i for u in units for i in range(width))
+                 for units in blocks)
+
+
+@dataclass(frozen=True)
+class Heads:
+    """One rank's attention heads: query heads ``[q0, q0 + nq)`` of the
+    padded heads, the kv heads ``kv`` they read, and, where those query
+    heads do not cover whole kv groups, ``expand``: the position in ``kv``
+    of each query head's kv head (k / v are repeated to one per query
+    head, the reference's ``_expand_and_pin_heads``)."""
+
+    q0: int
+    nq: int
+    kv: tuple
+    expand: tuple | None
+
+
+@functools.lru_cache(maxsize=None)
+def head_split(cfg, R: int, r: int) -> Heads | None:
+    """Rank ``r``'s heads of ``R``, or ``None`` when the padded query heads
+    do not split R ways (attention then runs whole on every rank)."""
+    nq_pad, nkv = cfg.padded_heads, max(cfg.n_kv_heads, 1)
+    if R == 1 or not cfg.n_heads or nq_pad % R:
+        return None
+    g = nq_pad // nkv                       # group-major: head h reads h // g
+    nq = nq_pad // R
+    q0 = r * nq
+    kv_of = [(q0 + j) // g for j in range(nq)]
+    kv = tuple(sorted(set(kv_of)))
+    per = [kv_of.count(h) for h in kv]
+    expand = None if len(set(per)) == 1 else tuple(kv.index(h)
+                                                    for h in kv_of)
+    return Heads(q0, nq, kv, expand)
+
+
+def qkv_columns(cfg, heads: Heads) -> list:
+    """The columns of the fused ``wqkv`` ``[q | k | v]`` a rank multiplies
+    by."""
+    hd = cfg.resolved_head_dim
+    nq_pad, nkv = cfg.padded_heads, cfg.n_kv_heads
+    q = [heads.q0 * hd + i for i in range(heads.nq * hd)]
+    kv = [h * hd + i for h in heads.kv for i in range(hd)]
+    return q + [nq_pad * hd + c for c in kv] \
+        + [(nq_pad + nkv) * hd + c for c in kv]
+
+
+def channel_split(n: int, R: int) -> tuple | None:
+    """Each rank's ``(start, length)`` of ``n`` channels, or ``None`` when
+    they do not split R ways."""
+    if R == 1 or n % R:
+        return None
+    return tuple((j * n // R, n // R) for j in range(R))
+
+
+_ATTN_COLS = {"wq": (1, "q"), "bq": (0, "q"), "wo": (0, "q"),
+              "wk": (1, "kv"), "wv": (1, "kv"), "bk": (0, "kv"),
+              "bv": (0, "kv")}
+_MAMBA_DIM = {"conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1,
+              "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def param_layout(cfg, name: str, ndim: int, R: int) -> Layout:
+    """The executed :class:`Layout` of the port tensor ``name`` (a
+    parameter name of the model, ``"stack.3.attn.wk"``, or its last two
+    parts, ``"attn.wk"``) of ``ndim`` dims over a ``model`` axis of R."""
+    if R == 1:
+        return WHOLE
+    parts = name.split(".")
+    leaf = parts[-1]
+    kind = parts[-2] if len(parts) > 1 else ""
+    if kind == "attn" and leaf in _ATTN_COLS:
+        heads = [head_split(cfg, R, r) for r in range(R)]
+        if heads[0] is None:
+            return WHOLE
+        dim, which = _ATTN_COLS[leaf]
+        hd = cfg.resolved_head_dim
+        if which == "q":
+            units = [range(h.q0, h.q0 + h.nq) for h in heads]
+            return Layout(dim, _units(units, hd), cfg.padded_heads * hd)
+        return Layout(dim, _units([h.kv for h in heads], hd),
+                      cfg.n_kv_heads * hd)
+    if kind == "mlp" and leaf in ("w_gate", "w_up", "w_down"):
+        if channel_split(cfg.d_ff, R) is None:
+            return WHOLE
+        return Layout(0 if leaf == "w_down" else 1, _even(cfg.d_ff, R),
+                      cfg.d_ff)
+    if kind == "moe" and leaf in ("w_gate", "w_up", "w_down") and ndim == 3:
+        if channel_split(cfg.n_experts, R) is None:
+            return WHOLE
+        return Layout(0, _even(cfg.n_experts, R), cfg.n_experts)
+    if kind == "mamba":
+        di = cfg.d_inner
+        if channel_split(di, R) is None:
+            return WHOLE
+        if leaf == "in_proj":                 # [x | z]: both halves' block
+            return Layout(1, tuple(c + tuple(di + i for i in c)
+                                   for c in _even(di, R)), 2 * di)
+        if leaf in _MAMBA_DIM:
+            return Layout(_MAMBA_DIM[leaf], _even(di, R), di)
+        return WHOLE
+    if kind == "embed" and leaf in ("table", "lm_head"):
+        V = cfg.padded_vocab
+        if channel_split(V, R) is None:
+            return WHOLE
+        return Layout(0 if leaf == "table" else 1, _even(V, R), V)
+    if leaf == "lm_heads":                    # each codebook's vocab block
+        V, K = cfg.vocab_size, cfg.n_codebooks
+        if channel_split(V, R) is None:
+            return WHOLE
+        return Layout(1, tuple(tuple(k * V + i for k in range(K) for i in c)
+                               for c in _even(V, R)), K * V)
+    return WHOLE
+
+
+def vocab_block(cfg, axis: ModelAxis | None) -> tuple | None:
+    """``(start, length)`` of this rank's vocabulary block (the embedding's
+    rows, the head's columns; per codebook for the audio head), or
+    ``None`` when the vocabulary is whole on every rank."""
+    if axis is None:
+        return None
+    V = cfg.vocab_size if cfg.frontend == "audio" else cfg.padded_vocab
+    split = channel_split(V, axis.size)
+    return None if split is None else split[axis.rank]
+
+
+@functools.lru_cache(maxsize=None)
+def cache_layout(cfg, kind: str, which: str, R: int) -> Layout:
+    """The executed :class:`Layout` of a decode cache: attention ``"k"`` /
+    ``"v"`` (B, L, Hkv, D) — the kv heads the rank's query heads read,
+    over the whole length; mamba ``"conv"`` (B, K-1, d_inner) / ``"ssm"``
+    (B, d_inner, N) — the rank's channels (taken by name, not by the
+    size guess of ``cache_pspecs``)."""
+    if R == 1:
+        return WHOLE
+    if kind == "attn":
+        heads = [head_split(cfg, R, r) for r in range(R)]
+        if heads[0] is None:
+            return WHOLE
+        return Layout(2, tuple(h.kv for h in heads), cfg.n_kv_heads)
+    if channel_split(cfg.d_inner, R) is None:
+        return WHOLE
+    return Layout(2 if which == "conv" else 1, _even(cfg.d_inner, R),
+                  cfg.d_inner)
+
+
+class _SharedGrad(torch.autograd.Function):
+    """Forward: the block as it is.  Backward: each entry's gradient summed
+    over the ranks that hold it (an entry two ranks' graphs read gets both
+    parts), through one all-reduce of the whole dim."""
+
+    @staticmethod
+    def forward(ctx, w, layout, axis):
+        ctx.layout, ctx.axis = layout, axis
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        lay, axis = ctx.layout, ctx.axis
+        idx = lay._index(axis.rank, g.device)
+        shape = list(g.shape)
+        shape[lay.dim] = lay.size
+        whole = g.new_zeros(shape, dtype=torch.float32)
+        whole.index_add_(lay.dim, idx, g.float())
+        transport.all_reduce(whole, axis.group)
+        return whole.index_select(lay.dim, idx).to(g.dtype), None, None
+
+
+def shared_grad(w: torch.Tensor, layout: Layout, axis: ModelAxis):
+    """``w`` (this rank's block under ``layout``) with its gradient summed
+    over the ranks holding each entry, when entries are shared."""
+    return _SharedGrad.apply(w, layout, axis) if layout.shared else w
+
+
+def executed_pspecs(leaves, mesh) -> list:
+    """The sanitized spec of each leaf, with ``model`` also on the dim its
+    executed block splits (ZeRO-1 then never picks that dim); the leaves
+    carry ``whole_shape`` and ``layout`` (``models.convert.Leaf``)."""
+    whole = [WholeLeaf(leaf.path, leaf.whole_shape) for leaf in leaves]
+    base = sanitize_pspecs(whole, param_pspecs(whole), mesh)
+    out = []
+    for leaf, s in zip(leaves, base):
+        if leaf.layout.whole:
+            out.append(s)
+            continue
+        dims = list(s) + [None] * (leaf.ndim - len(s))
+        dims[leaf.layout.dim + leaf.stacked] = MODEL_AXIS
+        out.append(spec(*dims))
+    return out
+
+
+@dataclass(frozen=True)
+class WholeLeaf:
+    """A leaf's path and whole shape, for the rules above."""
+
+    path: tuple
+    shape: tuple
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+_REASONS = {"wk": "kv heads of the rank's query heads",
+            "wv": "kv heads of the rank's query heads",
+            "bk": "kv heads of the rank's query heads",
+            "bv": "kv heads of the rank's query heads",
+            "in_proj": "[x | z]: the channel block of each half",
+            "lm_heads": "each codebook's vocab block"}
+
+
+def departures(cfg, R: int) -> dict:
+    """``{name: why}`` for each leaf of ``cfg``'s model whose executed block
+    on a ``model`` axis of R differs from its spec's block (the table of
+    the module docstring, by rule); a name is the leaf's path without its
+    ``stack/<pos>/`` prefix (``"attn/wk"``, ``"lm_heads"``)."""
+    out = {}
+    hd = cfg.resolved_head_dim
+    if R == 1:
+        return out
+    if cfg.n_heads:
+        split = head_split(cfg, R, 0) is not None
+        names = ["wo"] if cfg.fused_proj else ["wq", "wo", "wk", "wv"]
+        if cfg.qkv_bias and not cfg.fused_proj:
+            names += ["bq", "bk", "bv"]
+        for leaf in names:
+            q = leaf in ("wq", "bq", "wo")
+            n = (cfg.padded_heads if q else cfg.n_kv_heads) * hd
+            if not split and n % R == 0:
+                out[f"attn/{leaf}"] = "query heads do not split: whole"
+            elif split and not q and cfg.n_kv_heads % R:
+                out[f"attn/{leaf}"] = _REASONS[leaf]
+    if cfg.ssm_state:
+        if cfg.d_inner % R == 0:
+            out["mamba/in_proj"] = _REASONS["in_proj"]
+        elif 2 * cfg.d_inner % R == 0:
+            out["mamba/in_proj"] = "channels do not split: whole"
+    if cfg.frontend == "audio":
+        V, K = cfg.vocab_size, cfg.n_codebooks
+        if V % R == 0 and K > 1:
+            out["lm_heads"] = _REASONS["lm_heads"]
+        elif V % R and K * V % R == 0:
+            out["lm_heads"] = "codebook vocabulary does not split: whole"
+    return out

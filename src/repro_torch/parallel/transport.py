@@ -1,7 +1,7 @@
 """The collectives the parallel layer runs, and the route each one takes.
 
-Every collective of ``parallel``, ``models.moe`` (EP-local), ``train`` and
-the multi-rank sweep goes through this module, so that its route is decided
+Every collective of ``parallel``, the models' tensor and expert
+parallelism, ``train`` and the multi-rank sweep goes through this module, so that its route is decided
 in one place:
 
 * ``"direct"`` — the backend takes the tensor where it lies: NCCL on the
@@ -19,7 +19,8 @@ send / receive of a CUDA tensor ends the process there (a
 ``gloo::IoException`` from the TCP transport's ``writev``), and gloo
 refused the list form of all-to-all, which the port does not use.
 ``chip_smoke.py`` checks both on every run; ``routes`` counts the calls
-per (collective, route), and it prints them.
+per (collective, route) and ``volume`` the bytes each rank put in, and it
+prints them.
 
 On one card shared by several gloo ranks these are the transport of the
 world, not a measure of NVLink or NCCL: every GEMM and kernel stays on
@@ -38,6 +39,8 @@ GLOO_CUDA = frozenset({"all_reduce", "all_gather", "all_to_all_single",
 
 #: Calls per (collective, route) in this process.
 routes: Counter = Counter()
+#: Bytes this rank put in per (collective, route) in this process.
+volume: Counter = Counter()
 
 
 def route(op: str, t: torch.Tensor, group=None) -> str:
@@ -67,13 +70,16 @@ def through_host(fn, inputs, outputs):
 def _count(op: str, t: torch.Tensor, group) -> str:
     r = route(op, t, group)
     routes[(op, r)] += 1
+    volume[(op, r)] += t.numel() * t.element_size()
     return r
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; returns ``t``."""
+def all_reduce(t: torch.Tensor, group=None,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (a sum unless ``op`` says
+    otherwise); returns ``t``."""
     _count("all_reduce", t, group)
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -163,3 +169,64 @@ class _MeanForward(torch.autograd.Function):
 sum_forward = _SumForward.apply          # (x, group)
 sum_backward = _SumBackward.apply        # (x, group)
 mean_forward = _MeanForward.apply        # (x, group)
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward: every rank's block concatenated along the last dim, in group
+    order.  Backward: this rank's block of the gradient — every rank
+    computes the same function of the whole, so each holds all of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.n = x.shape[-1]
+        parts = all_gather(x, group)
+        return torch.cat(list(parts.unbind(0)), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(-1, r * ctx.n, ctx.n).contiguous(), None
+
+
+gather_last = _GatherLast.apply           # (x, group)
+
+
+def row_sum(y: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel product's partial sums added over ``group`` in float32
+    and cast back to ``y``'s dtype (as the reference's psum computes it);
+    the gradient passes as it is (Megatron's *g*)."""
+    return sum_forward(y.float(), group).to(y.dtype)
+
+
+# ------------------------------------------------------ vocab parallelism
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, lo: int,
+                group) -> torch.Tensor:
+    """The embedding rows of ``tokens`` from a vocab-sharded table: this
+    rank holds rows ``[lo, lo + len(table))``; rows outside are zeros, and
+    the sum over ``group`` has one non-zero term per token (exact in any
+    dtype)."""
+    n = table.shape[0]
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return sum_forward(rows, group)
+
+
+def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        lo: int, group) -> torch.Tensor:
+    """Per-position ``logsumexp - gold`` over vocab-sharded logits (this
+    rank's columns ``[lo, lo + n)`` of the last dim), never gathering
+    them: the max and the sum of exponentials are all-reduced in float32,
+    and the gold logit comes from the rank that owns the target."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    m = all_reduce(lf.detach().amax(-1), group, op=dist.ReduceOp.MAX)
+    s = sum_forward(torch.exp(lf - m[..., None]).sum(-1), group)
+    lse = m + torch.log(s)
+    t = targets.long() - lo
+    inside = (t >= 0) & (t < n)
+    gold = lf.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+    gold = sum_forward(torch.where(inside, gold, gold.new_zeros(())), group)
+    return lse - gold

@@ -11,9 +11,11 @@ other.
   * ``AsyncCheckpointer`` snapshots to host memory synchronously and
     writes in a background thread;
   * elastic restore: the files hold whole leaves whatever mesh wrote them
-    (over data ranks, rank 0 writes the gathered leaves), and
-    ``restore(..., shardings=, mesh=)`` places each leaf as this rank's
-    block on any other mesh.
+    (over data and model ranks, rank 0 writes the leaves gathered by their
+    layouts), and ``restore(..., shardings=, mesh=)`` places each leaf as
+    this rank's block on any other mesh: a spec's block, or the block a
+    function of the whole leaf cuts (a leaf's executed layout,
+    ``models.convert.Leaf.take``).
 
 A tree is nested dicts / lists whose leaves are tensors (or numpy arrays).
 bfloat16 leaves: numpy writes an ``ml_dtypes.bfloat16`` array with the
@@ -160,8 +162,10 @@ def restore(directory, step: int, like, shardings=None, mesh=None) -> tuple:
     its ``like`` leaf's dtype and put on its device.
 
     ``shardings``: the elastic path — the structure of ``like`` with a spec
-    (``parallel.sharding``) or ``None`` at each leaf; a leaf with a spec
-    comes back as this rank's block of it on ``mesh``."""
+    (``parallel.sharding``), a function of the whole leaf, or ``None`` at
+    each leaf; a leaf with a spec comes back as this rank's block of it on
+    ``mesh``, one with a function as what it returns (a rank's block under
+    the executed layout: ``like`` then has the whole shapes)."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((d / MANIFEST).read_text())
     pairs = []
@@ -172,7 +176,9 @@ def restore(directory, step: int, like, shardings=None, mesh=None) -> tuple:
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
                              f"{tuple(ref.shape)}")
         s = None if shardings is None else _at(shardings, path)
-        if s is not None:
+        if callable(s):
+            t = s(t).clone()
+        elif s is not None:
             t = local_shard(t, s, mesh).clone()
         pairs.append((path, t.to(device=ref.device, dtype=ref.dtype)))
     return nest(pairs), manifest["extra"]

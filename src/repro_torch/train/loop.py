@@ -13,8 +13,19 @@ Data parallelism (``mesh=``): each rank takes its rows of the global batch
 (``parallel.batch_pspecs``: contiguous blocks over the data axes, in mesh
 order), splits them into its microbatches as above, and the gradients and
 the loss are summed in float32 over the data ranks and divided by their
-count — the global batch's mean.  The ``model`` axis must be 1 here (it
-carries experts and, later, tensor parallelism; see ``launch.train``).
+count — the global batch's mean.
+
+Tensor parallelism (a mesh whose ``model`` axis is R > 1, the model built
+on it): the ranks of one ``model`` group take the same rows, and each
+leaf's gradient is this rank's block's, complete — never summed over
+``model``.  A leaf that is whole on every model rank (norms, the router,
+``mm_proj``) gets the same gradient on each: every column-parallel
+product's input passes Megatron's *f* (its gradient summed over the
+group) and every row-parallel output *g*, so the gradient reaching any
+whole tensor is already the whole model's, on every rank.  A block two
+ranks share (a kv head) has its gradient summed over them in the
+backward pass (``sharding.shared_grad``).  The global norm counts every
+entry once (``optimizer.global_norm``).
 """
 from __future__ import annotations
 
@@ -87,16 +98,6 @@ def data_group(mesh):
     return group, dist.get_world_size(group)
 
 
-def check_data_mesh(mesh) -> None:
-    """Training over ``mesh`` runs data parallelism only: its ``model`` axis
-    must be 1."""
-    if sharding.axis_sizes(mesh).get(sharding.MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "training on a mesh whose 'model' axis exceeds 1 needs tensor "
-            "parallelism, which is slice 11 of the port; use a (data, 1) "
-            "mesh")
-
-
 def local_batch(batch: dict, mesh) -> dict:
     """This rank's rows of the global ``batch`` (``batch_pspecs``)."""
     specs = sharding.batch_pspecs(batch, mesh)
@@ -105,8 +106,8 @@ def local_batch(batch: dict, mesh) -> dict:
 
 
 def reduce_over_data(loss, grads, group, n: int) -> tuple:
-    """The loss and gradients summed in float32 over the data ranks and
-    divided by their count."""
+    """The loss and gradients summed in float32 over the data ranks (the
+    data group only, never ``model``) and divided by their count."""
     loss = transport.all_reduce(loss.float().clone(), group) / n
     out = []
     for g in grads:
@@ -126,14 +127,20 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     halves them for the 400B-class archs at a documented precision cost).
     ``optimizer``: ``"adamw"`` or ``"adafactor"`` (the state must come from
     the matching ``*_init``).  ``mesh``: data parallelism over its data
-    axes; the step then takes the GLOBAL batch.  ``zero1``: AdamW's moments
-    are this rank's blocks (``adamw_init(..., blocks=zero1_blocks(params,
-    mesh))``); Adafactor's state stays whole on every rank."""
+    axes, and tensor parallelism over its ``model`` axis when the leaves
+    are a model built on it; the step then takes the GLOBAL batch.
+    ``zero1``: AdamW's moments are this rank's blocks
+    (``adamw_init(..., blocks=zero1_blocks(params, mesh))``); Adafactor's
+    state stays whole on every rank, and Adafactor does not run on a
+    ``model`` axis above 1 (its factored moments would be a block's)."""
     opt_update = {"adamw": adamw_update,
                   "adafactor": adafactor_update}[optimizer]
     if mesh is not None:
-        check_data_mesh(mesh)
         group, n_data = data_group(mesh)
+        if optimizer == "adafactor" and sharding.model_axis(mesh):
+            raise NotImplementedError(
+                "Adafactor under tensor parallelism is not ported: its "
+                "row and column moments would be this rank's block's")
     use_blocks = mesh is not None and zero1 and optimizer == "adamw"
     blocks = None
 
@@ -146,10 +153,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
         kw = {}
         if mesh is not None:
             loss, grads = reduce_over_data(loss, grads, group, n_data)
+            if optimizer == "adamw":
+                kw["mesh"] = mesh
         if use_blocks:
             if blocks is None:
                 blocks = zero1_blocks(params, mesh)
-            kw = {"blocks": blocks, "mesh": mesh}
+            kw["blocks"] = blocks
         params, opt_state, om = opt_update(opt_cfg, grads, opt_state, params,
                                            **kw)
         return params, opt_state, TrainMetrics(loss=loss,

@@ -21,6 +21,8 @@ ZeRO-1 (:func:`zero1_blocks`): over the data ranks of a mesh, AdamW's
 ``parallel.zero1_pspecs`` (the leaf's largest dim that the data ranks
 divide); each rank updates its block of the parameters and the blocks are
 all-gathered.  The arithmetic per element is the same as without it.
+Under tensor parallelism a leaf is already this rank's block over
+``model`` (``Leaf.layout``); ZeRO-1 cuts that block over the data axes.
 """
 from __future__ import annotations
 
@@ -92,14 +94,17 @@ class Zero1Block:
 def zero1_blocks(params, mesh) -> list:
     """One :class:`Zero1Block` per leaf (``None`` where no dim divides over
     the data ranks): the data-axes entry of ``zero1_pspecs`` over the
-    sanitized ``param_pspecs``, as the reference lays out its optimizer
-    state."""
-    base = sharding.sanitize_pspecs(params, sharding.param_pspecs(params),
-                                    mesh)
+    sanitized ``param_pspecs`` of the whole leaves, as the reference lays
+    out its optimizer state (the dim a leaf's executed block splits over
+    ``model`` is never picked: ``sharding.executed_pspecs``).  The block
+    is of this rank's value of the leaf, whole along that dim."""
+    whole = [sharding.WholeLeaf(leaf.path, leaf.whole_shape)
+             for leaf in params]
+    base = sharding.executed_pspecs(params, mesh)
     dp = sharding.data_axes(mesh)
     coord = mesh.get_coordinate()
     out = []
-    for leaf, s in zip(params, sharding.zero1_pspecs(params, base, mesh)):
+    for leaf, s in zip(params, sharding.zero1_pspecs(whole, base, mesh)):
         dims = [i for i, e in enumerate(s)
                 if set(sharding.axes_of(e)) & set(dp)]
         if not dims:
@@ -126,10 +131,29 @@ def adamw_init(params, opt_dtype=F32, blocks=None) -> dict:
             "count": _count()}
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    norms = [torch.linalg.vector_norm(x, dtype=F32) for x in leaves]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(leaves, params=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.  Under tensor
+    parallelism (``params``: the leaves' ``Leaf``s, blocks over ``mesh``'s
+    ``model`` axis) the squares of the split leaves are summed over the
+    ``model`` group, each entry weighted by 1 / the ranks holding it, and
+    the leaves whole on every rank are counted once."""
+    axis = sharding.model_axis(mesh)
+    if axis is None or params is None \
+            or all(p.layout.whole for p in params):
+        norms = [torch.linalg.vector_norm(x, dtype=F32) for x in leaves]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    split, whole = [], []
+    for x, p in zip(leaves, params):
+        if p.layout.whole:
+            whole.append(torch.linalg.vector_norm(x, dtype=F32).square())
+            continue
+        w = p.layout.weights(axis.rank, x.ndim, int(p.stacked), x.device)
+        split.append((x.float().square() * w).sum())
+    total = sharding.transport.all_reduce(torch.stack(split).sum(),
+                                          axis.group)
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return total.sqrt()
 
 
 def _clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
@@ -151,8 +175,9 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
     leaf.  Writes the parameters and ``state`` in place and returns
     ``(params, state, {"grad_norm", "lr"})``.  With ZeRO-1 ``blocks`` (and
     their ``mesh``), a leaf with a block is updated on that block only and
-    all-gathered over the data ranks."""
-    gnorm = global_norm(grads)
+    all-gathered over the data ranks.  Under tensor parallelism ``mesh``
+    also gives the global norm its ``model`` group."""
+    gnorm = global_norm(grads, params, mesh)
     scale = _clip_scale(cfg, gnorm)
     count = state["count"] + 1
     cf = count.to(F32)

@@ -156,11 +156,13 @@ def ep_moe(shape, p, x):
 
 def ep_grads(shape, batch, seed):
     """The reduced phi3.5-moe (capacity factor 8) with ``ep_local`` on a
-    (data, model) mesh: this rank's logits and loss on its rows, and every
-    parameter's gradient averaged over the data ranks (an expert leaf: this
-    rank's block)."""
+    (data, model) mesh (tensor parallel elsewhere): this rank's logits and
+    loss on its rows, every parameter's gradient averaged over the data
+    ranks and gathered whole by its executed layout, and the shape of the
+    block the rank holds."""
     from repro_torch.models import make_model
-    from repro_torch.parallel import batch_pspecs, local_shard, transport
+    from repro_torch.parallel import (batch_pspecs, local_shard, sharding,
+                                      transport)
     cfg = _moe_cfg()
     mesh = _mesh(shape)
     model = make_model(cfg, moe_impl="ep_local", device="cpu", mesh=mesh,
@@ -174,6 +176,9 @@ def ep_grads(shape, batch, seed):
     grads = torch.autograd.grad(loss, list(model.parameters()))
     group, n_data = mesh.get_group("data"), mesh.size(0)
     grads = [transport.all_reduce(g.clone(), group) / n_data for g in grads]
+    axis = sharding.model_axis(mesh)
+    grads = [sharding.param_layout(cfg, n, g.ndim, shape[1]).gather(g, axis)
+             for n, g in zip(names, grads)]
     return {"logits": logits.detach().numpy(), "aux": float(aux),
             "loss": float(loss), "coord": mesh.get_coordinate(),
             "grads": {n: g.numpy() for n, g in zip(names, grads)},
@@ -181,13 +186,146 @@ def ep_grads(shape, batch, seed):
                        for n, p in model.named_parameters()}}
 
 
+def _tp_cfg(name):
+    """A reduced arch of the TP checks, or one of two variants: the
+    ``irregular`` phi3 (12 query heads over 3 kv heads: at R = 4 a rank's
+    query heads straddle kv groups, so k / v are repeated per query head,
+    and two ranks share a kv head) and the ``fused`` qwen2.5-3b
+    (``wqkv`` / ``w_gateup`` held whole, multiplied by columns)."""
+    from repro_torch.configs import get_arch
+    if name == "irregular":
+        return get_arch("phi3-medium-14b").reduced().replace(
+            n_heads=12, n_kv_heads=3, head_dim=16, qkv_bias=True)
+    if name == "fused":
+        return get_arch("qwen2.5-3b").reduced().replace(fused_proj=True)
+    return get_arch(name).reduced()
+
+
+def tp_model(shape, names, batch_shape):
+    """Every arch of ``names`` built on a (data, model) mesh of ``shape``
+    (weights from seed 0): the logits of this rank's data rows (gathered
+    over ``model``) and the loss; the gradients of every leaf through
+    ``loss_and_grads`` and ``reduce_over_data``, gathered whole by the
+    executed layout (rank 0 also returns the gathered parameters); every
+    rank's gradients of the leaves it holds whole."""
+    from repro_torch.models import make_inputs, make_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import params_to_jax, reference_leaves
+    from repro_torch.train.loop import (data_group, local_batch,
+                                        loss_and_grads, reduce_over_data)
+    mesh = _mesh(shape)
+    group, n_data = data_group(mesh)
+    out = {}
+    for name in names:
+        cfg = _tp_cfg(name)
+        model = make_model(cfg, device="cpu", mesh=mesh,
+                           moe_impl="ep_local" if cfg.n_experts
+                           else "scatter",
+                           generator=torch.Generator().manual_seed(0))
+        b = local_batch(make_inputs(cfg, ShapeConfig("t", "train",
+                                                     batch_shape[1],
+                                                     batch_shape[0]),
+                                    device="cpu"), mesh)
+        leaves = reference_leaves(model)
+        with torch.no_grad():
+            logits, _ = model(b)
+        loss, grads = loss_and_grads(model.loss, leaves, b)
+        loss, grads = reduce_over_data(loss, grads, group, n_data)
+        params = params_to_jax(model)
+        gathered = [leaf.gather(g) for leaf, g in zip(leaves, grads)]
+        res = {"logits": logits.numpy(), "loss": float(loss),
+               "coord": mesh.get_coordinate(),
+               "whole": {leaf.name: g.numpy() for leaf, g
+                         in zip(leaves, grads) if leaf.layout.whole},
+               "n_split": sum(not leaf.layout.whole for leaf in leaves)}
+        if dist.get_rank() == 0:
+            res.update(params=params, grads=[g.numpy() for g in gathered])
+        out[name] = res
+    return out
+
+
+TP_PROMPT = (2, 12)
+TP_NEW, TP_MAX_LEN = 9, 32
+
+
+def _reference_caches(cfg, caches) -> list:
+    """Per-layer caches in the reference's layout: one entry per pattern
+    position, each leaf stacked over the blocks (numpy)."""
+    from repro_torch.models.blocks import layer_pattern
+    P = len(layer_pattern(cfg))
+    out = []
+    for pos in range(P):
+        layers_ = caches[pos::P]
+        if layers_[0] is None:
+            out.append(None)
+        elif isinstance(layers_[0], dict):
+            out.append({k: np.stack([c[k].numpy() for c in layers_])
+                        for k in layers_[0]})
+        else:
+            out.append(tuple(np.stack([c[j].numpy() for c in layers_])
+                             for j in range(2)))
+    return out
+
+
+def tp_decode(shape, names):
+    """TP ``prefill`` of a (2, 12) prompt (seed 7) and 8 greedy
+    ``decode_step``s on a (data, model) mesh of ``shape``: the 9 tokens;
+    rank 0 also returns the gathered parameters.  Beside them: the whole
+    model's parameters carried into this rank's blocks
+    (``params_from_jax(..., mesh=)``) against the TP model's, and its
+    prefill caches (``caches_from_jax(..., mesh=)``) against the TP
+    prefill's."""
+    from repro_torch.models import make_model
+    from repro_torch.models.convert import (caches_from_jax, params_from_jax,
+                                            params_to_jax)
+    mesh = _mesh(shape)
+    prompt = torch.tensor(np.random.default_rng(7).integers(
+        0, 256, TP_PROMPT), dtype=torch.int32)
+    out = {}
+    for name in names:
+        cfg = _tp_cfg(name)
+        model = make_model(cfg, device="cpu", mesh=mesh,
+                           moe_impl="ep_local" if cfg.n_experts
+                           else "scatter",
+                           generator=torch.Generator().manual_seed(0))
+        whole = make_model(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+        loaded = params_from_jax(cfg, params_to_jax(whole), mesh)
+        mine = model.state_dict()
+        params_equal = loaded.keys() == mine.keys() and all(
+            torch.equal(loaded[k], mine[k]) for k in mine)
+        with torch.no_grad():
+            logits, caches = model.prefill({"tokens": prompt}, TP_MAX_LEN)
+            _, wc = whole.prefill({"tokens": prompt}, TP_MAX_LEN)
+            cut = caches_from_jax(cfg, _reference_caches(cfg, wc), mesh)
+            cache_err = max((float((a - b).abs().max())
+                             for c, w in zip(caches, cut) if c is not None
+                             for a, b in zip(c.values() if isinstance(c, dict)
+                                             else c, w.values()
+                                             if isinstance(w, dict) else w)),
+                            default=0.0)
+            toks = [logits.argmax(-1)]
+            for i in range(TP_NEW - 1):
+                logits, caches = model.decode_step(
+                    caches, {"tokens": toks[-1]}, TP_PROMPT[1] + i)
+                toks.append(logits.argmax(-1))
+        params = params_to_jax(model)
+        out[name] = {"tokens": torch.cat(toks, 1).numpy(),
+                     "cache_heads": next((c["k"].shape[2] for c in caches
+                                          if isinstance(c, dict)), None),
+                     "params_equal": params_equal, "cache_err": cache_err,
+                     "params": params if dist.get_rank() == 0 else None}
+    return out
+
+
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
-def dp_train(arch, zero1, steps, seq):
+def dp_train(arch, zero1, steps, seq, shape=None):
     """``steps`` DP (+ ZeRO-1) train steps of a reduced arch over a (world,
-    1) mesh, one row per rank: losses, the whole leaves after, and this
-    rank's moment bytes."""
+    1) mesh (or a (data, model) mesh of ``shape``, tensor parallel, the
+    model built on it), one row per data rank: losses, the whole leaves
+    after (gathered), and this rank's moment bytes."""
     from repro_torch.configs import get_arch
     from repro_torch.models import make_model
     from repro_torch.models.config import ShapeConfig
@@ -198,8 +336,12 @@ def dp_train(arch, zero1, steps, seq):
                                              zero1_blocks)
     n = dist.get_world_size()
     cfg = get_arch(arch).reduced()
-    mesh = _mesh((n, 1))
-    model = make_model(cfg, device="cpu",
+    tp = shape is not None
+    mesh = _mesh(shape if tp else (n, 1))
+    n = mesh.size(0)
+    model = make_model(cfg, device="cpu", mesh=mesh if tp else None,
+                       moe_impl="ep_local" if tp and cfg.n_experts
+                       else "scatter",
                        generator=torch.Generator().manual_seed(0))
     params = reference_leaves(model)
     blocks = zero1_blocks(params, mesh) if zero1 else None
@@ -213,7 +355,7 @@ def dp_train(arch, zero1, steps, seq):
         params, opt, m = step(params, opt, data.batch(i))
         losses.append(float(m.loss))
     return {"losses": losses,
-            "leaves": [leaf.value().numpy() for leaf in params],
+            "leaves": [leaf.gather(leaf.value()).numpy() for leaf in params],
             "moment_bytes": sum(x.numel() * x.element_size()
                                 for k in ("mu", "nu") for x in opt[k]),
             "sharded": sum(b is not None for b in blocks or [])}
@@ -259,6 +401,43 @@ def elastic(directory):
             "n_split": n_split, "n_leaves": len(leaves)}
 
 
+def tp_elastic(directory):
+    """``launch.train.train`` of the reduced jamba: 2 steps on (2, 2)
+    (tensor parallel, ZeRO-1) saved; restored on (4, 1), which has no step
+    left and saves again; then 3 steps on (4, 1) from there, restored on
+    (2, 2) and saved again.  Each re-save must write the restored files
+    byte for byte (rank 0 compares)."""
+    import filecmp
+    import pathlib
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_arch("jamba-v0.1-52b").reduced()
+    shape = ShapeConfig("t", "train", 16, 4)
+    d = pathlib.Path(directory)
+    kw = dict(log_every=100, device="cpu")
+    same = []
+
+    def resave(src, dst, mesh_shape, steps, step):
+        if dist.get_rank() == 0:
+            shutil.copytree(src, dst)
+        dist.barrier()
+        train(cfg, shape, steps, ckpt_dir=dst, mesh=_mesh(mesh_shape), **kw)
+        if dist.get_rank() == 0:
+            a, b = src / f"step_{step:08d}", dst / f"step_{step:08d}"
+            files = sorted(p.name for p in a.iterdir())
+            match, mismatch, errors = filecmp.cmpfiles(a, b, files,
+                                                       shallow=False)
+            same.append((len(match), len(mismatch) + len(errors)))
+
+    train(cfg, shape, 2, ckpt_dir=d / "a", mesh=_mesh((2, 2)), **kw)
+    resave(d / "a", d / "b", (4, 1), 2, 1)              # (2, 2) -> (4, 1)
+    train(cfg, shape, 3, ckpt_dir=d / "b", mesh=_mesh((4, 1)), **kw)
+    resave(d / "b", d / "c", (2, 2), 3, 2)              # (4, 1) -> (2, 2)
+    return {"same": same}
+
+
 def sweep(cb, cases):
     """The ``"distributed"`` plan over the world's ranks: per case (``(n,
     seed, plan)``) the result's indices, speedups, gains, aggregates and
@@ -297,5 +476,6 @@ def world(rank, n, **kw):
 
 PARTS = {"pipeline": pipeline, "compressed": compressed, "ep_moe": ep_moe,
          "ep_grads": ep_grads, "dp_train": dp_train, "elastic": elastic,
-         "sweep": sweep}
+         "sweep": sweep, "tp_model": tp_model, "tp_decode": tp_decode,
+         "tp_elastic": tp_elastic}
 TASKS = {"world": world}

@@ -11,18 +11,33 @@ rank programs) against the JAX package on the same numpy inputs:
 * ``moe_ffn_ep_local`` on (1, 2), (1, 4) and (2, 2) meshes against the
   reference's ``moe_ffn_scatter`` on each data shard and its
   ``moe_ffn_dense`` (reduced phi3.5-moe, capacity factor 8), and the whole
-  model's every parameter gradient against the single-process scatter's;
+  model's every parameter gradient (gathered by the executed layout)
+  against the single-process scatter's;
+* tensor parallelism over ``model`` (every leaf this rank's block): the
+  forward, loss and gradients of every reduced arch (and two variants:
+  kv heads repeated per query head, fused projections) on (1, 2), (1, 4)
+  and (2, 2), gathered and held against the JAX package's single-device
+  forward and ``jax.value_and_grad`` on the same parameters (logits at
+  1e-4, loss at 1e-5, each gradient leaf at 1e-4 of its scale); TP
+  ``prefill`` + 8 greedy ``decode_step``s of the reduced qwen2.5-3b (2 kv
+  heads: at R = 4 two ranks share each), jamba and falcon-mamba against
+  the reference's ``ServeEngine`` (tokens equal);
 * the DP + ZeRO-1 train step of the reduced qwen2.5-3b and jamba on 2 and
-  4 data ranks against the port's 1-rank step;
-* the elastic restore (saved on (1, 4), restored on (2, 2));
+  4 data ranks, and TP + DP + ZeRO-1 on (2, 2), against the port's 1-rank
+  step;
+* the elastic restore (saved on (1, 4), restored on (2, 2)), and
+  ``launch.train``'s checkpoints across (2, 2) and (4, 1) (tensor
+  parallel and not), byte for byte;
 * the multi-rank ``"distributed"`` sweep on 1, 2 and 4 ranks (S = 37,
   chunk 10) and the adaptive sweep's shard bound (the reference test's
   1M-scenario case at a 262,144-scenario seed: the CPU time);
-* one ``torchrun`` run of the train CLI on 2 gloo ranks.
+* ``torchrun`` runs of the train CLI on 2 gloo ranks (2, 1) and on 4
+  (2, 2).
 
 Each world (4 ranks, 2 ranks) runs once per module and checks several
 things; it is joined within a time limit, after which its ranks are killed
 and the test fails."""
+import functools
 import json
 import os
 import pathlib
@@ -38,12 +53,16 @@ import torch
 import repro.core as ref
 from repro.configs import ARCHS
 from repro.models import moe as ref_moe
+from repro.models.config import ShapeConfig as RefShape
+from repro.models.factory import make_inputs as ref_inputs
+from repro.models.factory import make_model as ref_make_model
 from repro.parallel.pipeline import compressed_psum as ref_compressed_psum
+from repro.serve.engine import ServeEngine
 import repro_torch.core as pt
 from repro_torch.configs import get_arch
 from repro_torch.models import make_inputs, make_model
 from repro_torch.models.config import ShapeConfig
-from repro_torch.models.convert import reference_leaves
+from repro_torch.models.convert import params_to_jax, reference_leaves
 from repro_torch.train import make_data
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
@@ -60,6 +79,16 @@ MOE_SHAPE = (4, 16)                       # (batch, seq) of the EP checks
 EP_MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
 TRAIN_ARCHS = ("qwen2.5-3b", "jamba-v0.1-52b")
 TRAIN_STEPS, TRAIN_SEQ = 2, 16
+TP_MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
+TP_NAMES = sorted(ARCHS) + ["irregular", "fused"]
+TP_ROWS, TP_SEQ = 2, 32               # rows of each data shard, sequence
+TP_DECODE = ("qwen2.5-3b", "jamba-v0.1-52b", "falcon-mamba-7b")
+TP_TRAIN_MESH, TP_TRAIN_STEPS = (2, 2), 3
+# float32 bounds: the logits and each gradient leaf at 1e-4 (of the leaf's
+# largest magnitude: entries near zero are sums of terms that cancel,
+# rounded in another order once the row-parallel sums are split over
+# ranks), the loss at 1e-5, as in test_torch_grads.py
+RTOL_TP, RTOL_TP_LOSS = 1e-4, 1e-5
 # the seed of the reference's 1M-scenario adaptive sweep is 500,000; the
 # CPU time of the 4-rank world keeps it at 262,144 (524,288 priced), which
 # still holds the reference's bound chunk < scenarios / 7
@@ -120,6 +149,19 @@ def _parts(n, tmp):
         parts += [(f"ep_moe:{shape}", {"shape": shape, "p": p, "x": x}),
                   (f"ep_grads:{shape}", {"shape": shape, "batch": batch,
                                          "seed": 0})]
+    for shape in TP_MESHES[n]:
+        parts += [(f"tp_model:{shape}", {
+            "shape": shape, "names": TP_NAMES,
+            "batch_shape": (TP_ROWS * shape[0], TP_SEQ)})]
+    parts.append((f"tp_decode:{TP_MESHES[n][0]}",
+                  {"shape": TP_MESHES[n][0], "names": TP_DECODE}))
+    if n == 4:
+        parts.append(("tp_elastic", {"directory": str(tmp / "tp_ckpt")}))
+        for arch in TRAIN_ARCHS:
+            parts.append((f"dp_train:tp:{arch}",
+                          {"arch": arch, "zero1": True,
+                           "steps": TP_TRAIN_STEPS, "seq": TRAIN_SEQ,
+                           "shape": TP_TRAIN_MESH}))
     for arch in TRAIN_ARCHS:
         for zero1 in (True, False):
             parts.append((f"dp_train:{arch}:{zero1}",
@@ -244,8 +286,9 @@ def test_ep_local_matches_scatter_per_shard_and_dense(worlds, n, shape):
                          ids=lambda v: str(v).replace(" ", ""))
 def test_ep_local_gradients_match_single_process_scatter(worlds, n, shape):
     """Every parameter's gradient (the data ranks' mean, as data
-    parallelism takes it) against the scatter model's gradient of the mean
-    of its per-shard losses; an expert leaf's against its block."""
+    parallelism takes it, gathered whole by its executed layout) against
+    the scatter model's gradient of the mean of its per-shard losses; an
+    expert leaf is held as E / R experts a rank."""
     _, _, batch = _moe_inputs()
     cfg = get_arch("phi3.5-moe-42b-a6.6b").reduced().replace(
         capacity_factor=8.0)
@@ -270,9 +313,9 @@ def test_ep_local_gradients_match_single_process_scatter(worlds, n, shape):
         assert set(got["grads"]) == set(names)
         for nm in names:
             w = want[nm].numpy()
-            if got["shapes"][nm] != w.shape:          # this rank's experts
-                E_loc = got["shapes"][nm][0]
-                w = w[j * E_loc:(j + 1) * E_loc]
+            assert got["grads"][nm].shape == w.shape, nm
+            if w.ndim == 3:                           # this rank's experts
+                assert got["shapes"][nm][0] * shape[1] == w.shape[0], nm
                 n_expert_leaves += 1
             scale = max(float(np.abs(w).max()), 1e-6)
             np.testing.assert_allclose(got["grads"][nm], w, rtol=1e-5,
@@ -284,10 +327,10 @@ def test_ep_local_gradients_match_single_process_scatter(worlds, n, shape):
 _ONE_RANK: dict = {}
 
 
-def _one_rank(arch, n):
+def _one_rank(arch, n, steps=TRAIN_STEPS):
     """The port's 1-rank step over the global batch of ``n`` rows in ``n``
-    microbatches (microbatch j = row j, rank j's row)."""
-    if (arch, n) not in _ONE_RANK:
+    microbatches (microbatch j = row j, data rank j's row)."""
+    if (arch, n, steps) not in _ONE_RANK:
         cfg = get_arch(arch).reduced()
         model = make_model(cfg, device="cpu",
                            generator=torch.Generator().manual_seed(0))
@@ -298,14 +341,14 @@ def _one_rank(arch, n):
         data = make_data(cfg, ShapeConfig("t", "train", TRAIN_SEQ, n),
                          seed=0, device="cpu")
         losses = []
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             params, opt, m = step(params, opt, data.batch(i))
             losses.append(float(m.loss))
-        _ONE_RANK[(arch, n)] = (
+        _ONE_RANK[(arch, n, steps)] = (
             losses, [leaf.value().numpy() for leaf in params],
             sum(x.numel() * x.element_size()
                 for k in ("mu", "nu") for x in opt[k]))
-    return _ONE_RANK[(arch, n)]
+    return _ONE_RANK[(arch, n, steps)]
 
 
 @pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "replicated"])
@@ -348,6 +391,147 @@ def test_elastic_restore_across_meshes(worlds):
         got = _part(res, "elastic")
         assert got["block_err"] == 0.0 and got["gather_err"] == 0.0
         assert got["n_split"] > 0
+
+
+# ------------------------------------------------------ tensor parallelism
+def _ref_cfg(name):
+    """The reference's config of ``_torch_ranks._tp_cfg(name)``."""
+    if name == "irregular":
+        return ARCHS["phi3-medium-14b"].reduced().replace(
+            n_heads=12, n_kv_heads=3, head_dim=16, qkv_bias=True)
+    if name == "fused":
+        return ARCHS["qwen2.5-3b"].reduced().replace(fused_proj=True)
+    return ARCHS[name].reduced()
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_step(name):
+    """The reference's jitted (loss, logits) and gradients of one data
+    shard (``TP_ROWS`` rows) of ``name``'s single-device model."""
+    model = ref_make_model(_ref_cfg(name), moe_impl="scatter")
+
+    def loss_logits(p, b):
+        return model.loss(p, b), model.forward(p, b)[0]
+    return jax.jit(jax.value_and_grad(loss_logits, has_aux=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_params(name):
+    """The whole model's parameters (seed 0) drawn in one process."""
+    model = make_model(ranks._tp_cfg(name), device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    return jax.tree.leaves(params_to_jax(model))
+
+
+@pytest.mark.parametrize("name", TP_NAMES)
+def test_tp_forward_loss_and_grads_match_the_reference(worlds, name):
+    """On (1, 2), (1, 4) and (2, 2): each rank's logits (its data shard's,
+    gathered over ``model``) against the reference's single-device
+    forward, the loss and every gathered gradient leaf against
+    ``jax.value_and_grad`` of the mean of the shards' losses, on the
+    parameters the ranks gathered (equal to the whole model's, drawn in
+    one process, bit for bit).  The leaves whole on every rank (norms, the
+    router) have the same gradient on every rank, exactly: *f* / *g*
+    already make each rank's the whole model's."""
+    vg = _ref_step(name)
+    for n, shapes in TP_MESHES.items():
+        for shape in shapes:
+            res = [_part(r, f"tp_model:{shape}")[name] for r in worlds[n]]
+            params = res[0]["params"]
+            for got, want in zip(jax.tree.leaves(params),
+                                 _whole_params(name)):
+                np.testing.assert_array_equal(got, want)
+            batch = ref_inputs(_ref_cfg(name), RefShape(
+                "t", "train", TP_SEQ, TP_ROWS * shape[0]), abstract=False)
+            shards = [jax.tree.map(lambda x: x[i * TP_ROWS:(i + 1) * TP_ROWS],
+                                   batch) for i in range(shape[0])]
+            outs = [vg(params, b) for b in shards]
+            loss = np.mean([float(o[0][0]) for o in outs])
+            grads = [np.mean(g, axis=0) for g in zip(*(
+                [np.asarray(x) for x in jax.tree.leaves(o[1])]
+                for o in outs))]
+            for got in res:
+                logits = np.asarray(outs[got["coord"][0]][0][1])
+                np.testing.assert_allclose(got["logits"], logits,
+                                           rtol=RTOL_TP, atol=RTOL_TP)
+                np.testing.assert_allclose(got["loss"], loss,
+                                           rtol=RTOL_TP_LOSS)
+                assert got["n_split"] > 0
+                for k, g in got["whole"].items():
+                    np.testing.assert_array_equal(g, res[0]["whole"][k],
+                                                  err_msg=k)
+            assert len(res[0]["grads"]) == len(grads)
+            for g, w in zip(res[0]["grads"], grads):
+                assert g.shape == w.shape
+                scale = float(np.abs(w).max())
+                np.testing.assert_allclose(g, w, rtol=RTOL_TP,
+                                           atol=RTOL_TP * scale)
+
+
+@pytest.mark.parametrize("name", TP_DECODE)
+def test_tp_prefill_and_decode_match_the_reference_engine(worlds, name):
+    """TP prefill + 8 greedy decode steps on (1, 2) and (1, 4): the tokens
+    of the reference's ``ServeEngine`` (greedy) on the gathered
+    parameters, every rank; the caches hold the kv heads a rank's query
+    heads read (qwen2.5-3b's 2 kv heads over 4 ranks: one a rank)."""
+    prompt = np.random.default_rng(7).integers(
+        0, 256, ranks.TP_PROMPT).astype(np.int32)
+    want = None
+    for n, shapes in TP_MESHES.items():
+        res = [_part(r, f"tp_decode:{shapes[0]}")[name] for r in worlds[n]]
+        if want is None:
+            engine = ServeEngine(ref_make_model(_ref_cfg(name)),
+                                 res[0]["params"], ranks.TP_MAX_LEN)
+            want = np.asarray(engine.generate(prompt, ranks.TP_NEW))
+        for got in res:
+            np.testing.assert_array_equal(got["tokens"], want)
+            assert got["params_equal"]          # params_from_jax(mesh=)
+            assert got["cache_err"] <= 1e-5     # caches_from_jax(mesh=)
+        cfg = ranks._tp_cfg(name)
+        if cfg.n_heads:
+            assert res[0]["cache_heads"] == max(1, cfg.n_kv_heads // n)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_tp_dp_zero1_train_steps_match_one_rank(worlds, arch):
+    """Three TP + DP + ZeRO-1 steps on (data 2, model 2) against one rank's
+    two microbatches: losses at 1e-5; the parameters (gathered) at the
+    optimizer tests' rtol 1e-6 with an atol of 1e-6 of the leaf's
+    magnitude for at least 99.9% of all entries, and every entry within
+    2 x the summed learning rates.  The split sums round the gradients
+    differently (unlike data parallelism's, which are the microbatch
+    loop's bit for bit), and AdamW's update is close to ``lr * sign(m)``:
+    where a gradient entry is a sum that nearly cancels (the key bias's is
+    zero in exact arithmetic; a few of the head's, 7 of 16,384 here, nearly
+    so), its rounding moves the entry by up to 2 lr a step."""
+    losses, leaves, moment_bytes = _one_rank(arch, 2, TP_TRAIN_STEPS)
+    opt = AdamWConfig(**ranks.TRAIN_OPT)
+    lr_sum = sum(float(cosine_schedule(opt, i + 1))
+                 for i in range(TP_TRAIN_STEPS))
+    for res in worlds[4]:
+        got = _part(res, f"dp_train:tp:{arch}")
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+        n_close = n_all = 0
+        for a, b in zip(got["leaves"], leaves):
+            diff = np.abs(a - b)
+            assert float(diff.max()) <= 2 * lr_sum * (1 + 1e-6)
+            tight = 1e-6 * np.abs(b) + 1e-6 * float(np.abs(b).max())
+            n_close += int((diff <= tight).sum())
+            n_all += diff.size
+        assert n_close >= 0.999 * n_all, n_close / n_all
+        assert got["sharded"] > 0
+        assert got["moment_bytes"] < moment_bytes / 2
+
+
+def test_tp_elastic_restore_is_exact(worlds):
+    """``launch.train`` checkpoints of (2, 2) restored on (4, 1) and back:
+    each re-save writes every file byte for byte."""
+    for res in worlds[4]:
+        got = _part(res, "tp_elastic")
+        if got["same"]:                               # rank 0 compares
+            assert len(got["same"]) == 2
+            for match, other in got["same"]:
+                assert match > 3 and other == 0
 
 
 # ------------------------------------------------------------------ sweep
@@ -456,6 +640,35 @@ def test_train_cli_under_torchrun_on_two_gloo_ranks(tmp_path):
         for i, h in enumerate(lines[1]["history"])]
     assert "final loss" in proc.stdout
     assert (tmp_path / "ck" / "step_00000002" / "manifest.json").exists()
+
+
+def test_train_cli_tp_under_torchrun_on_four_gloo_ranks(tmp_path):
+    """``--mesh 2,2``: tensor parallel over 2 model ranks, DP over 2 data
+    ranks; every rank logs the same history, and the checkpoint holds
+    whole leaves."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env.pop("JAX_PLATFORMS", None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+           "--arch", "jamba-v0.1-52b", "--reduced", "--steps", "2", "--seq",
+           "16", "--batch", "2", "--mesh", "2,2", "--backend", "gloo",
+           "--device", "cpu", "--summary", "--ckpt-dir", str(tmp_path / "ck")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=180, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    assert sorted(d["rank"] for d in lines) == [0, 1, 2, 3]
+    strip = lambda h: [{k: v for k, v in x.items()
+                        if k not in ("elapsed_s", "step_s", "moment_bytes")}
+                       for x in h]
+    assert all(strip(d["history"]) == strip(lines[0]["history"])
+               for d in lines)
+    manifest = json.loads((tmp_path / "ck" / "step_00000001"
+                           / "manifest.json").read_text())
+    cfg = get_arch("jamba-v0.1-52b").reduced()
+    assert manifest["leaves"]["params__embed__table"]["shape"] == \
+        [cfg.padded_vocab, cfg.d_model]
 
 
 def test_init_ranks_refuses_nccl_with_more_ranks_than_cards(tmp_path):

@@ -208,10 +208,10 @@ def test_moe_capacity_drops_in_flat_order(impl):
     np.testing.assert_allclose(float(aux), float(ref[1]), **SCALAR)
 
 
-def test_moe_ep_local_is_not_ported_yet():
-    """``ep_local`` is ported (its mesh paths: tests/test_torch_distributed
-    .py).  Without a mesh it is the scatter path, as the reference's
-    ``ep_local`` without an ambient mesh; per-row routing, which neither
+def test_moe_ep_local_without_a_mesh_is_scatter():
+    """``ep_local`` without a mesh is the scatter path, as the reference's
+    ``ep_local`` without an ambient mesh (its mesh paths:
+    tests/test_torch_distributed.py); per-row routing, which neither
     package has for it, raises."""
     rng = np.random.default_rng(3)
     ref_cfg, cfg, jp, p, xt = _moe_case(rng.normal(size=(64, 4)),

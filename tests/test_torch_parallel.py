@@ -177,6 +177,113 @@ def test_placements_local_shard_and_blocks(meshes):
         assert torch.all(seen == replicas)
 
 
+TP_MESHES = [(1, 2), (1, 4), (2, 2)]
+
+
+def _port_name(leaf) -> str:
+    """The port tensor name ``param_layout`` reads (``stack.<pos>.attn.wq``,
+    ``embed.table``, ``lm_heads``)."""
+    return ".".join(map(str, leaf.path))
+
+
+@pytest.mark.parametrize("shape", TP_MESHES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_executed_blocks_reassemble_and_list_their_departures(name, shape):
+    """At full width, on each mesh: every leaf's executed blocks over the R
+    model ranks put the whole leaf back together (every entry held, at
+    its place), each rank's attention heads pass the kernel's ``Hq % Hkv
+    == 0``, and ``departures`` names exactly the leaves whose executed
+    block differs from the sanitized spec's block on some rank (the data
+    coordinate changes neither)."""
+    from types import SimpleNamespace
+    cfg = get_arch(name)
+    leaves, _ = abstract(name)
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=shape)
+    R = shape[1]
+    specs = par.sanitize_pspecs(leaves, par.param_pspecs(leaves), mesh)
+    differ = set()
+    for leaf, s in zip(leaves, specs):
+        t = leaf.tensors[0]
+        lay = sharding.param_layout(cfg, _port_name(leaf), t.ndim, R)
+        per = par.layer_spec(leaf, s)
+        for dim, n in enumerate(t.shape):
+            # the entries of this dim that each rank holds, both ways
+            probe = [1] * t.ndim
+            probe[dim] = n
+            whole = torch.arange(n).reshape(probe)
+            back = torch.full_like(whole, -1)
+            for r in range(R):
+                blk = lay.take(whole, r) if dim == lay.dim else whole
+                if dim == lay.dim:
+                    assert blk.shape == lay.shape(whole.shape, r)
+                back.index_copy_(dim, blk.reshape(-1), blk)
+                for d in range(shape[0]):
+                    only = tuple(e if i == dim else None
+                                 for i, e in enumerate(per))
+                    spec_blk = par.local_shard(whole, only, mesh,
+                                               coord=[d, r])
+                    if not torch.equal(spec_blk, blk):
+                        differ.add(leaf.name)
+            assert torch.equal(back, whole), (leaf.name, dim)
+        if not lay.whole:
+            assert lay.size == t.shape[lay.dim]
+    key = lambda nm: nm.split("/", 2)[2] if nm.startswith("stack/") else nm
+    assert {key(nm) for nm in differ} == set(sharding.departures(cfg, R))
+    for r in range(R):
+        heads = sharding.head_split(cfg, R, r)
+        if heads is not None:
+            hkv = heads.nq if heads.expand else len(heads.kv)
+            assert heads.nq % hkv == 0
+            assert len(heads.expand or heads.kv) <= heads.nq
+
+
+def test_departure_table_names_the_full_width_cases():
+    """The departures the docstring's table names, where the published
+    archs reach them: qwen2.5-3b's 2 kv heads and phi3-medium's 10 over 4
+    ranks, mamba's ``[x | z]`` (jamba, falcon-mamba), musicgen's four
+    codebooks; none for an arch whose kv heads split evenly."""
+    dep = {n: sharding.departures(get_arch(n), 4) for n in ARCHS}
+    for n in ("qwen2.5-3b", "phi3-medium-14b"):
+        assert set(dep[n]) == {"attn/wk", "attn/wv"} | (
+            {"attn/bk", "attn/bv"} if get_arch(n).qkv_bias else set())
+    assert "mamba/in_proj" in dep["jamba-v0.1-52b"]
+    assert set(dep["falcon-mamba-7b"]) == {"mamba/in_proj"}
+    assert set(dep["musicgen-medium"]) == {"lm_heads"}
+    assert dep["deepseek-67b"] == {} and dep["gemma-7b"] == {}
+    heads = sharding.head_split(get_arch("phi3-medium-14b"), 4, 1)
+    assert heads.kv == (2, 3, 4) and heads.expand is not None
+    assert sharding.head_split(get_arch("jamba-v0.1-52b"), 4, 1).expand \
+        is None
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-3b", "jamba-v0.1-52b"])
+def test_abstract_params_and_caches_of_a_rank(meshes, name):
+    """``abstract_params`` / ``abstract_caches`` with a mesh: this rank's
+    blocks of every parameter and cache (the executed layout of its model
+    axis), whole ones where the layout is whole."""
+    mesh, _ = meshes
+    cfg = get_arch(name)
+    axis = sharding.model_axis(mesh)
+    whole = factory.abstract_params(cfg)
+    mine = factory.abstract_params(cfg, mesh=mesh)
+    assert list(mine) == list(whole)
+    for n, t in whole.items():
+        lay = sharding.param_layout(cfg, n, t.ndim, axis.size)
+        assert tuple(mine[n].shape) == lay.shape(t.shape, axis.rank), n
+        assert mine[n].dtype == t.dtype and mine[n].device.type == "meta"
+    caches = factory.abstract_caches(cfg, 2, 64, mesh=mesh)
+    for c, w in zip(caches, factory.abstract_caches(cfg, 2, 64)):
+        if c is None:
+            continue
+        pairs = ([("attn", k, c[k], w[k]) for k in c] if isinstance(c, dict)
+                 else [("mamba", k, c[i], w[i])
+                       for i, k in enumerate(("conv", "ssm"))])
+        for kind, k, a, b in pairs:
+            lay = sharding.cache_layout(cfg, kind, k, axis.size)
+            assert tuple(a.shape) == lay.shape(b.shape, axis.rank)
+
+
 def test_exports_the_reference_names():
     """``repro_torch.parallel`` exports every name of the reference's
     ``__all__`` (``named`` maps specs to DTensor placements)."""

@@ -205,7 +205,23 @@ failure exits non-zero and no result line is printed:
                 ranks, against (b)'s one rank (losses within 3e-2, bf16),
                 its step, peak and moments per rank; the reduced qwen in
                 float32 (1e-5), its checkpoint restored on (4, 1) and
-                saved again byte for byte;
+                saved again byte for byte; (h) in the 4-rank world,
+                ``launch.dryrun.build_step`` for (g)'s model, batch and
+                optimizer on (data 2, model 2) with FSDP on (each rank
+                half of (g)'s parameters, gathered where used): 3 steps
+                against (g)'s losses (3e-2), the step, parameter, moment
+                and peak bytes a rank, and rank 0's collectives of a step
+                equal to the step's capture under a fake (2, 2) group in
+                this process; (i) in the same world, ``build_step``'s FSDP
+                prefill and decode of (a)'s jamba on (2, 2) against the
+                TP-only model on the same mesh (teacher-forced, 3e-2; bit
+                for bit on the CPU), prefill and decode step times; (j)
+                ``python -m repro_torch.launch.dryrun`` over four cells
+                on the host beside the ranks (a FSDP ``train_4k``,
+                ``llama4-maverick x train_4k`` with Adafactor, a
+                ``decode_32k`` and a ``long_500k``, on (16, 16) and (2,
+                16, 16)), its time and one line a cell (modelled H100
+                terms); no kernel launches in (h)-(j);
  16. the ``kernels`` JSON line (the bracket kernel's launches also by
      path, the advisor's among them; the LM kernels' launches of the
      forward and of serving; ``launches_train``, 0 for each;
@@ -2558,7 +2574,7 @@ def train_launchers():
 #: against scatter, bit for bit; (g) TP + DP + ZeRO-1 training on (2, 2)
 #: against (b)'s one rank, and the elastic restore (2, 2) -> (4, 1).
 PAR_RANKS, PAR_MESH = 4, (1, 4)
-PAR_TIMEOUT_S = 480
+PAR_TIMEOUT_S = 720
 PAR_TRAIN_LAYERS, PAR_TRAIN_STEPS, PAR_TRAIN_LR = 8, 3, 1e-4
 # the bf16 bound of tests/test_torch_models.py, on the loss and the aux
 # loss: tensor parallelism splits every row-parallel product into partial
@@ -2576,6 +2592,26 @@ RTOL_PAR_F32 = 1e-5
 RTOL_PAR_TRAIN, RTOL_PAR_TRAIN_F32 = 1e-3, 1e-6
 RTOL_PAR_TP_TRAIN, RTOL_PAR_TP_TRAIN_F32 = 3e-2, 1e-5
 PAR_TP_PROMPT, PAR_TP_CACHE, PAR_TP_DECODE = (2, 1024), 4096, 32
+#: (h) FSDP training: ``launch.dryrun.build_step`` for (g)'s model and
+#: batch on (data 2, model 2) in the 4-rank world, held against (g)'s
+#: losses by RTOL_PAR_TP_TRAIN; its executed collectives against its
+#: capture under a fake (2, 2) group in this process.  (i) FSDP serving:
+#: ``build_step`` prefill and decode of (a)'s jamba on (2, 2), fed (f)'s
+#: prompt shape, held against the TP-only model on the same mesh (the
+#: same weights gathered: bit for bit on the CPU; here within the bf16
+#: bound of (a), teacher-forced).  (j) the dry run on the host: its CLI
+#: over DRY_CELLS, started at the phase's start beside the ranks.
+PAR_FSDP_MESH = (2, 2)
+#: (i)'s decode steps: FSDP gathers every layer's weights each step
+#: (6.6 GB a rank through host memory under gloo: 14.9 s a step on the
+#: H100 machine, PERF.md), which the reference's serving avoids below 7e9
+#: bytes a rank
+PAR_FSDP_DECODE = 2
+DRY_CELLS = (("qwen2.5-3b", "decode_32k", False),
+             ("jamba-v0.1-52b", "long_500k", True),
+             ("gemma-7b", "train_4k", False),
+             ("llama4-maverick-400b-a17b", "train_4k", True))
+DRY_TIMEOUT_S = 900
 PAR_PIPE = dict(L=8, D=64, M=6, B=3, seed=0)
 PAR_WARM = 4096               # scenarios of the sweeps' untimed first call
 
@@ -2631,6 +2667,7 @@ def phase_parallel(torch, np, pt, card, cb):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     out = pathlib.Path(tempfile.mkdtemp(prefix="parallel-"))
+    dry = _start_dryrun(out / "dryrun")          # (j), beside the ranks
     cb_path = out / "bundle.pkl"
     # a fresh instance: the bundle without its cached device tensors
     cb_path.write_bytes(pickle.dumps(dataclasses.replace(cb)))
@@ -2648,7 +2685,9 @@ def phase_parallel(torch, np, pt, card, cb):
                             "gloo probe")
     seen = _rank_results(out, 2, "probe")
     direct = {k for k, v in seen[0].items() if v == "ok"}
-    assert set(transport.GLOO_CUDA) <= direct, (direct, seen)
+    assert set(transport.GLOO_CUDA) | {"all_gather_single",
+                                       "reduce_scatter_single"} <= direct, \
+        (direct, seen)
     assert rc != 0 and all(r["send/recv"] == "started" for r in seen), \
         (rc, seen)
     cause = [ln for ln in err.splitlines() if "gloo::IoException" in ln
@@ -2824,8 +2863,10 @@ def phase_parallel(torch, np, pt, card, cb):
         f"{e['aux_equal']}; launches {e['launches']}; routes {e['routes']}; "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # (b) training through the launcher
-    parallel_train(card)
+    # (b) training through the launcher, then (h) against (g)
+    g_losses = parallel_train(card)
+    parallel_fsdp(torch, card, ranks, g_losses)
+    _finish_dryrun(torch, card, dry)
     log(f"parallel: phase {time.perf_counter() - t_phase:.1f} s")
     return launches, errs
 
@@ -2897,7 +2938,7 @@ def parallel_train(card):
         f"max rel {rel:.3e} (bound {RTOL_PAR_TRAIN_F32}); saved on 2 ranks "
         f"at step 2, resumed on 1: step 3 loss {last['loss']:.8f} against "
         f"the uninterrupted {l1[3]:.8f} (rel {gap:.3e})")
-    parallel_tp_train(card, base, one_full, small, l1)
+    return parallel_tp_train(card, base, one_full, small, l1)
 
 
 def _four_ranks(args, what: str) -> list:
@@ -2938,6 +2979,7 @@ def parallel_tp_train(card, base, one, small, l1_small):
             f"bytes {mb:,} (1 rank {mb1:,}); peak "
             f"{(d['peak_bytes'] or 0) / 1e9:.3f} GB")
     log(f"parallel (g): {time.perf_counter() - t0:.1f} s of wall time")
+    g_losses = [h["loss"] for h in four[0]["history"]]
 
     ck = pathlib.Path(tempfile.mkdtemp(prefix="tp-elastic-"))
     four = _four_ranks(small + tp + ["--steps", "3", "--ckpt-dir",
@@ -2959,6 +3001,168 @@ def parallel_tp_train(card, base, one, small, l1_small):
         f"rank: max rel {rel:.3e} (bound {RTOL_PAR_TP_TRAIN_F32}); its step "
         f"2 checkpoint restored on (4, 1) and saved again: {len(same)} of "
         f"{len(files)} files equal byte for byte")
+    return g_losses
+
+
+def _kernel_counts() -> dict:
+    """Every kernel wrapper's launch counter in this process."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import halo_exchange as hx
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import sweep_bracket as sb
+    return {"fused_bracket_segsum": sb.fused_bracket_segsum.launches,
+            "segment_sum": sb.segment_sum.launches,
+            "halo_exchange": hx.ring_halo_exchange.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "mamba_scan": ms.mamba_scan.launches}
+
+
+def _fsdp_train_cfg():
+    """(g)'s model and batch: qwen2.5-3b at its widths, PAR_TRAIN_LAYERS
+    layers, 2 x 4,096 tokens, (g)'s optimizer."""
+    from repro_torch import configs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    return (configs.get_arch("qwen2.5-3b").replace(n_layers=PAR_TRAIN_LAYERS),
+            ShapeConfig("cli", "train", 4096, 2),
+            AdamWConfig(lr=PAR_TRAIN_LR, total_steps=PAR_TRAIN_STEPS))
+
+
+def parallel_fsdp(torch, card, ranks, g_losses):
+    """(h) and (i), from the world's ranks: (h)'s losses against (g)'s
+    (the same model, batch and optimizer through the launcher, TP only),
+    its executed collectives against the capture of the same step under a
+    fake (2, 2) group here; (i)'s trajectory against the TP-only model's.
+    No kernel launches in either, here or in the ranks."""
+    import torch.distributed as dist
+    from repro_torch.core import graph
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_ranks, make_mesh
+    from repro_torch.parallel import transport
+
+    for r in ranks:
+        h = r["fsdp_train"]
+        assert h["meta"]["fsdp"] and h["meta"]["n_micro"] == 1, h["meta"]
+        assert h["launches"] == h["launches_before"], h
+        rel = max(abs(a - b) / abs(b) for a, b in zip(h["losses"], g_losses))
+        assert rel <= RTOL_PAR_TP_TRAIN, (h["losses"], g_losses)
+        log(f"parallel (h) [{card}] rank {r['rank']}: build_step "
+            f"{h['meta']} on {PAR_FSDP_MESH} (FSDP + TP + ZeRO-1), "
+            f"{h['params'] / 1e9:.3f} B parameters a rank "
+            f"({h['param_bytes']:,} bytes; (g): 0.619 B), moments "
+            f"{h['moment_bytes']:,} bytes, built in {h['build_s']:.2f} s; "
+            f"losses {[round(x, 6) for x in h['losses']]}, max rel to "
+            f"(g)'s {rel:.3e} (bound {RTOL_PAR_TP_TRAIN}); step "
+            f"{statistics.median(h['step_s'][1:]):.4f} s (median of steps "
+            f"2-{PAR_TRAIN_STEPS}; first {h['step_s'][0]:.4f} s); peak "
+            f"{h['peak_bytes'] / 1e9:.3f} GB; collectives of step 1 by "
+            f"route {h['routes']}")
+    # the same step captured under a fake (2, 2) group: rank 0's view
+    cfg, shape, opt = _fsdp_train_cfg()
+    counts = _kernel_counts()
+    t0 = time.perf_counter()
+    init_fake_ranks(PAR_RANKS)
+    try:
+        mesh = make_mesh(PAR_FSDP_MESH, ("data", "model"), "cpu")
+        step, args, meta = dryrun.build_step(cfg, shape, mesh, opt_cfg=opt,
+                                             device="cpu", abstract=True)
+        captured = graph.capture(step, *args, fold=True)
+        want = transport.as_counted(captured.collectives())
+    finally:
+        dist.destroy_process_group()
+    assert _kernel_counts() == counts
+    got = {k: tuple(v) for k, v in ranks[0]["fsdp_train"]["executed"]
+           .items()}
+    assert got == want, (got, want)
+    log(f"parallel (h): rank 0's collectives of step 1 (calls, bytes put "
+        f"in) {got}, equal to the step's capture under a fake "
+        f"{PAR_FSDP_MESH} group ({sum(captured.ops.values()):,} ops, "
+        f"{time.perf_counter() - t0:.1f} s on the host)")
+
+    for r in ranks:
+        i = r["fsdp_serve"]
+        assert i["meta_prefill"]["fsdp"] and i["meta_decode"]["fsdp"], i
+        assert i["launches"] == i["launches_before"], i
+        assert i["rel"] <= RTOL_PAR_EP, i["rel"]
+        log(f"parallel (i) [{card}] rank {r['rank']}: build_step prefill "
+            f"and decode of {LM_ARCH} x {LM_LAYERS} (meta "
+            f"{i['meta_prefill']} / {i['meta_decode']}) on "
+            f"{PAR_FSDP_MESH}, {i['params'] / 1e9:.3f} B parameters a rank "
+            f"(TP only: {i['tp_params'] / 1e9:.3f} B); its row of "
+            f"{PAR_TP_PROMPT} prompt tokens into a {PAR_TP_CACHE} cache "
+            f"{i['prefill_ms']:.2f} ms (one prefill; TP only "
+            f"{i['tp_prefill_ms']:.2f} ms), "
+            f"{PAR_FSDP_DECODE} decode steps fed the TP-only run's tokens "
+            f"{i['decode_ms']:.2f} ms a step (TP only "
+            f"{i['tp_decode_ms']:.2f} ms); against the TP-only model on "
+            f"the same mesh: {i['equal_steps']} of {PAR_FSDP_DECODE + 1} "
+            f"steps' logits bit for bit, relative norm {i['rel']:.3e} "
+            f"(bound {RTOL_PAR_EP}), greedy tokens that agree "
+            f"{i['agree']} of {PAR_FSDP_DECODE + 1}; peak "
+            f"{i['peak_bytes'] / 1e9:.3f} GB")
+
+
+def _start_dryrun(out_dir):
+    """(j): the dry run's CLI over DRY_CELLS, one process after another in
+    a thread of this process, its records under ``out_dir``."""
+    import threading
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {"cells": [], "error": None}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            for arch, shape, multi in DRY_CELLS:
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out",
+                       str(out_dir)] + (["--multi-pod"] if multi else [])
+                t1 = time.perf_counter()
+                rc, stdout, err = _run_group(cmd, DRY_TIMEOUT_S,
+                                             f"dry run {arch} {shape}")
+                res["cells"].append((arch, shape, multi, rc, stdout,
+                                     err[-3000:],
+                                     time.perf_counter() - t1))
+        except Exception as e:                  # reported by _finish
+            res["error"] = repr(e)
+        res["wall_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, res, out_dir
+
+
+def _finish_dryrun(torch, card, dry):
+    """(j): wait for the CLI, print its time and one line a cell (the
+    roofline terms are modelled on the H100's spec, not measured)."""
+    thread, res, out_dir = dry
+    counts = _kernel_counts()
+    thread.join(DRY_TIMEOUT_S * len(DRY_CELLS))
+    assert not thread.is_alive(), "the dry run did not end"
+    assert res["error"] is None, res["error"]
+    assert _kernel_counts() == counts
+    log(f"parallel (j): the dry run's CLI over {len(DRY_CELLS)} cells took "
+        f"{res['wall_s']:.1f} s on this machine's host, beside the ranks "
+        f"(" + ", ".join(f"{a} x {s}{' (2 pods)' if m else ''} "
+                         f"{t:.1f} s" for a, s, m, _, _, _, t
+                         in res["cells"]) + ")")
+    for arch, shape, multi, rc, stdout, err, _ in res["cells"]:
+        assert rc == 0, (arch, shape, rc, err)
+        mesh = "2x16x16" if multi else "16x16"
+        rec = json.loads((out_dir / mesh / f"{arch}__{shape}.json")
+                         .read_text())
+        assert rec["status"] == "ok", rec
+        r, m = rec["roofline"], rec["memory"]
+        assert all(r[k] >= 0 for k in ("compute_s", "memory_s",
+                                       "collective_s")), r
+        line = next(ln for ln in stdout.splitlines()
+                    if ln.startswith("[ok]"))
+        log(f"parallel (j) [modelled on the H100 spec, not measured]: "
+            f"{line[7:]}; fsdp {rec['fsdp']}, optimizer "
+            f"{rec.get('optimizer', '-')}, n_micro {rec['n_micro']}, live "
+            f"{m['live_bytes'] / 1e9:.2f} GB a rank (analytic "
+            f"{m['analytic_live_bytes']['total'] / 1e9:.2f} GB), fits 80 "
+            f"GB {m['fits_hbm']}, collectives "
+            f"{ {k: v['count'] for k, v in rec['collectives'].items()} }")
 
 
 # ------------------------------------------------------------ rank programs
@@ -3057,7 +3261,7 @@ def _ep_forward(torch, dev, mesh, moe_impl, holding=True):
 
 
 def rank_world(out_dir):
-    """One rank of the 4-rank gloo world: (a), (c), (d)."""
+    """One rank of the 4-rank gloo world: (a), (f), (c), (d), (h), (i)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3074,12 +3278,165 @@ def rank_world(out_dir):
         res["ep_f32"] = rank_ep_f32(torch, dev)
         res["sweep"] = rank_sweep(torch, np, dev, rank, out_dir)
         res["pipe"] = rank_pipe(torch, np, dev)
+        res["fsdp_train"] = rank_fsdp_train(torch, dist, transport, dev)
+        res["fsdp_serve"] = rank_fsdp_serve(torch, dist, dev)
         res["routes"] = {f"{op} {r}": n
                          for (op, r), n in sorted(transport.routes.items())}
     finally:
         dist.destroy_process_group()
     (pathlib.Path(out_dir) / f"world{rank}.json").write_text(json.dumps(res))
     return 0
+
+
+def rank_fsdp_train(torch, dist, transport, dev):
+    """(h) ``launch.dryrun.build_step`` for (g)'s model, batch and
+    optimizer on (data 2, model 2): the meta (FSDP must be on: 1.24 GB of
+    bf16 parameters a ``model`` rank), PAR_TRAIN_STEPS steps of (g)'s
+    data stream, their losses and times, the bytes a rank holds, and the
+    collectives of the first step by route and in all."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import make_data
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_k = _kernel_counts()
+    cfg, shape, opt_cfg = _fsdp_train_cfg()
+    mesh = make_mesh(PAR_FSDP_MESH, ("data", "model"), "cuda")
+    t0 = time.perf_counter()
+    step, (params, opt, _), meta = dryrun.build_step(cfg, shape, mesh,
+                                                     opt_cfg=opt_cfg,
+                                                     device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    data = make_data(cfg, shape, seed=0, device=dev)
+    losses, times = [], []
+    for i in range(PAR_TRAIN_STEPS):
+        before = transport.snapshot()
+        routes = _collectives(transport)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, data.batch(i))
+        losses.append(float(m.loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            executed = transport.since(before)
+            by_route = _collectives(transport, routes)
+    info = {"meta": meta, "losses": losses, "step_s": times,
+            "build_s": build_s, "executed": executed, "routes": by_route,
+            "params": sum(p.numel() for p in step.model.parameters()),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in step.model.parameters()),
+            "moment_bytes": sum(x.numel() * x.element_size()
+                                for k in ("mu", "nu") for x in opt[k]),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches_before": before_k, "launches": _kernel_counts()}
+    del step, params, opt, m
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return info
+
+
+def rank_fsdp_serve(torch, dist, dev):
+    """(i) (a)'s jamba on (data 2, model 2): the TP-only model (built on
+    the mesh from the same seed, no FSDP) prefills this data rank's row of
+    (f)'s prompt into a PAR_TP_CACHE cache and decodes PAR_FSDP_DECODE
+    greedy steps; then ``build_step``'s FSDP prefill (its meta must say
+    FSDP: 13.3 GB of bf16 parameters a ``model`` rank, above 7e9) and its
+    decode step, fed the TP-only run's tokens, the caches carried from one
+    to the other: every step's logits against the TP-only model's."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.parallel import sharding, transport
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_k = _kernel_counts()
+    cfg = configs.get_arch(LM_ARCH).replace(n_layers=LM_LAYERS)
+    mesh = make_mesh(PAR_FSDP_MESH, ("data", "model"), "cuda")
+    data_rank = mesh.get_local_rank("data")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, PAR_TP_PROMPT, generator=gen,
+                           device=dev, dtype=torch.int32)
+    mine = prompt[data_rank:data_rank + 1]
+    # build_step's prefill overrides; at jamba's 32 heads the padding adds
+    # none, so the TP-only model decodes with the same weights
+    prefill_cfg = cfg.replace(attn_expand_kv=True, head_pad_multiple=16)
+    assert prefill_cfg.padded_heads == cfg.padded_heads
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # the TP-only model: (f)'s run on this mesh, greedy
+    with torch.inference_mode():
+        tp = make_model(prefill_cfg, moe_impl="ep_local", device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(0), mesh=mesh)
+        tp_params = tp.param_count()
+        (logits, caches), tp_prefill_ms = timed(
+            lambda: tp.prefill({"tokens": mine}, PAR_TP_CACHE))
+        tp.cfg = cfg                          # decode as build_step's does
+        want, toks, steps = [logits.float().cpu()], [logits.argmax(-1)], []
+        for i in range(PAR_FSDP_DECODE):
+            (logits, caches), ms_ = timed(lambda: tp.decode_step(
+                caches, {"tokens": toks[-1]}, PAR_TP_PROMPT[1] + i))
+            steps.append(ms_)
+            want.append(logits.float().cpu())
+            toks.append(logits.argmax(-1))
+    tp_decode_ms = statistics.median(steps)
+    del tp, logits, caches
+    torch.cuda.empty_cache()
+    # every step's tokens of both rows: the global decode batches
+    rows = transport.all_gather(torch.cat(toks, 1),
+                                sharding.axes_group(mesh, ("data",)))
+    glob = [rows[:, 0, j:j + 1] for j in range(PAR_FSDP_DECODE + 1)]
+
+    with torch.inference_mode():
+        step, _, meta_p = dryrun.build_step(
+            cfg, ShapeConfig("serve", "prefill", PAR_TP_CACHE,
+                             PAR_TP_PROMPT[0]), mesh, device=dev)
+        params = step.model.param_count()
+        (logits, caches), prefill_ms = timed(
+            lambda: step(None, {"tokens": prompt}))
+        del step
+        torch.cuda.empty_cache()
+        step, _, meta_d = dryrun.build_step(
+            cfg, ShapeConfig("serve", "decode", PAR_TP_CACHE,
+                             PAR_TP_PROMPT[0]), mesh, device=dev)
+        got, steps = [logits.float().cpu()], []
+        for i in range(PAR_FSDP_DECODE):
+            (logits, caches), ms_ = timed(lambda: step(
+                None, caches, {"tokens": glob[i]}, PAR_TP_PROMPT[1] + i))
+            steps.append(ms_)
+            got.append(logits.float().cpu())
+    del step, logits, caches
+    torch.cuda.empty_cache()
+    w, g = torch.cat([x.flatten() for x in want]), \
+        torch.cat([x.flatten() for x in got])
+    info = {"meta_prefill": meta_p, "meta_decode": meta_d,
+            "params": params, "tp_params": tp_params,
+            "prefill_ms": prefill_ms,
+            "decode_ms": statistics.median(steps),
+            "tp_prefill_ms": tp_prefill_ms, "tp_decode_ms": tp_decode_ms,
+            "equal_steps": sum(bool(torch.equal(a, b))
+                               for a, b in zip(got, want)),
+            "rel": _rel(torch, g, w),
+            "agree": sum(int((a.argmax(-1) == b.argmax(-1)).all())
+                         for a, b in zip(got, want)),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches_before": before_k, "launches": _kernel_counts()}
+    dist.barrier()
+    return info
 
 
 def _collectives(transport, before=None) -> dict:
@@ -3485,6 +3842,7 @@ def rank_probe(out_dir):
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_ranks
+    from repro_torch.parallel import transport
 
     dev = init_ranks("gloo", "cuda")
     rank, n = dist.get_rank(), dist.get_world_size()
@@ -3499,6 +3857,10 @@ def rank_probe(out_dir):
             torch.empty(16 * n, device=dev), torch.ones(16 * n, device=dev)),
         "broadcast": lambda: dist.broadcast(ones(), 0),
         "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+            ones(), torch.ones(16 * n, device=dev)),
+        "all_gather_single": lambda: transport._gather_single(
+            torch.empty(16 * n, device=dev), ones()),
+        "reduce_scatter_single": lambda: transport._scatter_single(
             ones(), torch.ones(16 * n, device=dev)),
         "all_to_all": lambda: dist.all_to_all([ones() for _ in range(n)],
                                               [ones() for _ in range(n)]),

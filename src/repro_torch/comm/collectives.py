@@ -14,6 +14,13 @@ rank's bytes.
 collectives of ``torch.distributed._functional_collectives``) to its
 ``(kind, per-rank result bytes, group size)``, named as in the HLO.
 ``wait_tensor`` is not an op, as an HLO ``-done`` is not.
+
+The port's parallel layer (``parallel.transport``) calls the in-place
+``torch.distributed`` API, which dispatches as the ``c10d::*_`` ops; each
+has its rule here too, with the bytes of the functional op it stands for
+(an ``allreduce_`` records what ``all_reduce`` records), and its group
+size from its process-group argument, so a step records the same
+collectives whichever API it was written in.
 """
 from __future__ import annotations
 
@@ -66,6 +73,24 @@ def _group_of(name: str) -> int:
     return _resolve_process_group(name).size()
 
 
+def _pg_size(args) -> int:
+    """The size of the process group among a ``c10d::*_`` op's arguments
+    (a ``ProcessGroup`` script object)."""
+    import torch.distributed as dist
+    for a in args:
+        if isinstance(a, torch.ScriptObject) and \
+                a._type().qualified_name().endswith(".ProcessGroup"):
+            return dist.ProcessGroup.unbox(a).size()
+    raise ValueError("no process group among the op's arguments")
+
+
+def _tensors(x) -> list:
+    """The tensors of a (nested) list argument."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for sub in x for t in _tensors(sub)]
+
+
 def _ppermute_rule(args, out):
     # no replica groups on a collective-permute: the HLO's group size 1
     ranks = math.prod(out.shape[:args[3]])
@@ -86,4 +111,22 @@ RULES = {
         lambda args, out: ("reduce-scatter", _nbytes(out), int(args[2])),
     "_c10d_functional::all_to_all_single":
         lambda args, out: ("all-to-all", _nbytes(out), _group_of(args[3])),
+    # the in-place API of parallel.transport: (outputs, inputs, group, ...)
+    "c10d::allreduce_":
+        lambda args, out: ("all-reduce", sum(map(_nbytes, args[0])),
+                           _pg_size(args)),
+    "c10d::allgather_":
+        lambda args, out: ("all-gather", sum(map(_nbytes,
+                                                 _tensors(args[0]))),
+                           _pg_size(args)),
+    "c10d::_allgather_base_":
+        lambda args, out: ("all-gather", _nbytes(args[0]), _pg_size(args)),
+    "c10d::_reduce_scatter_base_":
+        lambda args, out: ("reduce-scatter", _nbytes(args[0]),
+                           _pg_size(args)),
+    "c10d::reduce_scatter_":
+        lambda args, out: ("reduce-scatter", sum(map(_nbytes, args[0])),
+                           _pg_size(args)),
+    "c10d::alltoall_base_":
+        lambda args, out: ("all-to-all", _nbytes(args[0]), _pg_size(args)),
 }

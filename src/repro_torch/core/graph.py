@@ -40,18 +40,44 @@ tracing a graph costs several times the pass (about 1 ms a node against
   the same count off the graph).  It counts no fusion, so it is not the
   JAX package's CPU-HLO byte count and is not held to it.
 
+* folded loops (``capture(..., fold=True)``): a loop of identical
+  iterations written ``with folded(n) as k: for ... in items[:k]`` runs
+  once, and everything recorded in it counts ``n`` times (ops, flops,
+  bytes, collectives); what the other iterations would have kept (a list
+  of per-iteration outputs) the loop makes as stand-ins before the one
+  that runs (:func:`stand_ins`, recorded for memory only), so the peak is
+  the unrolled loop's; outside such a capture ``k`` is ``n``.  The train
+  step's microbatches are such a loop (their backward passes run inside
+  it), and so are, with grad disabled, the time steps of the plain SSM
+  scan and the tiles of the blockwise attention; under grad those run
+  unrolled, since their backward pass runs after the loop.  The graph
+  (:attr:`CapturedStep.graph_module`) then holds one iteration.
+* memory (:attr:`CapturedStep.peak_bytes`): the peak, over the pass, of
+  the bytes of the fake storages the step made and still held (each
+  storage from the op that first returned it until it was freed: an
+  activation autograd saved lives until the backward pass frees it), and
+  :attr:`CapturedStep.new_output_bytes`, the part of the step's outputs
+  it made (not an argument updated in place).  The arguments and what
+  ``fn`` holds are not counted: a storage first seen as an op's input was
+  there before the step.  It counts no allocator, no fusion and no
+  workspace.
+
 A captured step runs nothing, so the kernels' launch counters stay where
 they were: each kernel wrapper is a custom op whose fake version gives its
-shapes only, and a captured step holds it as one node.
+shapes only, and a captured step holds it as one node.  The parallel
+layer's counters (``parallel.transport.routes`` and ``volume``) stay too:
+a collective on fake tensors counts nothing.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import os
 import sysconfig
 import traceback
+import weakref
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
@@ -59,6 +85,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..comm import collectives
 from .hlo import CollectiveOp, RooflineTerms
@@ -108,29 +135,64 @@ class _Recorder(TorchDispatchMode):
         self.ops = collections.Counter()
         self.flops = collections.Counter()
         self.bytes = 0
+        self.live = self.peak = 0
+        self.weight = 1                       # folded() multiplies it
+        self.recorded = 0                     # collectives, unweighted
+        self._new: dict = {}                  # id -> weakref, made here
+        self._old = WeakIdKeyDictionary()     # storages from before
         self._formulas = FlopCounterMode(display=False).flop_registry
+
+    def is_new(self, t: torch.Tensor) -> bool:
+        """Whether ``t``'s storage was made during the pass."""
+        st = t.untyped_storage()
+        ref = self._new.get(id(st))
+        return ref is not None and ref() is st
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        if self.is_new(t) or st in self._old:
+            return
+        n = st.nbytes()
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        key = id(st)
+
+        def freed(_, key=key, n=n):
+            self.live -= n
+            self._new.pop(key, None)
+        self._new[key] = weakref.ref(st, freed)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        for t in pytree.tree_leaves((args, kwargs)):
+            if isinstance(t, torch.Tensor) and not self.is_new(t):
+                self._old[t.untyped_storage()] = True
         out = func(*args, **kwargs)
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._track(t)
         if func.namespace == "prim":          # metadata (prim::device)
             return out
         name = func.name()
         if name == "aten::lift_fresh":        # a tensor made from data;
             name = "aten::lift_fresh_copy"    # the graph records a copy
-        self.ops[name] += 1
+        w = self.weight
+        if not w:                             # stand-ins: memory only
+            return out
+        self.ops[name] += w
         if name == "aten::lift_fresh_copy" or not _is_view(func):
-            self.bytes += sum(_nbytes(t) for t in
-                              pytree.tree_leaves((args, kwargs, out)))
+            self.bytes += w * sum(_nbytes(t) for t in
+                                  pytree.tree_leaves((args, kwargs, out)))
         formula = self._formulas.get(func._overloadpacket)
         if formula is not None:
             first = next(t for t in pytree.tree_leaves(args)
                          if isinstance(t, torch.Tensor))
-            self.flops[str(first.dtype).removeprefix("torch.")] += formula(
-                *args, **kwargs, out_val=out)
+            self.flops[str(first.dtype).removeprefix("torch.")] += \
+                w * formula(*args, **kwargs, out_val=out)
         rule = collectives.RULES.get(name)
         if rule is not None:
-            self.calls.append((*rule(args, out), _user_stack()))
+            self.calls.extend([(*rule(args, out), _user_stack())] * w)
+            self.recorded += 1
         return out
 
 
@@ -161,6 +223,51 @@ def graph_bytes(gm: torch.fx.GraphModule) -> int:
 
 
 _MODE: list = []
+_FOLD: list = []          # the capture in progress folds loops (its pass
+_RECORDER: list = []      # records into the recorder here)
+
+
+@contextlib.contextmanager
+def folded(n: int, backward_inside: bool = True):
+    """A loop of ``n`` identical iterations: yields how many to run, ``n``,
+    or 1 inside a capture made with ``fold=True``, whose pass then counts
+    what the one iteration records ``n`` times (what the other iterations
+    would have kept, the loop makes with :func:`stand_ins`).
+    ``backward_inside=False``: the iterations' backward pass would run
+    after the loop (outside the weighting), so the loop folds only where
+    no graph is recorded (grad disabled)."""
+    if not _FOLD or n <= 1 or (not backward_inside
+                                and torch.is_grad_enabled()):
+        yield n
+        return
+    rec = _RECORDER[-1] if _RECORDER else None
+    if rec is None:                     # tracing the graph: one iteration
+        yield 1
+        return
+    rec.weight *= n
+    try:
+        yield 1
+    finally:
+        rec.weight //= n
+
+
+def stand_ins(k: int, shape, like: torch.Tensor) -> list:
+    """``k`` tensors of ``shape`` (``like``'s dtype and device) standing
+    for what the ``k`` iterations of a folded loop that do not run would
+    have kept (a loop's list of per-iteration outputs): one storage of
+    all of them, made before the iteration that runs, and recorded for
+    its memory only, so the pass's peak is the unrolled loop's."""
+    if k <= 0:
+        return []
+    rec = _RECORDER[-1] if _RECORDER else None
+    weight = rec.weight if rec is not None else None
+    if rec is not None:
+        rec.weight = 0
+    try:
+        return list(like.new_empty((k, *shape)).unbind(0))
+    finally:
+        if rec is not None:
+            rec.weight = weight
 
 
 def _fake_mode() -> FakeTensorMode:
@@ -208,14 +315,24 @@ class CapturedStep:
     model's weights, an engine's caches on the card); tracing the graph
     lets go of them."""
 
-    def __init__(self, name: str, fn, leaves, spec, slots, inputs):
+    def __init__(self, name: str, fn, leaves, spec, slots, inputs,
+                 fold: bool = False):
         self.name = name
         self._fn, self._leaves, self._spec = fn, leaves, spec
         self._slots, self._inputs = slots, inputs
         self._grad = torch.is_grad_enabled()
+        self._fold = fold
         rec = _Recorder()
-        with _fake_mode(), rec:
-            self._traced(*inputs)
+        with _folding(fold, rec), _fake_mode(), rec:
+            out = self._traced(*inputs)
+        self._recorded = rec.recorded
+        #: peak bytes of the storages the step made and held (see above)
+        self.peak_bytes = rec.peak
+        #: bytes of the step's output tensors that the step made
+        self.new_output_bytes = sum(
+            _nbytes(t) for t in pytree.tree_leaves(out)
+            if isinstance(t, torch.Tensor) and rec.is_new(t))
+        del out
         #: (kind, per-rank bytes, group, stack) of every collective call
         self.calls = rec.calls
         #: how often each op (``namespace::name``) ran in the step
@@ -237,15 +354,15 @@ class CapturedStep:
         """The step's FX graph (``make_fx`` under the same fake tensors,
         and the grad mode of the capture); the step lets go of ``fn`` and
         its inputs once it is traced."""
-        with torch.set_grad_enabled(self._grad):
+        with torch.set_grad_enabled(self._grad), _folding(self._fold):
             gm = make_fx(self._traced, tracing_mode="fake",
                          _allow_non_fake_inputs=True)(*self._inputs)
         self._fn = self._leaves = self._spec = self._inputs = None
         in_graph = sum(1 for n in gm.graph.nodes if n.op == "call_function"
                        and isinstance(n.target, torch._ops.OpOverload)
                        and n.target.name() in collectives.RULES)
-        if in_graph != len(self.calls):
-            raise RuntimeError(f"{self.name}: {len(self.calls)} collectives "
+        if in_graph != self._recorded:
+            raise RuntimeError(f"{self.name}: {self._recorded} collectives "
                                f"in the pass, {in_graph} in the graph")
         return gm
 
@@ -291,23 +408,56 @@ class CapturedStep:
         return self.graph_module.code
 
 
-def capture(fn, *args, name: str | None = None, **kwargs) -> CapturedStep:
+def _fake(t: torch.Tensor) -> FakeTensor:
+    """``t`` as a fake of the captures' mode.  A real one-element host
+    tensor (an optimizer's step count) keeps its value, so the host
+    arithmetic it feeds (a learning-rate schedule) runs as it would."""
+    mode = _fake_mode()
+    if isinstance(t, FakeTensor):
+        return t
+    if t.device.type == "cpu" and t.numel() == 1:
+        return mode.fake_tensor_converter.from_real_tensor(
+            mode, t, make_constant=True)
+    return mode.from_tensor(t)
+
+
+@contextlib.contextmanager
+def _folding(fold: bool, rec=None):
+    """Loops written with :func:`folded` fold (``fold``), into ``rec``."""
+    if not fold:
+        yield
+        return
+    _FOLD.append(True)
+    if rec is not None:
+        _RECORDER.append(rec)
+    try:
+        yield
+    finally:
+        _FOLD.pop()
+        if rec is not None:
+            _RECORDER.pop()
+
+
+def capture(fn, *args, name: str | None = None, fold: bool = False,
+            **kwargs) -> CapturedStep:
     """Record ``fn(*args, **kwargs)`` as a :class:`CapturedStep` without
     running it.  Tensors among the arguments (at any depth of lists,
     tuples, dicts and named tuples) become the step's inputs; everything
     else is taken as it is.  Real tensors become fake ones (as do those
     ``fn`` holds, such as a model's parameters), so nothing is executed or
-    allocated, and ``fn``'s in-place writes reach only the fakes.  The
-    step keeps the fakes of the arguments' tensors, not the tensors."""
+    allocated, and ``fn``'s in-place writes reach only the fakes (a real
+    one-element host tensor becomes a fake that keeps its value).  The
+    step keeps the fakes of the arguments' tensors, not the tensors.
+    ``fold``: loops written with :func:`folded` run once and count their
+    iterations (the module docstring)."""
     leaves, spec = pytree.tree_flatten((args, kwargs))
     slots = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
-    mode = _fake_mode()
-    inputs = [leaves[i] if isinstance(leaves[i], FakeTensor)
-              else mode.from_tensor(leaves[i]) for i in slots]
+    inputs = [_fake(leaves[i]) for i in slots]
     for i in slots:
         leaves[i] = None
     return CapturedStep(name or getattr(fn, "__name__", "step"), fn, leaves,
-                        spec, slots, inputs)
+                        spec, slots, inputs, fold)
 
 
-__all__ = ["CapturedStep", "abstract", "capture", "graph_bytes"]
+__all__ = ["CapturedStep", "abstract", "capture", "folded", "graph_bytes",
+           "stand_ins"]

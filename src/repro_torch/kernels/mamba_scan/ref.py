@@ -11,12 +11,16 @@ import torch
 def scan_steps(xf, dt, Bt, Ct, A, h):
     """The recurrence alone, one step at a time from the state ``h``:
     (h . Ct per step (B, L, d), the last h).  ``xf`` is float32."""
-    ys = []
-    for t in range(xf.shape[1]):
-        dtt = dt[:, t]
-        da = torch.exp(dtt[..., None] * A)                       # (B, d, N)
-        h = da * h + (dtt * xf[:, t])[..., None] * Bt[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, Ct[:, t]))
+    from ...core.graph import folded, stand_ins
+    L = xf.shape[1]
+    with folded(L, backward_inside=False) as run:   # a capture runs one
+        ys = stand_ins(L - run, (xf.shape[0], xf.shape[2]), xf)
+        for t in range(run):
+            dtt = dt[:, t]
+            da = torch.exp(dtt[..., None] * A)                   # (B, d, N)
+            h = da * h + (dtt * xf[:, t])[..., None] * Bt[:, t, None, :]
+            ys.append(torch.einsum("bdn,bn->bd", h, Ct[:, t]))
+            del da                      # no step's temporaries outlive it
     y = torch.stack(ys, 1) if ys else xf.new_zeros((xf.shape[0], 0,
                                                     xf.shape[2]))
     return y, h

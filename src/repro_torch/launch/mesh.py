@@ -79,6 +79,26 @@ def init_ranks(backend: str, device="cuda", *, init_method: str | None = None,
     return dev
 
 
+def init_fake_ranks(world_size: int, rank: int = 0) -> None:
+    """Join a fake process group of ``world_size`` ranks as ``rank``: no
+    peers and no transport, so collectives only trace (what a capture
+    needs to lay a step out on a production mesh, ``launch.dryrun``).  The
+    ``"fake"`` backend is registered here if nothing has registered it."""
+    from torch._C._distributed_c10d import FakeProcessGroup
+    if "FAKE" not in getattr(dist.Backend, "_plugins", {}):
+        def create(common_opts, backend_opts):
+            make = getattr(FakeProcessGroup, "_create_internal", None)
+            if make is not None:
+                return make(common_opts.group_rank, common_opts.group_size,
+                            backend_opts)
+            return FakeProcessGroup(common_opts.group_rank,
+                                    common_opts.group_size)
+        dist.Backend.register_backend("fake", create, extended_api=True,
+                                      devices=["cpu", "cuda"])
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
+                            world_size=world_size)
+
+
 def make_mesh(shape, axes, device_type: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialized
     process group, ranks in row-major order.  Raises if the group's world

@@ -16,6 +16,13 @@ reference pins the residual stream to its activation spec at each block
 boundary (``_pin_act``, a GSPMD hint); here the residual is whole on
 every model rank by construction (every row-parallel output is summed),
 so nothing stands in for it.
+
+FSDP: a layer whose parameters hold blocks over the data axes is read
+through ``parallel.fsdp.view``, which gathers each tensor whole on first
+use: ``stack_apply`` inside a pattern period's checkpointed ``_block``
+(the recompute gathers again in the backward pass, as XLA re-gathers a
+scanned layer, and only one period is whole at a time), ``stack_prefill``
+and ``stack_decode`` layer by layer.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel import sharding
+from ..parallel import fsdp, sharding
 from . import layers, mamba, moe
 from .config import ArchConfig
 
@@ -84,17 +91,21 @@ class Layer(layers.Params):
 def init_layer(cfg: ArchConfig, spec: LayerSpec, gen: torch.Generator,
                keep=layers.whole) -> Layer:
     dt = layers.dtype_of(cfg)
-    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    ones = lambda name: keep(name, torch.ones((cfg.d_model,), dtype=dt,
+                                              device=gen.device))
     p = {}
     if spec.mixer == "attn":
-        p.update(mixer_norm=ones(),
+        p.update(mixer_norm=ones("mixer_norm"),
                  attn=layers.init_attention(cfg, gen, keep))
     elif spec.mixer == "mamba":
-        p.update(mixer_norm=ones(), mamba=mamba.init_mamba(cfg, gen, keep))
+        p.update(mixer_norm=ones("mixer_norm"),
+                 mamba=mamba.init_mamba(cfg, gen, keep))
     if spec.ffn == "dense":
-        p.update(ffn_norm=ones(), mlp=layers.init_mlp(cfg, gen, keep=keep))
+        p.update(ffn_norm=ones("ffn_norm"),
+                 mlp=layers.init_mlp(cfg, gen, keep=keep))
     elif spec.ffn == "moe":
-        p.update(ffn_norm=ones(), moe=moe.init_moe(cfg, gen, keep=keep))
+        p.update(ffn_norm=ones("ffn_norm"),
+                 moe=moe.init_moe(cfg, gen, keep=keep))
     return Layer(spec, **p)
 
 
@@ -141,7 +152,7 @@ def _block(layers_, x, aux, cfg: ArchConfig, positions, use_kernel: bool,
            moe_impl: str, mesh=None):
     """The layers of one pattern period; the aux loss is carried through,
     as the reference's scan carries it."""
-    for layer in layers_:
+    for layer in map(fsdp.view, layers_):
         x, a = _apply_layer(layer, layer.spec, x, cfg, positions, use_kernel,
                             moe_impl, mesh)
         aux = aux + a
@@ -202,7 +213,7 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
     S = x.shape[1]
     tp = sharding.model_axis(mesh)
     caches = []
-    for layer in stack:
+    for layer in map(fsdp.view, stack):
         spec = layer.spec
         if spec.mixer == "attn":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
@@ -233,7 +244,7 @@ def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
     per_row = torch.is_tensor(pos) and pos.ndim == 1
     tp = sharding.model_axis(mesh)
     new_caches = []
-    for layer, c in zip(stack, caches):
+    for layer, c in zip(map(fsdp.view, stack), caches):
         spec = layer.spec
         if spec.mixer == "attn":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)

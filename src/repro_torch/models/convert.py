@@ -24,7 +24,10 @@ the reference's shape, ``Leaf.take`` cuts a whole value to the block and
 ``Leaf.gather`` puts the ranks' blocks back together (a collective).
 ``params_from_jax`` / ``caches_from_jax`` with a ``mesh`` carry the
 reference's whole leaves into a rank's blocks, ``params_to_jax`` gathers
-them back.
+them back.  Under FSDP (a model built with ``fsdp=True``) a leaf's tensors
+are also cut over the data axes (``Leaf.fsdp``, a
+``parallel.sharding.FsdpBlock`` of the executed ``model`` block): ``take``
+cuts both, ``gather`` gathers over the data axes, then over ``model``.
 """
 from __future__ import annotations
 
@@ -105,6 +108,7 @@ class Leaf:
     tensors: tuple
     layout: sharding.Layout = sharding.WHOLE
     axis: sharding.ModelAxis | None = None
+    fsdp: sharding.FsdpBlock | None = None
 
     @property
     def stacked(self) -> bool:
@@ -120,18 +124,26 @@ class Leaf:
     @property
     def whole_shape(self) -> tuple:
         """The reference leaf's shape."""
-        return self.layout.whole_shape(self.shape, int(self.stacked))
+        shape = self.shape
+        if self.fsdp is not None:
+            shape = self.fsdp.whole_shape(shape, int(self.stacked))
+        return self.layout.whole_shape(shape, int(self.stacked))
 
     def take(self, whole: torch.Tensor) -> torch.Tensor:
         """This rank's block of a tensor of the whole leaf's shape."""
-        if self.axis is None:
-            return whole
-        return self.layout.take(whole, self.axis.rank, int(self.stacked))
+        if self.axis is not None:
+            whole = self.layout.take(whole, self.axis.rank,
+                                     int(self.stacked))
+        if self.fsdp is not None:
+            whole = self.fsdp.take(whole, int(self.stacked))
+        return whole
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from every rank's block ``x`` (one all-gather over
-        the ``model`` group where the leaf is split; every rank calls
-        it)."""
+        """The whole leaf from every rank's block ``x``: one all-gather over
+        the data axes where the leaf has an FSDP block, then one over the
+        ``model`` group where it is split (every rank calls it)."""
+        if self.fsdp is not None:
+            x = self.fsdp.gather(x, int(self.stacked))
         if self.axis is None:
             return x
         return self.layout.gather(x, self.axis, int(self.stacked))
@@ -169,7 +181,7 @@ class Leaf:
             raise ValueError(f"{self.name}: value of shape "
                              f"{tuple(value.shape)}, leaf {self.shape}")
         for t, v in zip(self.tensors, self.parts(value)):
-            if v.data_ptr() != t.data_ptr():
+            if not t.is_set_to(v):
                 t.copy_(v)
 
     @property
@@ -192,20 +204,29 @@ def leaves_of(cfg: ArchConfig, named, axis=None) -> list:
     P = len(layer_pattern(cfg))
     groups: dict = {}
     layouts: dict = {}
+    blocks_: dict = {}
     R = 1 if axis is None else axis.size
     for name, t in named:
-        key = tuple(name.split("."))
+        key = leaf_path(cfg, name)
         lay = sharding.param_layout(cfg, name, t.ndim, R)
         if key[0] == "stack":
-            layer = int(key[1])
-            key = ("stack", layer % P, *key[2:])
-            groups.setdefault(key, {})[layer // P] = t
+            groups.setdefault(key, {})[int(name.split(".")[1]) // P] = t
         else:
             groups[key] = {0: t}
         layouts[key] = lay
+        blocks_[key] = getattr(t, "fsdp", None)
     return [Leaf(path, tuple(blocks[i] for i in range(len(blocks))),
-                 layouts[path], axis)
+                 layouts[path], axis, blocks_[path])
             for path, blocks in sorted(groups.items())]
+
+
+def leaf_path(cfg: ArchConfig, name: str) -> tuple:
+    """The reference leaf's path of the port parameter ``name``: layer
+    ``i``'s ``stack.i.attn.wq`` is ``("stack", i % P, "attn", "wq")``."""
+    key = tuple(name.split("."))
+    if key[0] == "stack":
+        return ("stack", int(key[1]) % len(layer_pattern(cfg)), *key[2:])
+    return key
 
 
 def params_to_jax(model) -> dict:
@@ -226,11 +247,12 @@ def _flatten(tree, prefix: str, out: dict) -> None:
         out[prefix[:-1]] = tree
 
 
-def params_from_jax(cfg: ArchConfig, tree, mesh=None) -> dict:
+def params_from_jax(cfg: ArchConfig, tree, mesh=None,
+                    fsdp: bool = False) -> dict:
     """The reference's parameter tree as a state dict of
     ``LanguageModel(cfg, ...)`` (load it with ``load_state_dict``); with a
-    ``mesh``, of ``LanguageModel(cfg, ..., mesh=mesh)``: each tensor this
-    rank's block."""
+    ``mesh``, of ``LanguageModel(cfg, ..., mesh=mesh, fsdp=fsdp)``: each
+    tensor this rank's block."""
     flat = {}
     for key, value in tree.items():
         if key != "stack":
@@ -250,13 +272,20 @@ def params_from_jax(cfg: ArchConfig, tree, mesh=None) -> dict:
             for i in range(nb):
                 flat[f"stack.{i * P + pos}.{name}"] = leaf[i]
     axis = sharding.model_axis(mesh)
+    from .lm import _block_of, fsdp_plan
+    plan = {}
+    if fsdp:
+        plan = fsdp_plan(cfg, mesh)
     out = {}
     for k, v in flat.items():
         t = to_tensor(v)
         if axis is not None:
-            lay = sharding.param_layout(cfg, k, t.ndim, axis.size)
-            t = lay.take(t, axis.rank).clone()
-        out[k] = t
+            t = sharding.param_layout(cfg, k, t.ndim, axis.size) \
+                .take(t, axis.rank)
+        blk = _block_of(plan, k)
+        if blk is not None:
+            t = blk.take(t)
+        out[k] = t.clone() if axis is not None or plan else t
     return out
 
 

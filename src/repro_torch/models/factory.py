@@ -39,40 +39,47 @@ def torch_device(device) -> torch.device:
 def make_model(cfg: ArchConfig, use_kernel: bool = False,
                moe_impl: str = "scatter", device="cuda",
                generator: torch.Generator | None = None,
-               mesh=None) -> LanguageModel:
+               mesh=None, fsdp: bool = False) -> LanguageModel:
     """The model with its weights drawn on ``device`` from ``generator``
     (a fresh one seeded with 0 when None; it must live on ``device``).
     ``mesh`` (a ``DeviceMesh``): tensor and expert parallelism over its
     ``model`` axis — each tensor is drawn whole from the same stream as
     the whole model's and cut to this rank's block at once, so a rank's
     weights equal the whole model's and only one tensor at a time is
-    ever whole."""
+    ever whole.  ``fsdp``: each block is also cut over the mesh's data
+    axes (``LanguageModel``), likewise at once."""
     dev = torch_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif torch.device(generator.device).type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
     return LanguageModel(cfg, generator, use_kernel=use_kernel,
-                         moe_impl=moe_impl, mesh=mesh)
+                         moe_impl=moe_impl, mesh=mesh, fsdp=fsdp)
 
 
-def abstract_params(cfg: ArchConfig, mesh=None) -> dict:
+def abstract_params(cfg: ArchConfig, mesh=None, fsdp: bool = False) -> dict:
     """``{name: meta tensor}`` for every parameter of ``cfg``'s model, in
     ``named_parameters`` order: names, shapes and dtypes without drawing
     or allocating a weight (the JAX package's ``abstract_params``).  The
     model is built under a fake mode, so a 13B-parameter config costs its
     shapes only.  With a ``mesh``: this rank's blocks
-    (``parallel.sharding.param_layout``)."""
+    (``parallel.sharding.param_layout``; with ``fsdp``, also cut over the
+    data axes, ``lm.fsdp_plan``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from .lm import _block_of, fsdp_plan
     with FakeTensorMode():
         model = LanguageModel(cfg, torch.Generator(device="cpu"))
     axis = sharding.model_axis(mesh)
+    plan = fsdp_plan(cfg, mesh) if fsdp else {}
     out = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
         if axis is not None:
             shape = sharding.param_layout(cfg, name, p.ndim, axis.size) \
                 .shape(shape, axis.rank)
+        blk = _block_of(plan, name)
+        if blk is not None:
+            shape = blk.shape(shape)
         out[name] = torch.empty(shape, dtype=p.dtype, device="meta")
     return out
 

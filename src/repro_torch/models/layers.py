@@ -128,8 +128,8 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator,
     zeros = lambda name, n: keep(name, torch.zeros((n,), dtype=dt,
                                                    device=gen.device))
     if cfg.fused_proj:
-        p = {"wqkv": torch.cat([wq, normal(gen, (d, 2 * nkv * hd), dt, s)],
-                               dim=1), "wo": wo}
+        p = {"wqkv": keep("attn.wqkv", torch.cat(
+            [wq, normal(gen, (d, 2 * nkv * hd), dt, s)], dim=1)), "wo": wo}
         if cfg.qkv_bias:
             p["bqkv"] = zeros("attn.bqkv", (nq_pad + 2 * nkv) * hd)
         return Params(**p)
@@ -226,6 +226,7 @@ def chunked_attention(q, k, v, causal: bool = True,
     (B, Hkv, g, q_block, kv_block) score tile; the running (max, denom, acc)
     carry is the standard online-softmax recurrence.
     """
+    from ..core.graph import folded, stand_ins
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -238,31 +239,40 @@ def chunked_attention(q, k, v, causal: bool = True,
     vc = v.reshape(B, nk, kb, Hkv, D).float()
     scale = 1.0 / math.sqrt(D)
     zero = q.new_zeros((), dtype=torch.float32)
-    outs = []
-    for qi in range(nq):
-        qblk = qg[:, qi]                                  # (B, qb, Hkv, g, D)
-        m = torch.full((B, Hkv, g, qb), -math.inf, device=q.device)
-        l = torch.zeros((B, Hkv, g, qb), device=q.device)
-        acc = torch.zeros((B, Hkv, g, qb, D), device=q.device)
-        for ki in range(nk):
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kc[:, ki]) * scale
-            if causal:
-                qpos = qi * qb + torch.arange(qb, device=q.device)
-                kpos = ki * kb + torch.arange(kb, device=q.device)
-                s = torch.where(qpos[:, None] >= kpos[None, :], s,
-                                zero - math.inf)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            # guard fully-masked rows (m_new == -inf)
-            safe_m = torch.where(torch.isfinite(m_new), m_new, zero)
-            p = torch.exp(s - safe_m[..., None])
-            p = torch.where(torch.isfinite(s), p, zero)
-            corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), zero)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] \
-                + torch.einsum("bhgqk,bkhd->bhgqd", p, vc[:, ki])
-            m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]   # (B, Hkv, g, qb, D)
-        outs.append(out.permute(0, 3, 1, 2, 4))            # (B, qb, Hkv, g, D)
+    # a capture with grad disabled runs one tile of each loop and counts
+    # it for all (core.graph.folded); the tiles differ in values only
+    with folded(nq, backward_inside=False) as run_q:
+        outs = stand_ins(nq - run_q, (B, qb, Hkv, g, D), qg)
+        for qi in range(run_q):
+            qblk = qg[:, qi]                              # (B, qb, Hkv, g, D)
+            m = torch.full((B, Hkv, g, qb), -math.inf, device=q.device)
+            l = torch.zeros((B, Hkv, g, qb), device=q.device)
+            acc = torch.zeros((B, Hkv, g, qb, D), device=q.device)
+            with folded(nk, backward_inside=False) as run_k:
+                for ki in range(run_k):
+                    s = torch.einsum("bqhgd,bkhd->bhgqk", qblk,
+                                     kc[:, ki]) * scale
+                    if causal:
+                        s = torch.where(
+                            (qi * qb + torch.arange(qb, device=q.device))
+                            [:, None] >= (ki * kb + torch.arange(
+                                kb, device=q.device))[None, :],
+                            s, zero - math.inf)
+                    m_new = torch.maximum(m, s.amax(dim=-1))
+                    # guard fully-masked rows (m_new == -inf)
+                    safe_m = torch.where(torch.isfinite(m_new), m_new, zero)
+                    p = torch.exp(s - safe_m[..., None])
+                    p = torch.where(torch.isfinite(s), p, zero)
+                    corr = torch.where(torch.isfinite(m),
+                                       torch.exp(m - safe_m), zero)
+                    l = l * corr + p.sum(dim=-1)
+                    acc = acc * corr[..., None] \
+                        + torch.einsum("bhgqk,bkhd->bhgqd", p, vc[:, ki])
+                    m = m_new
+                    del s, p, safe_m, corr, m_new    # no tile outlives its
+            out = acc / torch.clamp_min(l, 1e-30)[..., None]   # iteration
+            outs.append(out.permute(0, 3, 1, 2, 4))        # (B, qb, Hkv, g, D)
+            del m, l, acc, out
     out = torch.stack(outs, dim=1).reshape(B, S, Hq * D)
     return out.to(q.dtype)
 
@@ -376,7 +386,9 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator,
     down = keep("mlp.w_down", normal(
         gen, (f, d), dt, 1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers)))
     if cfg.fused_proj:
-        return Params(w_gateup=normal(gen, (d, 2 * f), dt, s), w_down=down)
+        return Params(w_gateup=keep("mlp.w_gateup",
+                                    normal(gen, (d, 2 * f), dt, s)),
+                      w_down=down)
     return Params(w_gate=keep("mlp.w_gate", normal(gen, (d, f), dt, s)),
                   w_up=keep("mlp.w_up", normal(gen, (d, f), dt, s)),
                   w_down=down)

@@ -14,12 +14,13 @@ Batch contracts (all values tensors on the model's device):
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
 
-from ..parallel import sharding, transport
+from ..parallel import fsdp, sharding, transport
 from . import blocks, layers, moe
 from .config import ArchConfig
 
@@ -38,11 +39,16 @@ class LanguageModel(nn.Module):
     query head, the dense MLP by ``d_ff`` column, mamba by ``d_inner``
     channel, the embedding and the head by vocabulary, and the MoE layers'
     E / R experts (``moe_impl="ep_local"``, which a MoE arch then needs).
-    The data axes do not change what a rank holds."""
+    Without ``fsdp`` the data axes do not change what a rank holds.
+
+    ``fsdp``: each tensor is also cut over the data axes of ``mesh``
+    (:func:`fsdp_plan`), its block set on the parameter as ``p.fsdp``; the
+    layers, the embedding, the head and the final norm gather it where they
+    use it (``parallel.fsdp``)."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  use_kernel: bool = False, moe_impl: str = "scatter",
-                 mesh=None):
+                 mesh=None, fsdp: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_kernel = use_kernel
@@ -50,6 +56,9 @@ class LanguageModel(nn.Module):
         self.mesh = mesh
         self.tp = tp = sharding.model_axis(mesh)
         self.vocab = sharding.vocab_block(cfg, tp)
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True needs a mesh with data axes")
+        plan = fsdp_plan(cfg, mesh) if fsdp else {}
         gen = generator
         dt = layers.dtype_of(cfg)
         keep = layers.whole
@@ -61,25 +70,37 @@ class LanguageModel(nn.Module):
                     f"dispatches to them (got {moe_impl!r})")
             if cfg.n_experts:
                 moe.expert_block(cfg, mesh)           # raises if E % R
+        if tp is not None or plan:
+            R = 1 if tp is None else tp.size
+            rank = 0 if tp is None else tp.rank
 
             def keep(name, t):
-                lay = sharding.param_layout(cfg, name, t.ndim, tp.size)
-                return t if lay.whole else lay.take(t, tp.rank).clone()
+                lay = sharding.param_layout(cfg, name, t.ndim, R)
+                blk = _block_of(plan, name)
+                if lay.whole and blk is None:
+                    return t
+                t = lay.take(t, rank)
+                return (t if blk is None else blk.take(t)).clone()
         self.embed = layers.init_embedding(cfg, gen, keep)
         self.stack = blocks.init_stack(cfg, gen, keep)
-        self.final_norm = nn.Parameter(
-            torch.ones((cfg.d_model,), dtype=dt, device=gen.device))
+        self.final_norm = nn.Parameter(keep("final_norm", torch.ones(
+            (cfg.d_model,), dtype=dt, device=gen.device)))
         if cfg.frontend == "vision":
-            self.mm_proj = nn.Parameter(layers.normal(
+            self.mm_proj = nn.Parameter(keep("mm_proj", layers.normal(
                 gen, (cfg.frontend_dim, cfg.d_model), dt,
-                1.0 / math.sqrt(cfg.frontend_dim)))
+                1.0 / math.sqrt(cfg.frontend_dim))))
         elif cfg.frontend == "audio":
-            self.frame_proj = nn.Parameter(layers.normal(
+            self.frame_proj = nn.Parameter(keep("frame_proj", layers.normal(
                 gen, (cfg.frontend_dim, cfg.d_model), dt,
-                1.0 / math.sqrt(cfg.frontend_dim)))
+                1.0 / math.sqrt(cfg.frontend_dim))))
             self.lm_heads = nn.Parameter(keep("lm_heads", layers.normal(
                 gen, (cfg.d_model, cfg.n_codebooks * cfg.vocab_size), dt,
                 1.0 / math.sqrt(cfg.d_model))))
+        if plan:
+            for name, p in self.named_parameters():
+                blk = _block_of(plan, name)
+                if blk is not None:
+                    p.fsdp = blk
 
     # ------------------------------------------------------------- embedding
     def _vocab_tp(self):
@@ -94,26 +115,27 @@ class LanguageModel(nn.Module):
         cfg = self.cfg
         dt = layers.dtype_of(cfg)
         tp, lo = self._vocab_tp()
+        embed = fsdp.view(self.embed)
         if cfg.frontend == "vision":
-            img = batch["image_embeds"].to(dt) @ self.mm_proj
-            txt = layers.embed(self.embed, batch["tokens"], tp, lo)
+            img = batch["image_embeds"].to(dt) @ fsdp.gather(self.mm_proj)
+            txt = layers.embed(embed, batch["tokens"], tp, lo)
             return torch.cat([img, txt], dim=1)
         if cfg.frontend == "audio":
-            return batch["frame_embeds"].to(dt) @ self.frame_proj
-        return layers.embed(self.embed, batch["tokens"], tp, lo)
+            return batch["frame_embeds"].to(dt) @ fsdp.gather(self.frame_proj)
+        return layers.embed(embed, batch["tokens"], tp, lo)
 
     def _head_local(self, x):
         """This rank's logits: its vocab block (per codebook for audio)
         where the vocabulary is split, else all of them."""
         cfg = self.cfg
         tp, lo = self._vocab_tp()
-        x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
+        x = layers.rms_norm(x, fsdp.gather(self.final_norm), cfg.norm_eps)
         if cfg.frontend == "audio":
             if tp is not None:
                 x = transport.sum_backward(x, tp.group)
-            logits = x @ self.lm_heads
+            logits = x @ fsdp.gather(self.lm_heads)
             return logits.reshape(*x.shape[:-1], cfg.n_codebooks, -1)
-        return layers.unembed(self.embed, x,
+        return layers.unembed(fsdp.view(self.embed), x,
                               vocab_size=cfg.vocab_size
                               if cfg.vocab_pad else None, tp=tp, lo=lo)
 
@@ -219,7 +241,9 @@ class LanguageModel(nn.Module):
         total = 0
         for name, p in self.named_parameters():
             lay = sharding.param_layout(self.cfg, name, p.ndim, R)
-            total += math.prod(lay.whole_shape(p.shape))
+            blk = getattr(p, "fsdp", None)
+            shape = p.shape if blk is None else blk.whole_shape(p.shape)
+            total += math.prod(lay.whole_shape(shape))
         return total
 
     def active_param_count(self) -> int:
@@ -235,3 +259,59 @@ class LanguageModel(nn.Module):
                 else:
                     total += p.numel()
         return total
+
+
+# --------------------------------------------------------------------- FSDP
+class _Sizes:
+    """A mesh's axis names and sizes, read as a ``DeviceMesh``'s by the
+    sharding rules (hashable, for the cache below)."""
+
+    def __init__(self, names, shape):
+        self.mesh_dim_names, self.shape = tuple(names), tuple(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _fsdp_specs(cfg: ArchConfig, names: tuple, shape: tuple) -> dict:
+    """``{short name: (the FSDP spec of its leaf, whether the leaf is
+    stacked)}`` of ``cfg``'s whole model on a mesh of these axes
+    (``sharding.fsdp_specs``), from a model built under a fake mode (no
+    weight drawn).  Every layer of a stacked leaf has its spec, so a stack
+    tensor is keyed by its name in the layer (``attn.wq``), as ``keep``
+    names it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from .convert import leaf_path, leaves_of
+    with FakeTensorMode():
+        model = LanguageModel(cfg, torch.Generator(device="cpu"))
+        named = list(model.named_parameters())
+    leaves = leaves_of(cfg, named)
+    whole = [sharding.WholeLeaf(leaf.path, leaf.shape) for leaf in leaves]
+    specs = dict(zip((leaf.path for leaf in leaves),
+                     sharding.fsdp_specs(whole, _Sizes(names, shape))))
+    return {short_name(name): (specs[leaf_path(cfg, name)],
+                               name.startswith("stack."))
+            for name, _ in named}
+
+
+def short_name(name: str) -> str:
+    """A parameter's name as the initialisers' ``keep`` gives it: a stack
+    tensor's without its ``stack.<i>.`` prefix."""
+    return name.split(".", 2)[2] if name.startswith("stack.") else name
+
+
+def fsdp_plan(cfg: ArchConfig, mesh) -> dict:
+    """``{short name: sharding.FsdpBlock or None}``: this rank's block over
+    ``mesh``'s data axes of each port tensor under FSDP (keyed as
+    :func:`short_name` keys it), with the data axes' process group (every
+    rank must ask at the same point: a group over several axes is made on
+    first use)."""
+    specs = _fsdp_specs(cfg, tuple(mesh.mesh_dim_names),
+                        tuple(int(n) for n in mesh.shape))
+    group = sharding.axes_group(mesh, sharding.data_axes(mesh))
+    coord = mesh.get_coordinate()
+    return {name: sharding.fsdp_block(s, stacked, mesh, coord, group)
+            for name, (s, stacked) in specs.items()}
+
+
+def _block_of(plan: dict, name: str):
+    """The block of parameter ``name`` (a full or short name) in ``plan``."""
+    return plan.get(short_name(name)) if plan else None

@@ -64,9 +64,31 @@ The fused ``wqkv`` / ``bqkv`` / ``w_gateup`` have no rule, so their spec
 and their block are the whole leaf; each rank multiplies by its own
 columns of it.  :func:`departures` names, for a model's leaves, the ones
 whose executed block differs from the spec's.
+
+FSDP (:func:`fsdp_specs`, :class:`FsdpBlock`): with FSDP on, a rank holds
+of each port tensor the block of the data-axes entry of
+``sanitize_pspecs(fsdp_pspecs(param_pspecs))`` (the reference's order,
+``launch/dryrun.py``), cut from its executed ``model`` block above; the
+layers gather it whole over the data axes where they use it
+(``parallel.fsdp``).  One departure:
+
+=================  ==========================  ===============================
+leaf               the spec's block            the executed block, and why
+=================  ==========================  ===============================
+a stacked leaf     ``n_blocks / n`` whole      whole over the data axes: the
+whose data entry   layers (a vector whose      port holds one tensor a layer,
+is on the stack    only free dim is the        and a layer held by one data
+dim                stack: ``bq``, ``D``, ...)  rank is no block to gather; its
+                                               gradient is all-reduced, its
+                                               moments are the spec's block
+                                               (ZeRO-1)
+=================  ==========================  ===============================
+
+:func:`fsdp_departures` names those leaves.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -755,4 +777,92 @@ def departures(cfg, R: int) -> dict:
             out["lm_heads"] = _REASONS["lm_heads"]
         elif V % R and K * V % R == 0:
             out["lm_heads"] = "codebook vocabulary does not split: whole"
+    return out
+
+
+# --------------------------------------------------------------------- FSDP
+def fsdp_specs(leaves, mesh) -> list:
+    """The specs of the FSDP + TP hybrid, as the reference's dry run lays
+    out its parameters when FSDP is on: ``sanitize_pspecs`` of
+    ``zero1_pspecs`` over the unsanitized ``param_pspecs`` of the whole
+    leaves (``zero1_pspecs`` sees the unsanitized spec: a dim whose
+    ``model`` entry the sanitizing drops is not free for the data axes)."""
+    return sanitize_pspecs(leaves, zero1_pspecs(leaves,
+                                                param_pspecs(leaves), mesh),
+                           mesh)
+
+
+def data_entry(s, mesh) -> tuple | None:
+    """``(dim, axes)`` of the entry of spec ``s`` on the data axes, or
+    ``None``."""
+    dp = set(data_axes(mesh))
+    for i, e in enumerate(s):
+        if set(axes_of(e)) & dp:
+            return i, axes_of(e)
+    return None
+
+
+@dataclass(frozen=True)
+class FsdpBlock:
+    """This rank's block of one port tensor under FSDP: the tensor (its
+    executed ``model`` block) split into ``count`` equal blocks along
+    ``dim``, this rank's at ``index``; ``axes`` are the data axes that
+    split it (first major) and ``group`` their process group, whose rank
+    order is the blocks' order."""
+
+    dim: int
+    axes: tuple
+    index: int
+    count: int
+    group: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+
+    def take(self, t: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """This rank's block of ``t`` (``offset``: leading dims before the
+        port tensor's, 1 for a stacked leaf): a view."""
+        dim = self.dim + offset
+        size = t.shape[dim] // self.count
+        return t.narrow(dim, self.index * size, size)
+
+    def shape(self, shape, offset: int = 0) -> tuple:
+        shape = list(shape)
+        shape[self.dim + offset] //= self.count
+        return tuple(shape)
+
+    def whole_shape(self, shape, offset: int = 0) -> tuple:
+        shape = list(shape)
+        shape[self.dim + offset] *= self.count
+        return tuple(shape)
+
+    def gather(self, t: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """The tensor whole over the data axes from every rank's block (one
+        all-gather; every rank of the group calls it)."""
+        return transport.all_gather_dim(t, self.group, self.dim + offset)
+
+
+def fsdp_block(s, stacked: bool, mesh, coord=None,
+               group=None) -> FsdpBlock | None:
+    """The executed :class:`FsdpBlock` of a port tensor of a leaf whose
+    FSDP spec is ``s`` (``stacked``: a stack leaf, whose spec's first
+    entry is ``n_blocks``): ``None`` where the spec has no data entry or
+    puts it on the stack dim (the departure of the module docstring)."""
+    de = data_entry(s, mesh)
+    if de is None or (stacked and de[0] == 0):
+        return None
+    dim, axes = de
+    coord = mesh.get_coordinate() if coord is None else coord
+    index, count = block_index(axes if len(axes) > 1 else axes[0], mesh,
+                               coord)
+    return FsdpBlock(dim - int(stacked), axes, index, count, group)
+
+
+def fsdp_departures(leaves, mesh) -> dict:
+    """``{leaf name: why}`` for the leaves (whole, as ``param_pspecs``
+    takes them) whose executed FSDP block departs from the spec's."""
+    out = {}
+    for leaf, s in zip(leaves, fsdp_specs(leaves, mesh)):
+        de = data_entry(s, mesh)
+        if de is not None and de[0] == 0 and leaf.path[0] == "stack":
+            out["/".join(map(str, leaf.path))] = (
+                "data axes on the stack dim: whole over the data axes")
     return out

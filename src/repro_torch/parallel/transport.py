@@ -20,7 +20,8 @@ send / receive of a CUDA tensor ends the process there (a
 refused the list form of all-to-all, which the port does not use.
 ``chip_smoke.py`` checks both on every run; ``routes`` counts the calls
 per (collective, route) and ``volume`` the bytes each rank put in, and it
-prints them.
+prints them.  A call on fake tensors (a capture, ``core.graph``) moves
+nothing and counts nothing.
 
 On one card shared by several gloo ranks these are the transport of the
 world, not a measure of NVLink or NCCL: every GEMM and kernel stays on
@@ -32,15 +33,62 @@ from collections import Counter
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 #: Collectives that gloo runs on CUDA tensors as they are.
 GLOO_CUDA = frozenset({"all_reduce", "all_gather", "all_to_all_single",
                        "broadcast", "reduce_scatter"})
 
+# the single-tensor all-gather and reduce-scatter under their current
+# names (older releases have only the ones newer releases deprecate)
+_gather_single = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_scatter_single = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
 #: Calls per (collective, route) in this process.
 routes: Counter = Counter()
 #: Bytes this rank put in per (collective, route) in this process.
 volume: Counter = Counter()
+
+
+#: The kind a capture records (``core.hlo`` names) of each collective
+#: counted here, and the factor from its per-rank result bytes to the
+#: bytes one rank puts in (the group size n: 1 / n, n or 1).
+KINDS = {"all_reduce": ("all-reduce", 0), "all_gather": ("all-gather", -1),
+         "reduce_scatter": ("reduce-scatter", 1)}
+
+
+def snapshot() -> tuple:
+    """The counters as they stand, for :func:`since`."""
+    return Counter(routes), Counter(volume)
+
+
+def since(before: tuple) -> dict:
+    """``{collective: (calls, bytes put in)}`` counted since ``before``
+    (:func:`snapshot`), over all routes."""
+    out: dict = {}
+    for (op, _), n in (routes - before[0]).items():
+        calls, nbytes = out.get(op, (0, 0))
+        out[op] = (calls + n, nbytes)
+    for (op, _), n in (volume - before[1]).items():
+        calls, nbytes = out.get(op, (0, 0))
+        out[op] = (calls, nbytes + n)
+    return out
+
+
+def as_counted(ops) -> dict:
+    """``{collective: (calls, bytes put in)}`` that one rank counts when it
+    runs the collectives ``ops`` (a captured step's ``CollectiveOp``s)."""
+    by_kind = {kind: (op, e) for op, (kind, e) in KINDS.items()}
+    out: dict = {}
+    for o in ops:
+        op, e = by_kind[o.kind]
+        per = o.result_bytes * o.group_size ** e
+        calls, nbytes = out.get(op, (0, 0))
+        n = int(round(o.multiplier))
+        out[op] = (calls + n, nbytes + int(round(per)) * n)
+    return out
 
 
 def route(op: str, t: torch.Tensor, group=None) -> str:
@@ -69,6 +117,8 @@ def through_host(fn, inputs, outputs):
 
 def _count(op: str, t: torch.Tensor, group) -> str:
     r = route(op, t, group)
+    if isinstance(t, FakeTensor):
+        return r
     routes[(op, r)] += 1
     volume[(op, r)] += t.numel() * t.element_size()
     return r
@@ -90,6 +140,32 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
     dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
     return out
+
+
+def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in group-rank order,
+    through one all-gather into a tensor (contiguous, as a tensor of that
+    shape held whole would be)."""
+    _count("all_gather", t, group)
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    _gather_single(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group``, of which this rank
+    keeps its block along ``dim`` (the group's ranks' equal blocks, in
+    group-rank order)."""
+    _count("reduce_scatter", t, group)
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    _scatter_single(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def shift(t: torch.Tensor, group, delta: int) -> torch.Tensor:

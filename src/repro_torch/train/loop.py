@@ -26,6 +26,13 @@ whole tensor is already the whole model's, on every rank.  A block two
 ranks share (a kv head) has its gradient summed over them in the
 backward pass (``sharding.shared_grad``).  The global norm counts every
 entry once (``optimizer.global_norm``).
+
+FSDP (the model built with ``fsdp=True``): a leaf with an FSDP block
+(``Leaf.fsdp``) gets its gradient reduce-scattered over the data ranks in
+the backward pass (``parallel.fsdp``), already summed: it skips the
+all-reduce of :func:`reduce_over_data` and is only divided by the data
+count.  Its AdamW moments are its block; Adafactor's statistics are the
+whole leaf's (``optimizer.adafactor_update``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..core import graph
 from ..parallel import sharding, transport
 from .optimizer import (AdamWConfig, adafactor_update, adamw_update,
                         zero1_blocks)
@@ -82,14 +90,22 @@ def loss_and_grads(loss_fn: Callable, params, batch: dict, n_micro: int = 1,
     acc = [torch.zeros(leaf.shape, dtype=accum_dtype, device=leaf.device)
            for leaf in params]
     loss_acc = torch.zeros((), dtype=torch.float32, device=acc[0].device)
-    for mb in _split_microbatches(batch, n_micro):
-        loss, parts = grads_of(mb)
-        for leaf, a, p in zip(params, acc, parts):
-            for dst, g in zip(leaf.parts(a), p):
-                dst.add_(g)
-        del parts
-        loss_acc += loss
+    mbs = _split_microbatches(batch, n_micro)
+    with graph.folded(n_micro) as run:        # one, in a folding capture
+        for mb in mbs[:run]:
+            loss, parts = grads_of(mb)
+            _accumulate(params, acc, parts)
+            loss_acc += loss
+            del loss, parts           # nothing outlives its microbatch
     return loss_acc / n_micro, [a.div_(n_micro) for a in acc]
+
+
+def _accumulate(params, acc, parts) -> None:
+    """Add one microbatch's gradients (``parts``: per leaf, one per port
+    tensor) into the buffers ``acc``."""
+    for leaf, a, p in zip(params, acc, parts):
+        for dst, g in zip(leaf.parts(a), p):
+            dst.add_(g)
 
 
 def data_group(mesh):
@@ -105,14 +121,18 @@ def local_batch(batch: dict, mesh) -> dict:
             for k, x in batch.items()}
 
 
-def reduce_over_data(loss, grads, group, n: int) -> tuple:
+def reduce_over_data(loss, grads, group, n: int, summed=None) -> tuple:
     """The loss and gradients summed in float32 over the data ranks (the
-    data group only, never ``model``) and divided by their count."""
+    data group only, never ``model``) and divided by their count.
+    ``summed[i]``: gradient ``i`` is already the sum over the data ranks
+    (an FSDP leaf's, reduce-scattered), so it is only divided."""
     loss = transport.all_reduce(loss.float().clone(), group) / n
     out = []
-    for g in grads:
+    for i, g in enumerate(grads):
         g = g.float() if g.dtype != torch.float32 else g
-        out.append(transport.all_reduce(g, group).div_(n))
+        if not (summed and summed[i]):
+            g = transport.all_reduce(g, group)
+        out.append(g.div_(n))
     return loss, out
 
 
@@ -131,16 +151,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     are a model built on it; the step then takes the GLOBAL batch.
     ``zero1``: AdamW's moments are this rank's blocks
     (``adamw_init(..., blocks=zero1_blocks(params, mesh))``); Adafactor's
-    state stays whole on every rank, and Adafactor does not run on a
-    ``model`` axis above 1 (its factored moments would be a block's)."""
+    state stays whole on every rank (the reference's replicated state),
+    its statistics summed over the ranks that split each leaf."""
     opt_update = {"adamw": adamw_update,
                   "adafactor": adafactor_update}[optimizer]
     if mesh is not None:
         group, n_data = data_group(mesh)
-        if optimizer == "adafactor" and sharding.model_axis(mesh):
-            raise NotImplementedError(
-                "Adafactor under tensor parallelism is not ported: its "
-                "row and column moments would be this rank's block's")
     use_blocks = mesh is not None and zero1 and optimizer == "adamw"
     blocks = None
 
@@ -152,9 +168,10 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
                                      accum_dtype)
         kw = {}
         if mesh is not None:
-            loss, grads = reduce_over_data(loss, grads, group, n_data)
-            if optimizer == "adamw":
-                kw["mesh"] = mesh
+            loss, grads = reduce_over_data(
+                loss, grads, group, n_data,
+                [leaf.fsdp is not None for leaf in params])
+            kw["mesh"] = mesh
         if use_blocks:
             if blocks is None:
                 blocks = zero1_blocks(params, mesh)

@@ -23,6 +23,16 @@ divide); each rank updates its block of the parameters and the blocks are
 all-gathered.  The arithmetic per element is the same as without it.
 Under tensor parallelism a leaf is already this rank's block over
 ``model`` (``Leaf.layout``); ZeRO-1 cuts that block over the data axes.
+Under FSDP a leaf with an FSDP block (``Leaf.fsdp``) is already cut over
+the data axes: its moments are that block (``zero1_pspecs`` leaves a
+data-sharded spec as it is), updated in place with no gather.
+
+Adafactor over ranks (``mesh=``): its row and column statistics are of the
+whole leaf, held whole on every rank (the reference's replicated state):
+each rank's block contributes its sums (an entry two ``model`` ranks hold
+weighted by one half), all-reduced over the ``model`` and data groups that
+split the leaf, and each rank cuts the whole statistics back to its
+block's rows and columns for its update.
 """
 from __future__ import annotations
 
@@ -97,17 +107,21 @@ def zero1_blocks(params, mesh) -> list:
     sanitized ``param_pspecs`` of the whole leaves, as the reference lays
     out its optimizer state (the dim a leaf's executed block splits over
     ``model`` is never picked: ``sharding.executed_pspecs``).  The block
-    is of this rank's value of the leaf, whole along that dim."""
+    is of this rank's value of the leaf, whole along that dim.  Under FSDP
+    the specs are the FSDP layout's (``sharding.fsdp_specs``), and a leaf
+    with an FSDP block gets ``None``: its value is its moments' block."""
     whole = [sharding.WholeLeaf(leaf.path, leaf.whole_shape)
              for leaf in params]
-    base = sharding.executed_pspecs(params, mesh)
+    fsdp = any(leaf.fsdp is not None for leaf in params)
+    base = sharding.fsdp_specs(whole, mesh) if fsdp \
+        else sharding.executed_pspecs(params, mesh)
     dp = sharding.data_axes(mesh)
     coord = mesh.get_coordinate()
     out = []
     for leaf, s in zip(params, sharding.zero1_pspecs(whole, base, mesh)):
         dims = [i for i, e in enumerate(s)
                 if set(sharding.axes_of(e)) & set(dp)]
-        if not dims:
+        if not dims or leaf.fsdp is not None:
             out.append(None)
             continue
         entry = s[dims[0]]
@@ -136,24 +150,38 @@ def global_norm(leaves, params=None, mesh=None) -> torch.Tensor:
     parallelism (``params``: the leaves' ``Leaf``s, blocks over ``mesh``'s
     ``model`` axis) the squares of the split leaves are summed over the
     ``model`` group, each entry weighted by 1 / the ranks holding it, and
-    the leaves whole on every rank are counted once."""
+    the leaves whole on every rank are counted once.  Under FSDP the
+    squares of the leaves with an FSDP block are also summed over the data
+    group."""
     axis = sharding.model_axis(mesh)
-    if axis is None or params is None \
-            or all(p.layout.whole for p in params):
+    fsdp = params is not None and mesh is not None \
+        and any(p.fsdp is not None for p in params)
+    if not fsdp and (axis is None or params is None
+                     or all(p.layout.whole for p in params)):
         norms = [torch.linalg.vector_norm(x, dtype=F32) for x in leaves]
         return torch.linalg.vector_norm(torch.stack(norms))
-    split, whole = [], []
+    # squares by (split over model, split over data)
+    sums = {(m, d): [] for m in (False, True) for d in (False, True)}
     for x, p in zip(leaves, params):
-        if p.layout.whole:
-            whole.append(torch.linalg.vector_norm(x, dtype=F32).square())
-            continue
-        w = p.layout.weights(axis.rank, x.ndim, int(p.stacked), x.device)
-        split.append((x.float().square() * w).sum())
-    total = sharding.transport.all_reduce(torch.stack(split).sum(),
-                                          axis.group)
-    if whole:
-        total = total + torch.stack(whole).sum()
-    return total.sqrt()
+        split = axis is not None and not p.layout.whole
+        if split:
+            w = p.layout.weights(axis.rank, x.ndim, int(p.stacked), x.device)
+            sq = (x.float().square() * w).sum()
+        else:
+            sq = torch.linalg.vector_norm(x, dtype=F32).square()
+        sums[(split, p.fsdp is not None)].append(sq)
+    total = {k: torch.stack(v).sum() if v else
+             torch.zeros((), dtype=F32, device=leaves[0].device)
+             for k, v in sums.items()}
+    over_model = torch.stack([total[(True, False)], total[(True, True)]])
+    if axis is not None:
+        sharding.transport.all_reduce(over_model, axis.group)
+    out = total[(False, False)] + over_model[0]
+    if fsdp:
+        over_data = total[(False, True)] + over_model[1]
+        out = out + sharding.transport.all_reduce(
+            over_data, sharding.axes_group(mesh, sharding.data_axes(mesh)))
+    return out.sqrt()
 
 
 def _clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
@@ -223,41 +251,50 @@ def _adamw_leaf(cfg, p, g, m, v, scale, bc1, bc2, wd, step_lr) -> None:
 def adafactor_init(params) -> dict:
     """Factored second moments (Shazeer & Stern, 2018): for a leaf of ndim
     >= 2, row and column statistics ``{"vr", "vc"}``; else ``{"v"}``; no
-    first moment."""
+    first moment.  Of the whole leaf (``Leaf.whole_shape``) where the
+    leaves are a rank's blocks."""
     def init(p):
         dev = p.device
-        if p.ndim >= 2:
-            return {"vr": torch.zeros(p.shape[:-1], dtype=F32, device=dev),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=F32,
+        shape = tuple(getattr(p, "whole_shape", p.shape))
+        if len(shape) >= 2:
+            return {"vr": torch.zeros(shape[:-1], dtype=F32, device=dev),
+                    "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=F32,
                                       device=dev)}
-        return {"v": torch.zeros(p.shape, dtype=F32, device=dev)}
+        return {"v": torch.zeros(shape, dtype=F32, device=dev)}
     return {"v": [init(p) for p in params], "count": _count()}
 
 
 @torch.no_grad()
 def adafactor_update(cfg: AdamWConfig, grads, state: dict, params,
-                     decay: float = 0.8):
+                     decay: float = 0.8, mesh=None):
     """One Adafactor step (the reference's simplified form: no update
     clipping, no relative lr).  A stacked leaf is factored as a whole,
     across its blocks where the port's tensor is a vector.  In place, as
-    :func:`adamw_update`."""
-    gnorm = global_norm(grads)
+    :func:`adamw_update`.  ``mesh``: the leaves are this rank's blocks
+    over its ``model`` axis and, under FSDP, its data axes; the statistics
+    are the whole leaf's (see the module docstring)."""
+    gnorm = global_norm(grads, params, mesh)
     scale = _clip_scale(cfg, gnorm)
     count = state["count"] + 1
     beta = float(1.0 - count.to(F32) ** -decay)
     lr = cosine_schedule(cfg, count)
     step_lr = float(lr)
     for leaf, grad, v in zip(params, grads, state["v"]):
+        blocks = _Placement(leaf, mesh)
         g = grad.float() * scale
         g2 = torch.square(g).add_(1e-30)
-        if leaf.ndim >= 2:
-            vr = _moment(v["vr"], beta, g2.mean(dim=-1))
-            vc = _moment(v["vc"], beta, g2.mean(dim=-2))
-            denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(vc.mean(dim=-1)[..., None, None],
+        n = leaf.ndim
+        if n >= 2:
+            vr = _moment(v["vr"], beta, blocks.mean(g2, n - 1))
+            vc = _moment(v["vc"], beta, blocks.mean(g2, n - 2))
+            denom = (blocks.cut(vr, {n - 1})[..., None]
+                     * blocks.cut(vc, {n - 2})[..., None, :]
+                     / torch.clamp(blocks.cut(vc.mean(dim=-1),
+                                              {n - 2, n - 1})[..., None, None],
                                    min=1e-30))
         else:
-            denom = _moment(v["v"], beta, g2)
+            denom = blocks.cut(_moment(v["v"], beta, blocks.mean(g2, None)),
+                               set())
         upd = g.mul_(torch.rsqrt(denom + 1e-30))
         del g2, denom
         p32 = leaf.value().float()
@@ -267,6 +304,81 @@ def adafactor_update(cfg: AdamWConfig, grads, state: dict, params,
         leaf.assign(p32.add_(upd, alpha=-step_lr))
     state["count"] = count
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+class _Placement:
+    """Where a leaf's value (this rank's block) sits in the whole leaf: the
+    dim its ``model`` block splits (with the entries the rank holds) and
+    the dim its FSDP block splits, both in the leaf's dims."""
+
+    def __init__(self, leaf, mesh):
+        off = int(leaf.stacked)
+        self.whole = leaf.whole_shape
+        axis = sharding.model_axis(mesh)
+        self.tp = None if axis is None or leaf.layout.whole \
+            else (leaf.layout.dim + off, leaf.layout, axis)
+        self.fs = None if leaf.fsdp is None \
+            else (leaf.fsdp.dim + off, leaf.fsdp)
+
+    def _weights(self, x, dim: int, keep: bool):
+        """x times 1 / (the ranks holding each entry) along the model
+        block's dim (``keep``: x lacks the summed dim ``dim``)."""
+        t, lay, axis = self.tp
+        w = lay.weights(axis.rank, 1, -lay.dim, x.device)
+        pos = t - (1 if keep and dim is not None and t > dim else 0)
+        shape = [1] * x.ndim
+        shape[pos] = -1
+        return x * w.reshape(shape)
+
+    def mean(self, x: torch.Tensor, dim) -> torch.Tensor:
+        """The whole leaf's mean of ``x`` (this rank's block of a tensor of
+        the leaf's shape) over leaf dim ``dim`` (``None``: no dim, the
+        whole tensor), on every rank."""
+        if self.tp is None and self.fs is None:
+            return x if dim is None else x.mean(dim=dim)
+        split = dim is not None and any(
+            b is not None and b[0] == dim for b in (self.tp, self.fs))
+        if split:
+            if self.tp is not None and self.tp[0] == dim:
+                x = self._weights(x, dim, keep=False)
+            part = x.sum(dim=dim) / self.whole[dim]
+        else:
+            part = x if dim is None else x.mean(dim=dim)
+        if self.tp is not None and self.tp[0] != dim:
+            part = self._weights(part, dim, keep=True)
+        shape = [n for i, n in enumerate(self.whole) if i != dim]
+        out = part.new_zeros(shape)
+        place = out
+        if self.fs is not None and self.fs[0] != dim:
+            f, blk = self.fs
+            pos = f - (1 if dim is not None and f > dim else 0)
+            size = self.whole[f] // blk.count
+            place = place.narrow(pos, blk.index * size, size)
+        if self.tp is not None and self.tp[0] != dim:
+            t, lay, axis = self.tp
+            pos = t - (1 if dim is not None and t > dim else 0)
+            place.index_add_(pos, lay._index(axis.rank, x.device), part)
+        else:
+            place.copy_(part)
+        if self.tp is not None:
+            sharding.transport.all_reduce(out, self.tp[2].group)
+        if self.fs is not None:
+            sharding.transport.all_reduce(out, self.fs[1].group)
+        return out
+
+    def cut(self, x: torch.Tensor, dropped: set) -> torch.Tensor:
+        """This rank's block of ``x``, a whole tensor over the leaf's dims
+        but ``dropped``."""
+        def pos(d):
+            return d - sum(1 for e in dropped if e < d)
+        if self.fs is not None and self.fs[0] not in dropped:
+            f, blk = self.fs
+            size = self.whole[f] // blk.count
+            x = x.narrow(pos(f), blk.index * size, size)
+        if self.tp is not None and self.tp[0] not in dropped:
+            t, lay, axis = self.tp
+            x = x.index_select(pos(t), lay._index(axis.rank, x.device))
+        return x
 
 
 # ------------------------------------------------------- int8 compression

@@ -321,44 +321,153 @@ def tp_decode(shape, names):
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
-def dp_train(arch, zero1, steps, seq, shape=None):
+def _train_model(cfg, mesh, tp, fsdp, optimizer, zero1):
+    """(model, leaves, optimizer state, ZeRO-1 blocks) of a reduced arch."""
+    from repro_torch.models import make_model
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.train.optimizer import (adafactor_init, adamw_init,
+                                             zero1_blocks)
+    model = make_model(cfg, device="cpu", mesh=mesh if tp else None,
+                       moe_impl="ep_local" if tp and cfg.n_experts
+                       else "scatter", fsdp=fsdp,
+                       generator=torch.Generator().manual_seed(0))
+    params = reference_leaves(model)
+    if optimizer == "adafactor":
+        return model, params, adafactor_init(params), None
+    blocks = zero1_blocks(params, mesh) if zero1 else None
+    return model, params, adamw_init(params, blocks=blocks), blocks
+
+
+def _captured_schedule(cfg, mesh, fsdp, optimizer, zero1, batch):
+    """The collectives one rank counts for one train step, from a capture
+    of the step on a model built under the captures' fake mode (no weight
+    drawn): ``transport.as_counted`` of its ``CollectiveOp``s."""
+    from repro_torch.core import graph
+    from repro_torch.parallel import transport
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+    model, params, opt, _ = graph.abstract(_train_model, cfg, mesh, True,
+                                           fsdp, optimizer, zero1)
+    opt["count"] = torch.zeros((), dtype=torch.int32)
+    step = make_train_step(model.loss, AdamWConfig(**TRAIN_OPT), mesh=mesh,
+                           zero1=zero1, optimizer=optimizer)
+    return transport.as_counted(graph.capture(step, params, opt, batch)
+                                .collectives())
+
+
+def dp_train(arch, zero1, steps, seq, shape=None, fsdp=False,
+             optimizer="adamw", schedule=False):
     """``steps`` DP (+ ZeRO-1) train steps of a reduced arch over a (world,
     1) mesh (or a (data, model) mesh of ``shape``, tensor parallel, the
-    model built on it), one row per data rank: losses, the whole leaves
-    after (gathered), and this rank's moment bytes."""
+    model built on it; ``fsdp``: also cut over the data axes), one row per
+    data rank: losses, the whole leaves after (gathered), and this rank's
+    moment bytes.  ``schedule``: also the collectives the first step
+    counted (``transport.since``) and those of its capture."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import make_model
     from repro_torch.models.config import ShapeConfig
-    from repro_torch.models.convert import reference_leaves
+    from repro_torch.parallel import transport
     from repro_torch.train import make_data
     from repro_torch.train.loop import make_train_step
-    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
-                                             zero1_blocks)
+    from repro_torch.train.optimizer import AdamWConfig
     n = dist.get_world_size()
     cfg = get_arch(arch).reduced()
     tp = shape is not None
     mesh = _mesh(shape if tp else (n, 1))
     n = mesh.size(0)
-    model = make_model(cfg, device="cpu", mesh=mesh if tp else None,
-                       moe_impl="ep_local" if tp and cfg.n_experts
-                       else "scatter",
-                       generator=torch.Generator().manual_seed(0))
-    params = reference_leaves(model)
-    blocks = zero1_blocks(params, mesh) if zero1 else None
-    opt = adamw_init(params, blocks=blocks)
+    model, params, opt, blocks = _train_model(cfg, mesh, tp, fsdp,
+                                              optimizer, zero1)
     step = make_train_step(model.loss, AdamWConfig(**TRAIN_OPT), mesh=mesh,
-                           zero1=zero1)
+                           zero1=zero1, optimizer=optimizer)
     data = make_data(cfg, ShapeConfig("t", "train", seq, n), seed=0,
                      device="cpu")
+    out = {}
+    if schedule:
+        out["captured"] = _captured_schedule(cfg, mesh, fsdp, optimizer,
+                                             zero1, data.batch(0))
     losses = []
     for i in range(steps):
+        before = transport.snapshot()
         params, opt, m = step(params, opt, data.batch(i))
+        if i == 0 and schedule:
+            out["executed"] = transport.since(before)
         losses.append(float(m.loss))
-    return {"losses": losses,
-            "leaves": [leaf.gather(leaf.value()).numpy() for leaf in params],
-            "moment_bytes": sum(x.numel() * x.element_size()
-                                for k in ("mu", "nu") for x in opt[k]),
-            "sharded": sum(b is not None for b in blocks or [])}
+    state = [x for k in ("mu", "nu") for x in opt.get(k, [])] + \
+        [x for v in opt.get("v", []) for x in v.values()]
+    out.update({"losses": losses,
+                "leaves": [leaf.gather(leaf.value()).numpy()
+                           for leaf in params],
+                "moment_bytes": sum(x.numel() * x.element_size()
+                                    for x in state),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in model.parameters()),
+                "n_fsdp": sum(leaf.fsdp is not None for leaf in params),
+                "sharded": sum(b is not None for b in blocks or [])})
+    return out
+
+
+def fsdp_model(shape, names):
+    """Each arch of ``names`` built on a (data, model) mesh of ``shape``
+    twice from seed 0, tensor parallel and with FSDP: the logits of this
+    rank's rows, a prefill of a (2, 12) prompt and 8 greedy decode steps
+    (every step's logits), and the gathered parameters, each pair compared
+    bit for bit; the FSDP state dict against ``params_from_jax(...,
+    fsdp=True)`` of the whole model's parameters."""
+    from repro_torch.models import make_inputs, make_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import (params_from_jax, params_to_jax,
+                                            reference_leaves)
+    from repro_torch.train.loop import local_batch
+    mesh = _mesh(shape)
+    prompt = torch.tensor(np.random.default_rng(7).integers(
+        0, 256, TP_PROMPT), dtype=torch.int32)
+    out = {}
+    for name in names:
+        cfg = _tp_cfg(name)
+        models = [make_model(cfg, device="cpu", mesh=mesh, fsdp=f,
+                             moe_impl="ep_local" if cfg.n_experts
+                             else "scatter",
+                             generator=torch.Generator().manual_seed(0))
+                  for f in (False, True)]
+        b = local_batch(make_inputs(cfg, ShapeConfig("t", "train", 32,
+                                                     2 * shape[0]),
+                                    device="cpu"), mesh)
+        runs = []
+        with torch.no_grad():
+            for model in models:
+                logits, _ = model(b)
+                lg, caches = model.prefill({"tokens": prompt}, TP_MAX_LEN)
+                steps, toks = [lg], [lg.argmax(-1)]
+                for i in range(TP_NEW - 1):
+                    lg, caches = model.decode_step(
+                        caches, {"tokens": toks[-1]}, TP_PROMPT[1] + i)
+                    steps.append(lg)
+                    toks.append(lg.argmax(-1))
+                runs.append((logits, torch.stack(steps),
+                             torch.cat(toks, 1)))
+        whole = [params_to_jax(m) for m in models]
+        same_params = all(np.array_equal(a, c) for a, c in zip(
+            *(jax_leaves(w) for w in whole)))
+        loaded = params_from_jax(cfg, whole[0], mesh, fsdp=True)
+        mine = models[1].state_dict()
+        out[name] = {
+            "logits_equal": torch.equal(runs[0][0], runs[1][0]),
+            "decode_equal": torch.equal(runs[0][1], runs[1][1]),
+            "tokens_equal": torch.equal(runs[0][2], runs[1][2]),
+            "params_equal": same_params,
+            "loaded_equal": loaded.keys() == mine.keys() and all(
+                torch.equal(loaded[k], mine[k]) for k in mine),
+            "n_fsdp": sum(leaf.fsdp is not None
+                          for leaf in reference_leaves(models[1])),
+            "counts": [m.param_count() for m in models],
+            "whole_counts": [m.whole_param_count() for m in models]}
+    return out
+
+
+def jax_leaves(tree) -> list:
+    """The numpy leaves of a nested parameter tree, in ``jax.tree`` order
+    (``models.convert.flatten``)."""
+    from repro_torch.models.convert import flatten
+    return [leaf for _, leaf in flatten(tree)]
 
 
 def elastic(directory):
@@ -477,5 +586,5 @@ def world(rank, n, **kw):
 PARTS = {"pipeline": pipeline, "compressed": compressed, "ep_moe": ep_moe,
          "ep_grads": ep_grads, "dp_train": dp_train, "elastic": elastic,
          "sweep": sweep, "tp_model": tp_model, "tp_decode": tp_decode,
-         "tp_elastic": tp_elastic}
+         "tp_elastic": tp_elastic, "fsdp_model": fsdp_model}
 TASKS = {"world": world}

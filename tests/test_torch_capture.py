@@ -18,7 +18,9 @@ Held here:
   loads), and nothing else;
 * functional ``all_reduce`` / ``all_gather`` / ``reduce_scatter`` under a
   fake 4-rank process group against ``psum`` / ``all_gather`` /
-  ``psum_scatter`` in ``shard_map``;
+  ``psum_scatter`` in ``shard_map``; the in-place API the parallel layer
+  calls (``parallel.transport``) recorded as the functional form records
+  the same step, and leaving the transport's counters alone;
 * the flops of the scanned ``tanh(x @ w)`` (2 M K K L on both sides) and of
   the static engine's steps, and the port's byte count on a three-node
   graph, pinned by hand.
@@ -278,6 +280,62 @@ def test_all_to_all_and_wait_are_recorded_alike(fake_group):
             for o in step.collectives()] == [("all-to-all", M * N * 4, 4,
                                               1.0)]
     assert "wait_tensor" in step.as_text()
+
+
+def _transport_step(t, group):
+    """all-reduce, all-gather (list form and into one tensor, along dim 1)
+    and a reduce-scatter along dim 1, through ``parallel.transport``."""
+    from repro_torch.parallel import transport
+    x = transport.all_reduce(t.clone(), group)
+    y = transport.all_gather(x, group)
+    z = transport.all_gather_dim(x, group, 1)
+    w = transport.reduce_scatter_dim(z, group, 1)
+    return w.sum() + y.sum()
+
+
+def _functional_step(t, group):
+    """:func:`_transport_step` written with the functional collectives."""
+    import torch.distributed._functional_collectives as fc
+    x = fc.all_reduce(t, "sum", group)
+    y = fc.all_gather_tensor(x, 0, group)
+    z = fc.all_gather_tensor(x.movedim(1, 0).contiguous(), 0, group)
+    w = fc.reduce_scatter_tensor(z, "sum", 0, group)
+    return w.sum() + y.sum()
+
+
+def test_transport_collectives_record_as_functional_ones(fake_group):
+    """The in-place ``c10d::*_`` ops that ``parallel.transport`` reaches
+    record the same ``(kind, result bytes, group, multiplier)`` as the
+    functional collectives of the same step, in the same order."""
+    t = torch.zeros(M, N)
+    got = capture(lambda x: _transport_step(x, fake_group), t)
+    want = capture(lambda x: _functional_step(x, fake_group), t)
+    sig = [(o.kind, o.result_bytes, o.group_size, o.multiplier)
+           for o in got.collectives()]
+    assert sig == [(o.kind, o.result_bytes, o.group_size, o.multiplier)
+                   for o in want.collectives()]
+    assert sig == [("all-reduce", M * N * 4, 4, 1.0),
+                   ("all-gather", 4 * M * N * 4, 4, 1.0),
+                   ("all-gather", 4 * M * N * 4, 4, 1.0),
+                   ("reduce-scatter", M * N * 4, 4, 1.0)]
+    assert {"c10d::allreduce_", "c10d::allgather_",
+            "c10d::_allgather_base_", "c10d::_reduce_scatter_base_"} \
+        <= set(got.ops)
+    got.graph_module          # the graph holds the same four collectives
+
+
+def test_capture_leaves_transport_counters_alone(fake_group):
+    """A capture runs nothing, so ``transport.routes`` and ``volume`` do
+    not move; ``transport.as_counted`` gives what a run would count."""
+    from repro_torch.parallel import transport
+    before = transport.snapshot()
+    step = capture(lambda x: _transport_step(x, fake_group),
+                   torch.zeros(M, N))
+    assert transport.snapshot() == before
+    assert transport.since(before) == {}
+    assert transport.as_counted(step.collectives()) == {
+        "all_reduce": (1, M * N * 4), "all_gather": (2, 2 * M * N * 4),
+        "reduce_scatter": (1, 4 * M * N * 4)}
 
 
 def test_scanned_matmul_flops_match():

@@ -25,6 +25,10 @@ rank programs) against the JAX package on the same numpy inputs:
 * the DP + ZeRO-1 train step of the reduced qwen2.5-3b and jamba on 2 and
   4 data ranks, and TP + DP + ZeRO-1 on (2, 2), against the port's 1-rank
   step;
+* FSDP on (2, 2): the forward, prefill and decode bit for bit against the
+  TP-only model, FSDP + ZeRO-1 steps against TP + ZeRO-1 (1e-6), the
+  captured collective schedule against the executed one, and Adafactor on
+  (1, 4) and (2, 2) against one rank;
 * the elastic restore (saved on (1, 4), restored on (2, 2)), and
   ``launch.train``'s checkpoints across (2, 2) and (4, 1) (tensor
   parallel and not), byte for byte;
@@ -65,8 +69,8 @@ from repro_torch.models.config import ShapeConfig
 from repro_torch.models.convert import params_to_jax, reference_leaves
 from repro_torch.train import make_data
 from repro_torch.train.loop import make_train_step
-from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
-                                         cosine_schedule)
+from repro_torch.train.optimizer import (AdamWConfig, adafactor_init,
+                                         adamw_init, cosine_schedule)
 
 sys.path.insert(0, os.path.dirname(__file__))
 import _torch_ranks as ranks                             # noqa: E402
@@ -84,6 +88,8 @@ TP_NAMES = sorted(ARCHS) + ["irregular", "fused"]
 TP_ROWS, TP_SEQ = 2, 32               # rows of each data shard, sequence
 TP_DECODE = ("qwen2.5-3b", "jamba-v0.1-52b", "falcon-mamba-7b")
 TP_TRAIN_MESH, TP_TRAIN_STEPS = (2, 2), 3
+FSDP_NAMES = ("qwen2.5-3b", "jamba-v0.1-52b")
+ADAFACTOR_MESHES = ((1, 4), (2, 2))
 # float32 bounds: the logits and each gradient leaf at 1e-4 (of the leaf's
 # largest magnitude: entries near zero are sums of terms that cancel,
 # rounded in another order once the row-parallel sums are split over
@@ -157,11 +163,24 @@ def _parts(n, tmp):
                   {"shape": TP_MESHES[n][0], "names": TP_DECODE}))
     if n == 4:
         parts.append(("tp_elastic", {"directory": str(tmp / "tp_ckpt")}))
+        parts.append(("fsdp_model:(2, 2)", {"shape": TP_TRAIN_MESH,
+                                            "names": FSDP_NAMES}))
         for arch in TRAIN_ARCHS:
             parts.append((f"dp_train:tp:{arch}",
                           {"arch": arch, "zero1": True,
                            "steps": TP_TRAIN_STEPS, "seq": TRAIN_SEQ,
                            "shape": TP_TRAIN_MESH}))
+            parts.append((f"dp_train:fsdp:{arch}",
+                          {"arch": arch, "zero1": True,
+                           "steps": TP_TRAIN_STEPS, "seq": TRAIN_SEQ,
+                           "shape": TP_TRAIN_MESH, "fsdp": True,
+                           "schedule": True}))
+            for shape in ADAFACTOR_MESHES:
+                parts.append((f"dp_train:adafactor:{shape}:{arch}",
+                              {"arch": arch, "zero1": False,
+                               "steps": TRAIN_STEPS, "seq": TRAIN_SEQ,
+                               "shape": shape, "fsdp": shape[0] > 1,
+                               "optimizer": "adafactor"}))
     for arch in TRAIN_ARCHS:
         for zero1 in (True, False):
             parts.append((f"dp_train:{arch}:{zero1}",
@@ -327,28 +346,29 @@ def test_ep_local_gradients_match_single_process_scatter(worlds, n, shape):
 _ONE_RANK: dict = {}
 
 
-def _one_rank(arch, n, steps=TRAIN_STEPS):
+def _one_rank(arch, n, steps=TRAIN_STEPS, optimizer="adamw"):
     """The port's 1-rank step over the global batch of ``n`` rows in ``n``
     microbatches (microbatch j = row j, data rank j's row)."""
-    if (arch, n, steps) not in _ONE_RANK:
+    if (arch, n, steps, optimizer) not in _ONE_RANK:
         cfg = get_arch(arch).reduced()
         model = make_model(cfg, device="cpu",
                            generator=torch.Generator().manual_seed(0))
         params = reference_leaves(model)
-        opt = adamw_init(params)
+        opt = adamw_init(params) if optimizer == "adamw" \
+            else adafactor_init(params)
         step = make_train_step(model.loss, AdamWConfig(**ranks.TRAIN_OPT),
-                               n_micro=n)
+                               n_micro=n, optimizer=optimizer)
         data = make_data(cfg, ShapeConfig("t", "train", TRAIN_SEQ, n),
                          seed=0, device="cpu")
         losses = []
         for i in range(steps):
             params, opt, m = step(params, opt, data.batch(i))
             losses.append(float(m.loss))
-        _ONE_RANK[(arch, n, steps)] = (
+        _ONE_RANK[(arch, n, steps, optimizer)] = (
             losses, [leaf.value().numpy() for leaf in params],
             sum(x.numel() * x.element_size()
-                for k in ("mu", "nu") for x in opt[k]))
-    return _ONE_RANK[(arch, n, steps)]
+                for k in ("mu", "nu") for x in opt.get(k, [])))
+    return _ONE_RANK[(arch, n, steps, optimizer)]
 
 
 @pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "replicated"])
@@ -521,6 +541,95 @@ def test_tp_dp_zero1_train_steps_match_one_rank(worlds, arch):
         assert n_close >= 0.999 * n_all, n_close / n_all
         assert got["sharded"] > 0
         assert got["moment_bytes"] < moment_bytes / 2
+
+
+def _close_or_sign(got, want, lr_sum):
+    """The TP training rule (``test_tp_dp_zero1_train_steps_match_one_rank``):
+    every entry within 2 x the summed learning rates, and at least 99.9%
+    of all entries at rtol 1e-6 with an atol of 1e-6 of the leaf's
+    magnitude."""
+    n_close = n_all = 0
+    for a, b in zip(got, want):
+        diff = np.abs(a - b)
+        assert float(diff.max()) <= 2 * lr_sum * (1 + 1e-6)
+        tight = 1e-6 * np.abs(b) + 1e-6 * float(np.abs(b).max())
+        n_close += int((diff <= tight).sum())
+        n_all += diff.size
+    assert n_close >= 0.999 * n_all, n_close / n_all
+
+
+# ------------------------------------------------------------------- FSDP
+@pytest.mark.parametrize("name", FSDP_NAMES)
+def test_fsdp_forward_prefill_and_decode_equal_tp_only(worlds, name):
+    """On (data 2, model 2), the model built with FSDP (each block also
+    cut over ``data``, gathered where it is used) against the TP-only
+    model from the same seed, float32: the logits of each rank's rows, the
+    prefill's and all 8 decode steps' logits and the greedy tokens bit for
+    bit (the gathered weights are the very tensors TP holds); the gathered
+    parameters equal; ``params_from_jax(..., fsdp=True)`` gives the FSDP
+    model's state dict; each rank holds half of TP's parameters."""
+    for res in worlds[4]:
+        got = _part(res, "fsdp_model:(2, 2)")[name]
+        for key in ("logits_equal", "decode_equal", "tokens_equal",
+                    "params_equal", "loaded_equal"):
+            assert got[key], key
+        assert got["n_fsdp"] > 0
+        tp, fs = got["counts"]
+        assert fs < 0.55 * tp
+        assert got["whole_counts"][0] == got["whole_counts"][1]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_fsdp_zero1_train_steps_match_tp_zero1(worlds, arch):
+    """Three FSDP + ZeRO-1 steps on (2, 2) against the TP + ZeRO-1 steps
+    of the same world: losses at 1e-6 and every gathered leaf at rtol 1e-6
+    with an atol of 1e-6 of its magnitude (the DP bound); an FSDP leaf's
+    moments are its block (as many moment bytes as ZeRO-1's), and the
+    parameters a rank holds are about half of TP's."""
+    for res in worlds[4]:
+        got = _part(res, f"dp_train:fsdp:{arch}")
+        want = _part(res, f"dp_train:tp:{arch}")
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
+        for a, b in zip(got["leaves"], want["leaves"]):
+            np.testing.assert_allclose(a, b, rtol=1e-6,
+                                       atol=1e-6 * float(np.abs(b).max()))
+        assert got["n_fsdp"] > 0
+        assert got["moment_bytes"] == want["moment_bytes"]
+        assert got["param_bytes"] < 0.55 * want["param_bytes"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_fsdp_captured_schedule_equals_the_executed_one(worlds, arch):
+    """The (2, 2) FSDP step captured under the captures' fake mode (a model
+    built with no weight drawn) records the collectives that one rank's
+    first real step counted in ``parallel.transport``: the same calls and
+    bytes of each all-gather, reduce-scatter and all-reduce."""
+    for res in worlds[4]:
+        got = _part(res, f"dp_train:fsdp:{arch}")
+        assert got["captured"] == got["executed"]
+        assert {"all_gather", "reduce_scatter", "all_reduce"} <= \
+            set(got["executed"])
+
+
+@pytest.mark.parametrize("shape", ADAFACTOR_MESHES, ids=["1x4", "2x2"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_adafactor_over_ranks_matches_one_rank(worlds, arch, shape):
+    """Two Adafactor steps on (1, 4) (tensor parallel) and on (2, 2) (TP +
+    FSDP) against one rank's: losses at 1e-5; the parameters (gathered) by
+    the TP training rule.  Adafactor's update is normalised, so an entry
+    whose gradient is rounding noise (the key bias's, zero in exact
+    arithmetic; a bias started at zero) moves by up to lr a step either
+    way; the row and column statistics are summed over the ranks in
+    another order."""
+    losses, leaves, _ = _one_rank(arch, shape[0], TRAIN_STEPS, "adafactor")
+    opt = AdamWConfig(**ranks.TRAIN_OPT)
+    lr_sum = sum(float(cosine_schedule(opt, i + 1))
+                 for i in range(TRAIN_STEPS))
+    for res in worlds[4]:
+        got = _part(res, f"dp_train:adafactor:{shape}:{arch}")
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+        _close_or_sign(got["leaves"], leaves, lr_sum)
+        assert got["n_fsdp"] > 0 if shape[0] > 1 else got["n_fsdp"] == 0
 
 
 def test_tp_elastic_restore_is_exact(worlds):

@@ -1,0 +1,271 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the JAX
+package's ``repro.launch.dryrun``, on the CPU.
+
+The reference's compiled programs are no oracle here (its dry-run tests
+fail on this jax: its meshes have Explicit axes), so what is held is its
+pure-Python half, function by function:
+
+* ``default_n_micro``, ``dp_of`` and ``_mesh_name`` for every arch x shape
+  on (16, 16) and (2, 16, 16) (the reference's side takes an
+  ``AbstractMesh``; the port's a ``DeviceMesh`` under a fake process group
+  of the mesh's size);
+* ``build_step``'s ``meta`` (``fsdp``, ``optimizer``, ``n_micro``) against
+  the reference's decisions (``fsdp_pspecs`` at 1e9 / 7e9 over the prefill
+  overrides' parameters, Adafactor above 1e11 parameters);
+* a record's ``analytic`` and ``memory.analytic_live_bytes`` against the
+  reference's ``cell_summary`` / ``analytic_live_bytes`` at rtol 1e-12,
+  and its key set against the reference's (written out from its
+  ``run_cell``), with the one rename;
+* ``run_cell`` on every reduced arch x the three kinds at (2, 4), the
+  reference test's shape, and one full-width ``decode_32k`` cell at
+  (16, 16);
+* the folded capture (one microbatch of a train step, one time step of the
+  scan and one tile of the blockwise attention with grad disabled) against
+  the unrolled one: the same record;
+* ``layout="fsdp_seq"`` raises.
+
+Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` for 512 host devices;
+the module restores it at once, so later JAX subprocesses of this worker
+see the environment they had."""
+import contextlib
+import functools
+import json
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch.distributed as dist
+
+_FLAGS = os.environ.get("XLA_FLAGS")
+import repro.launch.dryrun as ref_dryrun                  # noqa: E402
+if _FLAGS is None:
+    os.environ.pop("XLA_FLAGS", None)
+else:
+    os.environ["XLA_FLAGS"] = _FLAGS
+
+from jax.sharding import AbstractMesh                    # noqa: E402
+
+from repro import parallel as ref_par                    # noqa: E402
+from repro.configs import ARCHS as REF_ARCHS             # noqa: E402
+from repro.core import analytic as ref_analytic          # noqa: E402
+from repro.models import factory as ref_factory          # noqa: E402
+from repro_torch.configs import ARCHS, SHAPES, cell_applicable  # noqa: E402
+from repro_torch.launch import dryrun                    # noqa: E402
+from repro_torch.launch.mesh import init_fake_ranks, make_mesh  # noqa: E402
+from repro_torch.models.config import ShapeConfig        # noqa: E402
+
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+          "2x4": ((2, 4), ("data", "model"))}
+PRODUCTION = ["16x16", "2x16x16"]
+REDUCED_SHAPES = [ShapeConfig("train_4k", "train", 64, 8),
+                  ShapeConfig("prefill", "prefill", 64, 8),
+                  ShapeConfig("decode", "decode", 64, 8)]
+
+#: The reference's record keys (``repro/launch/dryrun.py``, ``run_cell``),
+#: ``live_bytes_tpu_estimate`` renamed ``live_bytes_device_estimate``.
+RECORD_KEYS = {"arch", "shape", "mesh", "kind", "status", "fsdp", "n_micro",
+               "lower_s", "compile_s", "memory", "cost_raw", "analytic",
+               "roofline", "collectives"}
+MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+               "live_bytes", "cpu_f32_twin_bytes",
+               "live_bytes_device_estimate", "analytic_live_bytes",
+               "fits_hbm_parsed", "fits_hbm"}
+ROOFLINE_KEYS = {"flops", "hbm_bytes", "wire_bytes", "compute_s", "memory_s",
+                 "collective_s", "dominant", "step_time_s",
+                 "parsed_hbm_bytes_upper", "model_flops_per_chip",
+                 "useful_flops_ratio"}
+
+
+@contextlib.contextmanager
+def _world(name):
+    """(port DeviceMesh under a fake process group of the mesh's size,
+    reference AbstractMesh); the group ends with the block."""
+    shape, axes = MESHES[name]
+    init_fake_ranks(math.prod(shape))
+    try:
+        yield make_mesh(shape, axes, "cpu"), AbstractMesh(shape, axes)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cells():
+    return [(cfg, shape) for cfg in ARCHS.values()
+            for shape in SHAPES.values() if cell_applicable(cfg, shape)]
+
+
+@pytest.mark.parametrize("mesh_name", PRODUCTION)
+def test_mesh_helpers_match_the_reference(mesh_name):
+    with _world(mesh_name) as (mesh, amesh):
+        assert dryrun._mesh_name(mesh) == ref_dryrun._mesh_name(amesh)
+        assert dryrun.dp_of(mesh) == ref_dryrun.dp_of(amesh)
+        for cfg, shape in _cells():
+            assert dryrun.default_n_micro(cfg, shape, mesh) == \
+                ref_dryrun.default_n_micro(REF_ARCHS[cfg.name], shape,
+                                           amesh), (cfg.name, shape.name)
+    assert dryrun.RESIDUAL_BUDGET_BYTES == ref_dryrun.RESIDUAL_BUDGET_BYTES
+    assert str(dryrun.DEFAULT_OUT) == "experiments/dryrun_torch"
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_params(cfg):
+    return ref_factory.abstract_params(cfg)
+
+
+def _reference_meta(name, shape, amesh):
+    """What the reference's ``build_step`` decides for a cell, from its
+    own functions (its jit is never called)."""
+    import jax
+    cfg = REF_ARCHS[name]
+    if shape.kind == "prefill" and cfg.n_heads and cfg.n_kv_heads:
+        cfg = cfg.replace(attn_expand_kv=True, head_pad_multiple=16)
+    params = _ref_params(cfg)
+    threshold = 1.0e9 if shape.kind == "train" else 7.0e9
+    _, fsdp = ref_par.fsdp_pspecs(params, ref_par.param_pspecs(params), amesh,
+                                  threshold=threshold)
+    meta = {"fsdp": fsdp, "n_micro": 1}
+    if shape.kind == "train":
+        big = sum(x.size for x in jax.tree.leaves(params)) > 1e11
+        meta.update(optimizer="adafactor" if big else "adamw",
+                    n_micro=ref_dryrun.default_n_micro(cfg, shape, amesh))
+    return meta
+
+
+@pytest.mark.parametrize("mesh_name", PRODUCTION)
+def test_build_step_meta_matches_the_reference(mesh_name):
+    """Every cell's ``meta`` on the production mesh: FSDP, the optimizer
+    (``llama4-maverick`` trains with Adafactor) and the microbatches."""
+    seen = set()
+    with _world(mesh_name) as (mesh, amesh):
+        for cfg, shape in _cells():
+            _, _, meta = dryrun.build_step(cfg, shape, mesh, device="cpu",
+                                           abstract=True)
+            assert meta == _reference_meta(cfg.name, shape, amesh), \
+                (cfg.name, shape.name)
+            seen.add((meta["fsdp"], meta.get("optimizer")))
+    assert (True, "adafactor") in seen and (True, "adamw") in seen
+
+
+def _hold_record(rec, rcfg, shape, mesh):
+    """The record's keys (the reference's, one renamed) and its analytic
+    fields against the reference's functions on ``rcfg``."""
+    dp = dryrun.dp_of(mesh)
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    _close(rec["analytic"], ref_analytic.cell_summary(
+        rcfg, shape, dp, tp, n_micro=rec["n_micro"]))
+    foot = ref_analytic.analytic_live_bytes(
+        rcfg, shape, dp, tp, n_micro=rec["n_micro"], fsdp=rec["fsdp"],
+        optimizer=rec.get("optimizer", "adamw"))
+    _close(rec["memory"]["analytic_live_bytes"],
+           {k: int(v) for k, v in foot.items()})
+    assert set(rec) - {"optimizer", "retries"} == RECORD_KEYS
+    assert set(rec["memory"]) == MEMORY_KEYS
+    assert set(rec["roofline"]) == ROOFLINE_KEYS
+    assert set(rec["cost_raw"]) == {"flops", "bytes_accessed"}
+
+
+def _close(got, want):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _close(got[k], want[k])
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_full_width_decode_cell():
+    """``qwen2.5-3b x decode_32k`` at full width on (16, 16): the record
+    against the reference's functions, its collectives (the TP
+    all-reduces of 36 layers and the head's one gather) and a footprint
+    that fits the H100."""
+    cfg, shape = ARCHS["qwen2.5-3b"], SHAPES["decode_32k"]
+    with _world("16x16") as (mesh, _):
+        rec = dryrun.run_cell(cfg, shape, mesh)
+        _hold_record(rec, REF_ARCHS[cfg.name], shape, mesh)
+    assert rec["status"] == "ok" and rec["fsdp"] is False
+    assert rec["collectives"]["all-reduce"]["count"] >= 2 * cfg.n_layers
+    assert rec["collectives"]["all-gather"]["count"] == 1
+    assert rec["memory"]["fits_hbm"]
+    assert rec["roofline"]["dominant"] == "memory"
+
+
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_run_cell_on_every_reduced_arch(name):
+    """The reference test's cells (the reduced arch, (2, 4), 64 tokens, 8
+    rows) of the three kinds: a record of the reference's keys, its
+    analytic fields equal to the reference's, finite roofline terms and
+    the head's all-gather over ``model``."""
+    cfg = ARCHS[name].reduced()
+    with _world("2x4") as (mesh, _):
+        for shape in REDUCED_SHAPES:
+            rec = dryrun.run_cell(cfg, shape, mesh)
+            _hold_record(rec, REF_ARCHS[name].reduced(), shape, mesh)
+            assert rec["status"] == "ok" and rec["mesh"] == "2x4"
+            r = rec["roofline"]
+            assert all(np.isfinite(r[k]) and r[k] >= 0
+                       for k in ("compute_s", "memory_s", "collective_s"))
+            assert r["flops"] > 0 and rec["memory"]["live_bytes"] > 0
+            assert rec["memory"]["cpu_f32_twin_bytes"] == 0
+            assert rec["memory"]["live_bytes_device_estimate"] == \
+                rec["memory"]["live_bytes"]
+            assert rec["collectives"]["all-gather"]["count"] >= 1
+
+
+FOLD_CASES = [("qwen2.5-3b", ShapeConfig("t", "train", 64, 16), 4),
+              ("jamba-v0.1-52b", ShapeConfig("t", "train", 32, 8), 2),
+              ("qwen2.5-3b", ShapeConfig("p", "prefill", 3072, 2), None),
+              ("jamba-v0.1-52b", ShapeConfig("p", "prefill", 64, 8), None)]
+
+
+@pytest.mark.parametrize("name,shape,n_micro", FOLD_CASES,
+                         ids=["qwen-train-4", "jamba-train-2",
+                              "qwen-prefill-tiles", "jamba-prefill-scan"])
+def test_folded_capture_gives_the_unrolled_record(name, shape, n_micro):
+    """The shortcut of ``run_cell`` (``fold=True``: a train step's
+    microbatches, and with grad disabled the scan's time steps and the
+    blockwise attention's tiles, captured once and counted for all)
+    against the unrolled capture: every field of the record the same but
+    the capture's own time."""
+    cfg = ARCHS[name].reduced()
+    with _world("2x4") as (mesh, _):
+        folded = dryrun.run_cell(cfg, shape, mesh, n_micro=n_micro,
+                                 fold=True)
+        unrolled = dryrun.run_cell(cfg, shape, mesh, n_micro=n_micro,
+                                   fold=False)
+    for rec in (folded, unrolled):
+        rec.pop("lower_s")
+        rec.pop("compile_s")
+    assert folded == unrolled
+    if n_micro:
+        assert folded["n_micro"] == n_micro
+
+
+def test_fsdp_seq_is_not_ported():
+    with _world("2x4") as (mesh, _):
+        with pytest.raises(NotImplementedError, match="fsdp_seq"):
+            dryrun.build_step(ARCHS["qwen2.5-3b"].reduced(),
+                              REDUCED_SHAPES[0], mesh, layout="fsdp_seq",
+                              abstract=True, device="cpu")
+
+
+def test_cli_writes_a_record_and_its_graph(tmp_path):
+    """``main`` over one cell writes the record and, with ``--graphs``,
+    the step's graph code; it initialises its own fake group of 256 ranks,
+    so it runs in a subprocess."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2.5-3b", "--shape", "decode_32k", "--out", str(tmp_path),
+         "--graphs"], env=env, capture_output=True, text=True, timeout=300,
+        cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[ok]   qwen2.5-3b x decode_32k @ 16x16" in out.stdout
+    rec = json.loads((tmp_path / "16x16" /
+                      "qwen2.5-3b__decode_32k.json").read_text())
+    assert rec["status"] == "ok" and rec["compile_s"] > 0
+    assert (tmp_path / "16x16" / "graph" /
+            "qwen2.5-3b__decode_32k.py.gz").stat().st_size > 0

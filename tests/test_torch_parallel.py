@@ -22,7 +22,7 @@ from repro import parallel as ref
 from repro.configs import ARCHS
 from repro.models import factory as ref_factory
 from repro_torch.configs import get_arch
-from repro_torch.models import factory
+from repro_torch.models import factory, lm
 from repro_torch.models.blocks import layer_pattern
 from repro_torch.models.config import ShapeConfig
 from repro_torch import parallel as par
@@ -261,7 +261,8 @@ def test_departure_table_names_the_full_width_cases():
 def test_abstract_params_and_caches_of_a_rank(meshes, name):
     """``abstract_params`` / ``abstract_caches`` with a mesh: this rank's
     blocks of every parameter and cache (the executed layout of its model
-    axis), whole ones where the layout is whole."""
+    axis), whole ones where the layout is whole; with ``fsdp``, each block
+    also cut over the data axes (``lm.fsdp_plan``)."""
     mesh, _ = meshes
     cfg = get_arch(name)
     axis = sharding.model_axis(mesh)
@@ -272,6 +273,16 @@ def test_abstract_params_and_caches_of_a_rank(meshes, name):
         lay = sharding.param_layout(cfg, n, t.ndim, axis.size)
         assert tuple(mine[n].shape) == lay.shape(t.shape, axis.rank), n
         assert mine[n].dtype == t.dtype and mine[n].device.type == "meta"
+    fsdp = factory.abstract_params(cfg, mesh=mesh, fsdp=True)
+    plan = lm.fsdp_plan(cfg, mesh)
+    for n, t in mine.items():
+        blk = plan[lm.short_name(n)]
+        want = t.shape if blk is None else blk.shape(t.shape)
+        assert tuple(fsdp[n].shape) == tuple(want), n
+    n_data = math.prod(n for a, n in sharding.axis_sizes(mesh).items()
+                       if a != "model")
+    assert sum(math.prod(t.shape) for t in fsdp.values()) * n_data <= \
+        1.01 * sum(math.prod(t.shape) for t in mine.values())
     caches = factory.abstract_caches(cfg, 2, 64, mesh=mesh)
     for c, w in zip(caches, factory.abstract_caches(cfg, 2, 64)):
         if c is None:
@@ -282,6 +293,40 @@ def test_abstract_params_and_caches_of_a_rank(meshes, name):
         for kind, k, a, b in pairs:
             lay = sharding.cache_layout(cfg, kind, k, axis.size)
             assert tuple(a.shape) == lay.shape(b.shape, axis.rank)
+
+
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_fsdp_blocks_follow_the_reference_order(meshes, name):
+    """The FSDP layout the port executes: ``sanitize_pspecs`` of
+    ``fsdp_pspecs`` (forced on) over the unsanitized ``param_pspecs``, as
+    the reference's dry run orders them, exactly; each leaf's executed
+    block is its spec's data entry on the per-layer tensor, and the
+    departures (a data entry on the stack dim) are named."""
+    mesh, amesh = meshes
+    leaves, params = abstract(name)
+    want, used = ref.fsdp_pspecs(params, ref.param_pspecs(params), amesh,
+                                 threshold=0.0)
+    assert used
+    want = ref.sharding.sanitize_pspecs(params, want, amesh)
+    got = sharding.fsdp_specs(leaves, mesh)
+    assert got == ref_leaves(want)
+    dep = sharding.fsdp_departures(leaves, mesh)
+    for leaf, s in zip(leaves, got):
+        blk = sharding.fsdp_block(s, leaf.stacked, mesh)
+        de = sharding.data_entry(s, mesh)
+        assert (leaf.name in dep) == (de is not None and leaf.stacked
+                                      and de[0] == 0), leaf.name
+        if blk is None:
+            assert de is None or leaf.name in dep, leaf.name
+            continue
+        assert (blk.dim + leaf.stacked, blk.axes) == de, leaf.name
+        assert blk.count == math.prod(sharding.axis_sizes(mesh)[a]
+                                      for a in blk.axes)
+        assert blk.index == 0                        # rank 0's block
+    if dict(zip(mesh.mesh_dim_names, mesh.shape))["data"] == 2 and \
+            name == "qwen2.5-3b":
+        assert set(dep) == {"stack/0/attn/bq", "stack/0/attn/bk",
+                            "stack/0/attn/bv"}
 
 
 def test_exports_the_reference_names():

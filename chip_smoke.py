@@ -221,12 +221,38 @@ failure exits non-zero and no result line is printed:
                 ``llama4-maverick x train_4k`` with Adafactor, a
                 ``decode_32k`` and a ``long_500k``, on (16, 16) and (2,
                 16, 16)), its time and one line a cell (modelled H100
-                terms); no kernel launches in (h)-(j);
+                terms); no kernel launches in (h)-(j); (k)
+                ``layout="fsdp_seq"`` (pure FSDP over every rank, the
+                sequence split over ``model``): in this process, before
+                the world, flash at q (2, 1,024, 32, 128) against k / v
+                (2, 4,096, 8, 128), bf16, ``q_offset`` 3,072 (rank 3's
+                block of 4,096 positions over 4 ranks) against its plain
+                version and against the whole causal call's rows (bit
+                for bit), and the scan over the last 1,024 of 4,096 steps
+                (d 8,192, N 16) from a nonzero ``h0`` and the four-block
+                two-pass combine against the whole scan, each timed
+                beside its bound, plain version and (flash) SDPA with the
+                offset's mask; in the world, (a)'s jamba with both
+                kernels on (data 1, model 4): one 4,096-token row (1,024
+                a rank) prefilled into a 4,352 cache and one greedy
+                decode step, every kernel launch held against its plain
+                version, no all-reduce, against the whole model on rank 0
+                ((f)'s rule: the ranks' routing replayed, the distance to
+                float32 within 1.25 x the whole bf16 model's), the tokens
+                that agree; (g)'s qwen2.5-3b x 8 trained 3 steps through
+                ``build_step(layout="fsdp_seq")`` on (2, 2) against (g)'s
+                losses (3e-2), fewer all-reduces a step than layers, its
+                collectives equal to a fake (2, 2) capture's; and
+                ``python -m repro_torch.launch.perf_cell`` on
+                ``qwen2.5-3b x train_4k`` with ``--layout tp`` and
+                ``fsdp_seq`` in (j)'s thread;
  16. the ``kernels`` JSON line (the bracket kernel's launches also by
      path, the advisor's among them; the LM kernels' launches of the
      forward and of serving; ``launches_train``, 0 for each;
-     ``launches_parallel``, the ranks' launches of phase 15), the
-     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+     ``launches_parallel``, the ranks' launches of phase 15, (k)'s
+     prefill among them; the LM kernels' (k) rows under ``q_offset`` /
+     ``h0``), the nvidia-smi line, and last ``{"ok": true, "device":
+     {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -1710,14 +1736,15 @@ def hold_lm_calls(torch, fa, ms, rec) -> tuple:
 def _hold_lm_calls(torch, fa, ms, rec) -> tuple:
     err_fa = err_ms = rel_fa = 0.0
     for args, kw, out in rec["flash_attention"].calls:
-        want = fa.attention_ref(*args, causal=kw.get("causal", True))
+        want = fa.attention_ref(*args, causal=kw.get("causal", True),
+                                q_offset=kw.get("q_offset", 0))
         err_fa = max(err_fa, hold(torch, out, want, TOL_FLASH_LM))
         rel = float(torch.linalg.vector_norm(out.float() - want.float())
                     / torch.linalg.vector_norm(want.float()))
         assert rel <= RTOL_NORM_FLASH_LM, (tuple(args[0].shape), rel)
         rel_fa = max(rel_fa, rel)
     for args, kw, (y, h) in rec["mamba_scan"].calls:
-        yr, hr = ms.mamba_scan_ref(*args)
+        yr, hr = ms.mamba_scan_ref(*args, h0=kw.get("h0"))
         err_ms = max(err_ms, hold(torch, y, yr, TOL_SCAN),
                      hold(torch, h, hr, TOL_SCAN))
     for r in rec.values():
@@ -2236,7 +2263,8 @@ def teacher_force(torch, model, prompts, gen):
     routes = []                       # (sorted top-k, all kept) per call
     moe_ffn = moe.moe_ffn
 
-    def recording(p, x, cfg, impl="scatter", per_row=False, mesh=None):
+    def recording(p, x, cfg, impl="scatter", per_row=False, mesh=None,
+                  **kw):
         B, T, d = x.shape
         _, topi, _ = moe._route(p, x.reshape(B * T, d), cfg)
         groups = B if per_row else 1
@@ -2246,7 +2274,8 @@ def teacher_force(torch, model, prompts, gen):
         keep = rank < moe.capacity(cfg, B * T // groups)
         routes.append((topi.sort(-1)[0].reshape(B, T, -1),
                        keep.reshape(B, T, -1).all(-1)))
-        return moe_ffn(p, x, cfg, impl=impl, per_row=per_row, mesh=mesh)
+        return moe_ffn(p, x, cfg, impl=impl, per_row=per_row, mesh=mesh,
+                       **kw)
 
     moe.moe_ffn = recording
     try:
@@ -2612,6 +2641,31 @@ DRY_CELLS = (("qwen2.5-3b", "decode_32k", False),
              ("gemma-7b", "train_4k", False),
              ("llama4-maverick-400b-a17b", "train_4k", True))
 DRY_TIMEOUT_S = 900
+#: (k) ``layout="fsdp_seq"`` (pure FSDP over every rank, the sequence split
+#: over ``model``) in the 4-rank world: the kernels alone at rank 3's
+#: shapes of jamba's 4,096-token row over 4 model ranks (flash q (2,
+#: 1,024, 32, 128) against k / v (2, 4,096, 8, 128) at q_offset 3,072;
+#: the scan over 1,024 of 4,096 steps from a state); (a)'s jamba with both
+#: kernels on (data 1, model 4): one 4,096-token row, 1,024 a rank,
+#: prefilled into a cache of PAR_SEQ_CACHE positions (4,096 and room for
+#: the decode steps, divisible by 4) and PAR_SEQ_DECODE greedy decode
+#: steps, held against the whole model on rank 0 under (f)'s rule; (g)'s
+#: qwen2.5-3b x 8 trained 3 steps on (data 2, model 2) through
+#: ``build_step(layout="fsdp_seq")``, held against (g)'s losses as (h) is,
+#: its collectives against a capture under a fake (2, 2) group; and
+#: ``launch.perf_cell`` over PERF_CELLS in (j)'s thread.
+SEQ_FLASH = dict(B=2, S=1024, T=4096, Hq=32, Hkv=8, D=128, o=3072)
+SEQ_SCAN = dict(B=2, L=1024, blocks=4, d=8192, N=16)
+PAR_SEQ_MESH = (1, 4)
+PAR_SEQ_PROMPT, PAR_SEQ_CACHE = (1, 4096), 4352
+#: (k)'s decode steps: every step gathers all 26.6 GB of jamba x 8's bf16
+#: weights a rank through gloo (about 45 s at the 0.44 GB/s (i) reaches,
+#: PERF.md); one step keeps the script under about 1,050 s of its 1,200 s
+#: limit
+PAR_SEQ_DECODE = 1
+PERF_CELLS = (("qwen2.5-3b", "train_4k", "tp"),
+              ("qwen2.5-3b", "train_4k", "fsdp_seq"))
+PERF_TIMEOUT_S = 600
 PAR_PIPE = dict(L=8, D=64, M=6, B=3, seed=0)
 PAR_WARM = 4096               # scenarios of the sweeps' untimed first call
 
@@ -2697,6 +2751,9 @@ def phase_parallel(torch, np, pt, card, cb):
         f"a send / receive of a CUDA tensor ended the ranks (exit {rc}: "
         f"{cause}), so that route is staged through pinned host memory "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    # (k) the offset and state kernels alone, at rank 3's shapes
+    seq_kernels = parallel_seq_kernels(torch, np, card)
 
     # (a), (c), (d): one 4-rank world
     t0 = time.perf_counter()
@@ -2866,9 +2923,16 @@ def phase_parallel(torch, np, pt, card, cb):
     # (b) training through the launcher, then (h) against (g)
     g_losses = parallel_train(card)
     parallel_fsdp(torch, card, ranks, g_losses)
+    for k, n in parallel_seq(torch, card, ranks, g_losses).items():
+        launches[k] += n
+    for r in ranks:
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      r["seq_serve"]["err_flash"])
+        errs["mamba_scan"] = max(errs["mamba_scan"],
+                                 r["seq_serve"]["err_scan"])
     _finish_dryrun(torch, card, dry)
     log(f"parallel: phase {time.perf_counter() - t_phase:.1f} s")
-    return launches, errs
+    return launches, errs, seq_kernels
 
 
 def _train_runs(cmd_1, cmd_2):
@@ -3107,7 +3171,7 @@ def _start_dryrun(out_dir):
     a thread of this process, its records under ``out_dir``."""
     import threading
     out_dir.mkdir(parents=True, exist_ok=True)
-    res = {"cells": [], "error": None}
+    res = {"cells": [], "perf": [], "error": None}
 
     def run():
         t0 = time.perf_counter()
@@ -3122,6 +3186,14 @@ def _start_dryrun(out_dir):
                 res["cells"].append((arch, shape, multi, rc, stdout,
                                      err[-3000:],
                                      time.perf_counter() - t1))
+            for arch, shape, layout in PERF_CELLS:      # (k)'s perf_cell
+                cmd = [sys.executable, "-m", "repro_torch.launch.perf_cell",
+                       "--arch", arch, "--shape", shape, "--layout", layout]
+                t1 = time.perf_counter()
+                rc, stdout, err = _run_group(cmd, PERF_TIMEOUT_S,
+                                             f"perf_cell {arch} {layout}")
+                res["perf"].append((arch, shape, layout, rc, stdout,
+                                    err[-3000:], time.perf_counter() - t1))
         except Exception as e:                  # reported by _finish
             res["error"] = repr(e)
         res["wall_s"] = time.perf_counter() - t0
@@ -3136,7 +3208,8 @@ def _finish_dryrun(torch, card, dry):
     roofline terms are modelled on the H100's spec, not measured)."""
     thread, res, out_dir = dry
     counts = _kernel_counts()
-    thread.join(DRY_TIMEOUT_S * len(DRY_CELLS))
+    thread.join(DRY_TIMEOUT_S * len(DRY_CELLS)
+                + PERF_TIMEOUT_S * len(PERF_CELLS))
     assert not thread.is_alive(), "the dry run did not end"
     assert res["error"] is None, res["error"]
     assert _kernel_counts() == counts
@@ -3163,6 +3236,367 @@ def _finish_dryrun(torch, card, dry):
             f"{m['analytic_live_bytes']['total'] / 1e9:.2f} GB), fits 80 "
             f"GB {m['fits_hbm']}, collectives "
             f"{ {k: v['count'] for k, v in rec['collectives'].items()} }")
+    keys = {"overrides", "n_micro", "compute_s", "memory_s", "collective_s",
+            "dominant", "wire_GB", "live_device_GB", "roofline_fraction",
+            "useful_ratio", "compile_s"}
+    for arch, shape, layout, rc, stdout, err, t in res["perf"]:
+        assert rc == 0, (arch, shape, layout, rc, err)
+        got = json.loads(stdout)
+        assert set(got) == keys, got
+        log(f"parallel (k) [modelled on the H100 spec, not measured]: "
+            f"python -m repro_torch.launch.perf_cell --arch {arch} --shape "
+            f"{shape} --layout {layout} on (16, 16): {t:.1f} s on the host; "
+            f"{json.dumps(got)}")
+
+
+# -------------------------------------------------------------------- (k)
+def parallel_seq_kernels(torch, np, card) -> dict:
+    """(k) both LM kernels alone at rank 3's shapes of jamba's 4,096-token
+    row over 4 model ranks, each against its plain version: flash at
+    ``q_offset`` (and against the whole causal call's rows, bit for bit:
+    the block starts on a 128-row tile), the scan from a nonzero ``h0``
+    (and the four-block two-pass combine against the whole-sequence
+    scan); their device times beside their bounds, the plain versions and
+    (flash) SDPA with the offset's mask.  Returns the ``kernels`` line's
+    rows: ``{name: (key, row)}``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+
+    dev = torch.device(DEVICE)
+    f = SEQ_FLASH
+    B, S, T, Hq, Hkv, D, o = (f[k] for k in ("B", "S", "T", "Hq", "Hkv",
+                                             "D", "o"))
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 3)
+    qf = torch.randn((B, T, Hq, D), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    k = torch.randn((B, T, Hkv, D), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((B, T, Hkv, D), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    q = qf[:, o:o + S].contiguous()
+    before = fa.flash_attention.route_launches["sm90"]
+    with torch.inference_mode():
+        out = fa.flash_attention(q, k, v, block_q=S, block_k=T, q_offset=o)
+        whole = fa.flash_attention(qf, k, v, block_q=T, block_k=T)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.route_launches["sm90"] == before + 2
+        f_err, f_rel = _hold_flash(torch, (q, k, v), {"q_offset": o}, out)
+        same_rows = bool(torch.equal(out, whole[:, o:]))
+        assert same_rows, "the offset call's rows differ from the whole's"
+        del whole, qf
+        pairs = S * o + S * (S + 1) // 2
+        f_ops = 4 * B * Hq * D * pairs
+        f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        f_bound = max(f_bytes / HBM_BYTES_S, f_ops / BF16_OPS_S) * 1e3
+        f_by = "bytes" if f_bytes / HBM_BYTES_S >= f_ops / BF16_OPS_S \
+            else "operations"
+        f_ms = device_ms(torch, lambda: fa.flash_attention(
+            q, k, v, block_q=S, block_k=T, q_offset=o), reps=10,
+            name="attn_sm90_kernel", floor=f_bound)
+        f_plain = device_ms(torch, lambda: fa.attention_ref(
+            q, k, v, q_offset=o), reps=3, floor=f_bound)
+        mask = torch.arange(T, device=dev)[None, :] <= (
+            o + torch.arange(S, device=dev))[:, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        f_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=10,
+            floor=f_bound)
+    del q, k, v, out, qt, kt, vt, mask
+    log(f"parallel (k) [{card}]: flash_attention q ({B}, {S}, {Hq}, {D}) "
+        f"against k/v ({B}, {T}, {Hkv}, {D}) bf16 at q_offset {o} (rank 3 "
+        f"of 4 at 4,096 positions): ok, max_abs_err={f_err:.3e} (rel norm "
+        f"{f_rel:.3e}); its rows of the whole causal call bit for bit "
+        f"{same_rows}; device time per call (profiler): attn_sm90_kernel "
+        f"{f_ms:.4f} ms, plain {f_plain:.4f} ms, "
+        f"scaled_dot_product_attention with the offset's mask {f_lib:.4f} "
+        f"ms; bound {f_bound:.4f} ms ({f_by}: {f_ops:.4e} operations, "
+        f"{f_bytes} bytes)")
+
+    c = SEQ_SCAN
+    B, L, n, d, N = (c[k] for k in ("B", "L", "blocks", "d", "N"))
+    rng = np.random.default_rng(LM_SEED + 4)
+
+    def arr(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+    x, dt, Bt, Ct = (arr(rng.normal(size=(B, n * L, d))),
+                     arr(np.abs(rng.normal(0.05, 0.02, size=(B, n * L, d)))),
+                     arr(rng.normal(size=(B, n * L, N))),
+                     arr(rng.normal(size=(B, n * L, N))))
+    A, Dv = arr(-np.abs(rng.normal(1, 0.3, size=(d, N)))), \
+        arr(rng.normal(size=(d,)))
+    h0 = arr(rng.normal(size=(B, d, N)))
+    blk = [t[:, (n - 1) * L:].contiguous() for t in (x, dt, Bt, Ct)]
+    before = ms.mamba_scan.launches
+    with torch.inference_mode():
+        y, h = ms.mamba_scan(*blk, A, Dv, chunk=L, h0=h0)
+        torch.cuda.synchronize()
+        assert ms.mamba_scan.launches == before + 1
+        s_err, _ = _hold_scan(torch, (*blk, A, Dv), {"h0": h0}, (y, h))
+        # the two passes of models.mamba over n blocks, on the kernel
+        ends, ys = [], []
+        for r in range(n):
+            part = [t[:, r * L:(r + 1) * L] for t in (x, dt, Bt, Ct)]
+            _, he = ms.mamba_scan(*part, A, Dv, chunk=L)
+            ends.append((he, torch.exp(A * part[1].sum(1)[..., None])))
+        h_in = torch.zeros_like(h0)
+        for r in range(n):
+            part = [t[:, r * L:(r + 1) * L] for t in (x, dt, Bt, Ct)]
+            yr, hr = ms.mamba_scan(*part, A, Dv, chunk=L, h0=h_in)
+            ys.append(yr)
+            h_in = ends[r][1] * h_in + ends[r][0]
+        # against a float64 recurrence: over 4,096 steps the float32 plain
+        # version's own rounding reaches the bound (phase_lm_kernels)
+        yw, hw = ms.mamba_scan_ref(*(t.double() for t in (x, dt, Bt, Ct, A,
+                                                          Dv)))
+        c_err = max(hold(torch, torch.cat(ys, 1).double(), yw, TOL_SCAN),
+                    hold(torch, hr.double(), hw, TOL_SCAN))
+        del ys, yw, ends
+        exps = B * L * d * N
+        s_flops = B * L * d * (6 * N + 3)
+        s_bytes = 4 * (3 * B * L * d + 2 * B * L * N + d * N + d
+                       + 2 * B * d * N)
+        s_ops_t = max(s_flops / FP32_OPS_S, exps / SFU_EXP_S)
+        s_bound = max(s_bytes / HBM_BYTES_S, s_ops_t) * 1e3
+        s_by = "bytes" if s_bytes / HBM_BYTES_S >= s_ops_t else "operations"
+        s_ms = device_ms(torch, lambda: ms.mamba_scan(
+            *blk, A, Dv, chunk=L, h0=h0), reps=10, name="scan_kernel",
+            floor=s_bound)
+        s_plain = device_ms(torch, lambda: ms.mamba_scan_ref(
+            *blk, A, Dv, h0=h0), reps=1, floor=s_bound)
+    log(f"parallel (k) [{card}]: mamba_scan x ({B}, {L}, {d}) N={N} f32 "
+        f"from a nonzero h0 (the last of {n} blocks): ok, "
+        f"max_abs_err={s_err:.3e}; the {n}-block two-pass combine on the "
+        f"kernel against the whole {n * L}-step scan in float64: "
+        f"max_abs_err="
+        f"{c_err:.3e}; device time per call (profiler): scan_kernel "
+        f"{s_ms:.4f} ms, plain {s_plain:.4f} ms; bound {s_bound:.4f} ms "
+        f"({s_by}: {s_bytes} bytes, {exps:.4e} exponentials)")
+    del x, dt, Bt, Ct, blk, y, h
+    torch.cuda.empty_cache()
+    return {"flash_attention": ("q_offset", dict(
+                q_offset=o, max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                bound_ms=f_bound, bound_by=f_by, library_ms=f_lib)),
+            "mamba_scan": ("h0", dict(
+                max_abs_err=max(s_err, c_err), ms=s_ms, plain_ms=s_plain,
+                bound_ms=s_bound, bound_by=s_by, library_ms=None))}
+
+
+def parallel_seq(torch, card, ranks, g_losses) -> dict:
+    """(k) from the world's ranks: the fsdp_seq prefill and decode against
+    the whole model (rank 0's compare), the train steps against (g)'s
+    losses, their collectives against a capture of the same step under a
+    fake (2, 2) group here, and no tensor-parallel all-reduce in either;
+    returns the kernel launches of the prefills (summed over the ranks)."""
+    import torch.distributed as dist
+    from repro_torch.core import graph
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_ranks, make_mesh
+    from repro_torch.parallel import transport
+
+    launches = {"flash_attention": 0, "mamba_scan": 0}
+    for r in ranks:
+        k = r["seq_serve"]
+        for name in launches:
+            launches[name] += k["launches"][name]
+        assert k["launches"]["flash_attention"] == 1, k["launches"]
+        assert k["launches"]["mamba_scan"] == (7 if r["rank"] == 0
+                                               else 14), k["launches"]
+        assert not any(c.startswith("all_reduce")
+                       for c in k["prefill_collectives"]), k
+        log(f"parallel (k) [{card}] rank {r['rank']}: fsdp_seq jamba x "
+            f"{LM_LAYERS} on {PAR_SEQ_MESH}, positions {k['block']} of "
+            f"{PAR_SEQ_PROMPT[1]}, {k['params'] / 1e9:.3f} B parameters "
+            f"a rank ({k['param_bytes'] / 1e9:.3f} GB) of "
+            f"{k['whole_params'] / 1e9:.3f} B, built in {k['build_s']:.2f} "
+            f"s; prefill into a {PAR_SEQ_CACHE} cache {k['prefill_ms']:.1f} "
+            f"ms, {PAR_SEQ_DECODE} decode step(s) {k['decode_ms']:.1f} ms "
+            f"a step; peak {k['peak_bytes'] / 1e9:.3f} GB; launches "
+            f"{k['launches']} (kernel shapes {k['shapes']}); holds: flash "
+            f"{k['err_flash']:.3e} (rel norm {k['rel_flash']:.3e}), scan "
+            f"{k['err_scan']:.3e}; prefill collectives (calls, bytes put "
+            f"in) {k['prefill_collectives']}; a decode step's "
+            f"{k['decode_collectives']}")
+    c0 = ranks[0]["seq_serve"]
+    assert c0["tp_f32"] <= RATIO_PAR_TP_F32 * c0["whole_f32"] \
+        + RTOL_PAR_F32, (c0["tp_f32"], c0["whole_f32"])
+    log(f"parallel (k): every step's logits ({1 + PAR_SEQ_DECODE}), the "
+        f"whole model fed the same tokens and the ranks' routing "
+        f"({c0['rerouted']} token-layers rerouted; free routing: prefill "
+        f"rel {c0['free_rel']:.3e}): {c0['same_rel']:.3e}; against the "
+        f"float32 model: fsdp_seq {c0['tp_f32']:.3e}, the whole bf16 model "
+        f"{c0['whole_f32']:.3e} (bound: within {RATIO_PAR_TP_F32} x + "
+        f"{RTOL_PAR_F32}); greedy tokens that agree {c0['agree']} of "
+        f"{c0['n_tokens']}; the whole model's prefill "
+        f"{c0['whole_prefill_ms']:.2f} ms, decode step "
+        f"{c0['whole_decode_ms']:.2f} ms")
+
+    for r in ranks:
+        h = r["seq_train"]
+        assert h["meta"]["fsdp"] and h["meta"]["n_micro"] == 1, h["meta"]
+        assert h["launches"] == h["launches_before"], h
+        rel = max(abs(a - b) / abs(b) for a, b in zip(h["losses"], g_losses))
+        assert rel <= RTOL_PAR_TP_TRAIN, (h["losses"], g_losses)
+        n_ar = h["executed"].get("all_reduce", [0, 0])[0]
+        assert n_ar < PAR_TRAIN_LAYERS, h["executed"]
+        log(f"parallel (k) [{card}] rank {r['rank']}: build_step "
+            f"{h['meta']} layout fsdp_seq on {PAR_FSDP_MESH}, "
+            f"{h['params'] / 1e9:.3f} B parameters a rank "
+            f"({h['param_bytes']:,} bytes), moments {h['moment_bytes']:,} "
+            f"bytes, built in {h['build_s']:.2f} s; losses "
+            f"{[round(x, 6) for x in h['losses']]}, max rel to (g)'s "
+            f"{rel:.3e} (bound {RTOL_PAR_TP_TRAIN}); step "
+            f"{statistics.median(h['step_s'][1:]):.4f} s (median of steps "
+            f"2-{PAR_TRAIN_STEPS}; first {h['step_s'][0]:.4f} s); peak "
+            f"{h['peak_bytes'] / 1e9:.3f} GB; all-reduces in step 1: "
+            f"{n_ar} ({PAR_TRAIN_LAYERS} layers: none a layer); collectives "
+            f"of step 1 by route {h['routes']}")
+    cfg, shape, opt = _fsdp_train_cfg()
+    counts = _kernel_counts()
+    t0 = time.perf_counter()
+    init_fake_ranks(PAR_RANKS)
+    try:
+        mesh = make_mesh(PAR_FSDP_MESH, ("data", "model"), "cpu")
+        step, args, _ = dryrun.build_step(cfg, shape, mesh, opt_cfg=opt,
+                                          device="cpu", abstract=True,
+                                          layout="fsdp_seq")
+        captured = graph.capture(step, *args, fold=True)
+        want = transport.as_counted(captured.collectives())
+    finally:
+        dist.destroy_process_group()
+    assert _kernel_counts() == counts
+    got = {k: tuple(v) for k, v in ranks[0]["seq_train"]["executed"]
+           .items()}
+    assert got == want, (got, want)
+    log(f"parallel (k): rank 0's collectives of step 1 (calls, bytes put "
+        f"in) {got}, equal to the fsdp_seq step's capture under a fake "
+        f"{PAR_FSDP_MESH} group ({sum(captured.ops.values()):,} ops, "
+        f"{time.perf_counter() - t0:.1f} s on the host)")
+    return launches
+
+
+def rank_seq_serve(torch, dist, transport, dev, rank):
+    """(k) (a)'s jamba with both kernels on, ``layout="fsdp_seq"`` on (data
+    1, model 4): one PAR_SEQ_PROMPT row (1,024 positions a rank) prefilled
+    into a PAR_SEQ_CACHE cache, every flash and scan launch held against
+    its plain version as it happens, then PAR_SEQ_DECODE greedy decode
+    steps; the launches, collectives, times and peak.  Rank 0 then builds
+    the whole model alone and compares every step's logits under (f)'s
+    rule (the ranks' routing replayed, bf16 and float32)."""
+    import types
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers, make_model
+    from repro_torch.models import mamba as mamba_mod
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_arch(LM_ARCH).replace(n_layers=LM_LAYERS)
+    mesh = make_mesh(PAR_SEQ_MESH, ("data", "model"), "cuda")
+    t0 = time.perf_counter()
+    model = make_model(cfg, use_kernel=True, moe_impl="scatter", device=dev,
+                       generator=torch.Generator(device=dev)
+                       .manual_seed(LM_SEED), mesh=mesh, layout="fsdp_seq")
+    torch.cuda.synchronize()
+    info = {"build_s": time.perf_counter() - t0,
+            "params": model.param_count(),
+            "whole_params": model.whole_param_count(),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
+    prompt = torch.randint(0, cfg.vocab_size, PAR_SEQ_PROMPT, generator=gen,
+                           device=dev, dtype=torch.int32)
+    n = PAR_SEQ_PROMPT[1] // PAR_SEQ_MESH[1]
+    info["block"] = [rank * n, (rank + 1) * n]
+    hf = _Holding(torch, fa.flash_attention, _hold_flash)
+    hs = _Holding(torch, ms.mamba_scan, _hold_scan)
+    saved = layers.fa_ops, mamba_mod.ms_ops
+    layers.fa_ops = types.SimpleNamespace(flash_attention=hf)
+    mamba_mod.ms_ops = types.SimpleNamespace(mamba_scan=hs)
+    counters = {"flash_attention": fa.flash_attention,
+                "mamba_scan": ms.mamba_scan}
+    try:
+        with torch.inference_mode(), _Routes(torch) as routes:
+            for c in counters.values():
+                c.launches = 0
+            before = _collectives(transport)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            logits, caches = model.prefill({"tokens": prompt}, PAR_SEQ_CACHE)
+            torch.cuda.synchronize()
+            info["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            info["launches"] = {k: c.launches for k, c in counters.items()}
+            info["prefill_collectives"] = _collectives(transport, before)
+            n_prefill = len(routes.seen)
+            tok = logits.argmax(-1)
+            tokens, outs, steps = [tok.cpu()], [logits.float().cpu()], []
+            before = _collectives(transport)
+            for i in range(PAR_SEQ_DECODE):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(
+                    caches, {"tokens": tok}, PAR_SEQ_PROMPT[1] + i)
+                tok = logits.argmax(-1)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0) * 1e3)
+                tokens.append(tok.cpu())
+                outs.append(logits.float().cpu())
+            coll = _collectives(transport, before)
+            # the prompt's routing as one list, in position order
+            group = mesh.get_group("model")
+            seen = [transport.all_gather(x.to(dev), group).flatten(0, 1)
+                    .cpu() for x in routes.seen[:n_prefill]] \
+                + routes.seen[n_prefill:]
+    finally:
+        layers.fa_ops, mamba_mod.ms_ops = saved
+    info.update(decode_ms=statistics.median(steps),
+                decode_collectives={k: [v[0] / PAR_SEQ_DECODE,
+                                        v[1] / PAR_SEQ_DECODE]
+                                    for k, v in coll.items()},
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                err_flash=hf.err, rel_flash=hf.rel, err_scan=hs.err,
+                shapes={"flash q, k": hf.shapes, "scan x, dt": hs.shapes})
+    served = {"prompt": prompt.cpu(), "tokens": tokens, "logits": outs,
+              "routes": seen}
+    del model, logits, caches
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        info.update(_seq_whole_compare(torch, dev, cfg, served))
+    dist.barrier()
+    return info
+
+
+def _seq_whole_compare(torch, dev, cfg, served) -> dict:
+    """Rank 0, alone on the card: (k)'s prefill and decode on the whole
+    model, the ranks' routing replayed, in bf16 and with its weights cast
+    to float32 (the same rule as (f))."""
+    from repro_torch.models import make_model
+    whole = make_model(cfg, use_kernel=True, moe_impl="scatter", device=dev,
+                       generator=torch.Generator(device=dev)
+                       .manual_seed(LM_SEED))
+    w16 = _whole_serve(torch, whole, dev, served, PAR_SEQ_CACHE,
+                       PAR_SEQ_DECODE)
+    whole.float()                        # the same weights, cast up
+    whole.cfg = whole.cfg.replace(dtype="float32")
+    w32 = _whole_serve(torch, whole, dev, served, PAR_SEQ_CACHE,
+                       PAR_SEQ_DECODE)
+    del whole
+    torch.cuda.empty_cache()
+    got = torch.cat([x.flatten() for x in served["logits"]])
+    a = torch.cat([x.flatten() for x in w16["logits"]])
+    b = torch.cat([x.flatten() for x in w32["logits"]])
+    agree = sum(int((x.argmax(-1) == t).sum())
+                for x, t in zip(w16["logits"], served["tokens"]))
+    return {"free_rel": w16["free_rel"], "rerouted": sum(w16["rerouted"]),
+            "same_rel": _rel(torch, got, a), "tp_f32": _rel(torch, got, b),
+            "whole_f32": _rel(torch, a, b), "agree": agree,
+            "n_tokens": sum(t.numel() for t in served["tokens"]),
+            "whole_prefill_ms": w16["prefill_ms"],
+            "whole_decode_ms": w16["decode_ms"]}
 
 
 # ------------------------------------------------------------ rank programs
@@ -3195,7 +3629,8 @@ def _hold_flash(torch, args, kw, out):
             want = attention_ref(q[b:b + 1, :, h * g:(h + 1) * g],
                                  k[b:b + 1, :, h:h + 1],
                                  v[b:b + 1, :, h:h + 1],
-                                 causal=kw.get("causal", True))
+                                 causal=kw.get("causal", True),
+                                 q_offset=kw.get("q_offset", 0))
             got = out[b:b + 1, :, h * g:(h + 1) * g]
             err = max(err, hold(torch, got, want, TOL_FLASH_LM))
             num += float(((got.float() - want.float()) ** 2).sum())
@@ -3207,7 +3642,7 @@ def _hold_flash(torch, args, kw, out):
 
 def _hold_scan(torch, args, kw, out):
     from repro_torch.kernels.mamba_scan import mamba_scan_ref
-    yr, hr = mamba_scan_ref(*args)
+    yr, hr = mamba_scan_ref(*args, h0=kw.get("h0"))
     return max(hold(torch, out[0], yr, TOL_SCAN),
                hold(torch, out[1], hr, TOL_SCAN)), 0.0
 
@@ -3261,7 +3696,8 @@ def _ep_forward(torch, dev, mesh, moe_impl, holding=True):
 
 
 def rank_world(out_dir):
-    """One rank of the 4-rank gloo world: (a), (f), (c), (d), (h), (i)."""
+    """One rank of the 4-rank gloo world: (a), (f), (c), (d), (h), (i),
+    (k)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3280,6 +3716,9 @@ def rank_world(out_dir):
         res["pipe"] = rank_pipe(torch, np, dev)
         res["fsdp_train"] = rank_fsdp_train(torch, dist, transport, dev)
         res["fsdp_serve"] = rank_fsdp_serve(torch, dist, dev)
+        res["seq_serve"] = rank_seq_serve(torch, dist, transport, dev, rank)
+        res["seq_train"] = rank_fsdp_train(torch, dist, transport, dev,
+                                           layout="fsdp_seq")
         res["routes"] = {f"{op} {r}": n
                          for (op, r), n in sorted(transport.routes.items())}
     finally:
@@ -3288,12 +3727,13 @@ def rank_world(out_dir):
     return 0
 
 
-def rank_fsdp_train(torch, dist, transport, dev):
+def rank_fsdp_train(torch, dist, transport, dev, layout="tp"):
     """(h) ``launch.dryrun.build_step`` for (g)'s model, batch and
     optimizer on (data 2, model 2): the meta (FSDP must be on: 1.24 GB of
     bf16 parameters a ``model`` rank), PAR_TRAIN_STEPS steps of (g)'s
     data stream, their losses and times, the bytes a rank holds, and the
-    collectives of the first step by route and in all."""
+    collectives of the first step by route and in all.  (k):
+    ``layout="fsdp_seq"``."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import make_data
@@ -3306,7 +3746,8 @@ def rank_fsdp_train(torch, dist, transport, dev):
     t0 = time.perf_counter()
     step, (params, opt, _), meta = dryrun.build_step(cfg, shape, mesh,
                                                      opt_cfg=opt_cfg,
-                                                     device=dev)
+                                                     device=dev,
+                                                     layout=layout)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     data = make_data(cfg, shape, seed=0, device=dev)
@@ -3664,30 +4105,31 @@ def _tp_serve(torch, dist, transport, model, dev) -> dict:
                      "f_err_scan": hs.err}}
 
 
-def _whole_serve(torch, whole, dev, served) -> dict:
-    """(f) on the whole model: its prefill of the same prompt, then each
-    decode step fed the TP run's token, every MoE layer routed as the TP
-    ranks routed it: the logits of every step (on the host), the prefill's
-    logits with free routing against the TP run's, the tokens rerouted,
-    and the times."""
+def _whole_serve(torch, whole, dev, served, max_len=PAR_TP_CACHE,
+                 n_decode=PAR_TP_DECODE) -> dict:
+    """(f) (and (k)) on the whole model: its prefill of the same prompt
+    into a ``max_len`` cache, then each of ``n_decode`` decode steps fed
+    the ranks' token, every MoE layer routed as the ranks routed it: the
+    logits of every step (on the host), the prefill's logits with free
+    routing against the ranks', the tokens rerouted, and the times."""
     tokens = served["tokens"]
     prompt = {"tokens": served["prompt"].to(dev)}
+    start = prompt["tokens"].shape[1]
     with torch.inference_mode():
         free_rel = _rel(torch, served["logits"][0],
-                        whole.prefill(prompt, PAR_TP_CACHE)[0].cpu())
+                        whole.prefill(prompt, max_len)[0].cpu())
         with _Routes(torch, served["routes"]) as same:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = whole.prefill(prompt, PAR_TP_CACHE)
+            logits, caches = whole.prefill(prompt, max_len)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             outs, steps = [logits.float().cpu()], []
-            for i in range(PAR_TP_DECODE):
+            for i in range(n_decode):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 logits, caches = whole.decode_step(
-                    caches, {"tokens": tokens[i].to(dev)},
-                    PAR_TP_PROMPT[1] + i)
+                    caches, {"tokens": tokens[i].to(dev)}, start + i)
                 torch.cuda.synchronize()
                 steps.append((time.perf_counter() - t0) * 1e3)
                 outs.append(logits.float().cpu())
@@ -4050,9 +4492,12 @@ def main() -> int:
 
     # 15. the parallel layer over ranks sharing the card (kernels built
     #     above; the ranks load them from disk)
-    par_launches, par_errs = phase_parallel(torch, np, pt, card, cb_stream)
+    par_launches, par_errs, seq_rows = phase_parallel(torch, np, pt, card,
+                                                      cb_stream)
     for k in kernels:
         k["launches_parallel"] = par_launches[k["name"]]
+        if k["name"] in seq_rows:
+            k[seq_rows[k["name"]][0]] = seq_rows[k["name"]][1]
         k["max_abs_err"] = max(k["max_abs_err"],
                                par_errs.get(k["name"], 0.0))
     for name in ("fused_bracket_segsum", "flash_attention", "mamba_scan"):

@@ -7,7 +7,9 @@
 // What it computes: for q (B, S, Hq, D) and k, v (B, T, Hkv, D), query head
 // h attends over kv head h / (Hq / Hkv) (GQA by index, no kv replication):
 //   out[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h/g]) v[b, t, h/g]
-// with scale = 1 / sqrt(D), positions t > s masked when causal, the f32
+// with scale = 1 / sqrt(D), positions t > s + q_off masked when causal
+// (q_off: the key position of q's first row, nonzero where q is a later
+// block of the sequence than k and v begin with), the f32
 // online-softmax carry (m, l, acc) of the TPU kernel, and the output in the
 // inputs' type.  Masked scores take the -1e30 sentinel, not -inf, and the
 // safe-max guards of the TPU kernel, so a row fully masked within a tile
@@ -74,7 +76,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-            int Hq, int Hkv, int causal, float scale) {
+            int Hq, int Hkv, int causal, int q_off, float scale) {
   using Tl = Tiles<D>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][D + 4]
@@ -116,7 +118,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int q_last = min(q0 + kBQ, S) - 1;
   int n_kv = (Tk + kBK - 1) / kBK;
-  if (causal) n_kv = min(n_kv, q_last / kBK + 1);  // skip tiles above
+  if (causal) n_kv = min(n_kv, (q_last + q_off) / kBK + 1);  // skip above
 
   for (int kb = 0; kb < n_kv; ++kb) {
     const int k0 = kb * kBK;
@@ -159,7 +161,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // online softmax, mirroring the TPU kernel's safe-max guards
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * r + i;
+      const int qpos = q0 + 4 * r + i + q_off;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -242,38 +244,39 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, T* o, int B, int S, int Tk,
-             int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+             int Hq, int Hkv, int causal, int q_off, float scale,
+             cudaStream_t stream) {
   const size_t bytes = Tiles<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
-  attn_kernel<T, D><<<grid, kThreads, bytes, stream>>>(q, k, v, o, S, Tk, Hq,
-                                                        Hkv, causal, scale);
+  attn_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, o, S, Tk, Hq, Hkv, causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int Tk,
-           int Hq, int Hkv, int D, int causal, float scale,
+           int Hq, int Hkv, int D, int causal, int q_off, float scale,
            cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch_d<T, 16>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                             stream);
+      return launch_d<T, 16>(q, k, v, o, B, S, Tk, Hq, Hkv, causal,
+                             q_off, scale, stream);
     case 32:
-      return launch_d<T, 32>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                             stream);
+      return launch_d<T, 32>(q, k, v, o, B, S, Tk, Hq, Hkv, causal,
+                             q_off, scale, stream);
     case 64:
-      return launch_d<T, 64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                             stream);
+      return launch_d<T, 64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal,
+                             q_off, scale, stream);
     case 128:
-      return launch_d<T, 128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                              stream);
+      return launch_d<T, 128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal,
+                              q_off, scale, stream);
     case 256:
-      return launch_d<T, 256>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                              stream);
+      return launch_d<T, 256>(q, k, v, o, B, S, Tk, Hq, Hkv, causal,
+                              q_off, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -283,9 +286,10 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int Tk,
 
 #define ATTN_ARGS(T)                                                        \
   const T *q, const T *k, const T *v, T *o, int B, int S, int Tk, int Hq,   \
-      int Hkv, int D, int causal, float scale, cudaStream_t stream
+      int Hkv, int D, int causal, int q_off, float scale,               \
+      cudaStream_t stream
 #define ATTN_CALL \
-  launch(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal, scale, stream)
+  launch(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal, q_off, scale, stream)
 
 extern "C" int flash_attention_f32(ATTN_ARGS(float)) { return ATTN_CALL; }
 extern "C" int flash_attention_bf16(ATTN_ARGS(__nv_bfloat16)) {

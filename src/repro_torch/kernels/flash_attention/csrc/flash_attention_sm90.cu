@@ -10,7 +10,9 @@
 // What it computes: for q (B, S, Hq, D) and k, v (B, T, Hkv, D), query head
 // h attends over kv head h / (Hq / Hkv) (GQA by index):
 //   out[b, s, h] = softmax_t(scale * q[b, s, h] . k[b, t, h/g]) v[b, t, h/g]
-// with scale = 1 / sqrt(D), positions t > s masked when causal, and the
+// with scale = 1 / sqrt(D), positions t > s + q_offset masked when causal
+// (q_offset: the position of q's first row among the keys, nonzero where q
+// is a later block of the sequence than k and v begin with), and the
 // output in bf16.  As in the TPU kernel, masked scores take the -1e30
 // sentinel, the online softmax keeps (m, l, acc) in f32 with its safe-max
 // guards, every kv tile wholly above the diagonal is skipped and only the
@@ -408,6 +410,7 @@ struct Consumer {
   int quad;
   int Tk;
   int causal;
+  int q_off;           // q row s sits at key position s + q_off
   float scale_log2;
   float acc[D / 2];    // O, wgmma m64n{D} accumulator layout
   float s[kBK / 2];    // S, then P in f32
@@ -472,7 +475,7 @@ struct Consumer {
           float v = s[4 * j + 2 * r + e];
           if (kMask) {
             const int kpos = k0 + 8 * j + 2 * quad + e;
-            const bool dead = kpos >= Tk || (causal && kpos > qpos);
+            const bool dead = kpos >= Tk || (causal && kpos > qpos + q_off);
             v = dead ? kNegInf : v;
             s[4 * j + 2 * r + e] = v;
           }
@@ -562,7 +565,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
                  __nv_bfloat16* __restrict__ o, int S, int Tk, int Hq,
-                 int Hkv, int causal, float scale_log2) {
+                 int Hkv, int causal, int q_off, float scale_log2) {
   using Sh = Shape<D>;
   constexpr int kBK = Sh::kBK;
   constexpr int kStages = Sh::kStages;
@@ -583,7 +586,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.x % Hq;
   const int hk = h / (Hq / Hkv);
   int n_kv = (Tk + kBK - 1) / kBK;
-  if (causal) n_kv = min(n_kv, (min(q0 + kBQ, S) - 1) / kBK + 1);
+  if (causal) n_kv = min(n_kv, (min(q0 + kBQ, S) - 1 + q_off) / kBK + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -643,6 +646,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     cs.quad = t % 4;
     cs.Tk = Tk;
     cs.causal = causal;
+    cs.q_off = q_off;
     cs.scale_log2 = scale_log2;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) cs.acc[i] = 0.f;
@@ -653,11 +657,13 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 
     // Tiles [0, n_live) hold positions these rows see; of them, those from
-    // n_plain on cross the diagonal (causal) or T and are masked.
+    // n_plain on cross the diagonal (causal) or T and are masked.  The
+    // diagonal of these rows starts at key position first + q_off.
+    const int diag = cs.first + q_off;
     const int n_live =
-        causal ? min(n_kv, (cs.first + 63) / kBK + 1) : n_kv;
+        causal ? min(n_kv, (diag + 63) / kBK + 1) : n_kv;
     const int n_plain =
-        max(1, min(n_live, causal ? min((cs.first + 1) / kBK, Tk / kBK)
+        max(1, min(n_live, causal ? min((diag + 1) / kBK, Tk / kBK)
                                   : Tk / kBK));
     mbar_wait(q_full, 0);
     cs.template steady<true>(0, 1);
@@ -727,7 +733,8 @@ bool make_map(CUtensorMap* map, const void* x, int D, int H, int L, int B,
 template <int D>
 int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
              const __nv_bfloat16* v, __nv_bfloat16* o, int B, int S, int Tk,
-             int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+             int Hq, int Hkv, int causal, int q_off, float scale,
+             cudaStream_t stream) {
   using Sh = Shape<D>;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, D, Hq, S, B, kBQ) ||
@@ -740,7 +747,7 @@ int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
   attn_sm90_kernel<D><<<grid, kThreads, Sh::kSmem, stream>>>(
-      qm, km, vm, o, S, Tk, Hq, Hkv, causal, scale * kLog2e);
+      qm, km, vm, o, S, Tk, Hq, Hkv, causal, q_off, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -751,18 +758,18 @@ extern "C" int flash_attention_sm90_bf16(const __nv_bfloat16* q,
                                          const __nv_bfloat16* v,
                                          __nv_bfloat16* o, int B, int S,
                                          int Tk, int Hq, int Hkv, int D,
-                                         int causal, float scale,
-                                         cudaStream_t stream) {
+                                         int causal, int q_off,
+                                         float scale, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch_d<64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                          stream);
+      return launch_d<64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, q_off,
+                          scale, stream);
     case 128:
-      return launch_d<128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                           stream);
+      return launch_d<128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, q_off,
+                           scale, stream);
     case 256:
-      return launch_d<256>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, scale,
-                           stream);
+      return launch_d<256>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, q_off,
+                           scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

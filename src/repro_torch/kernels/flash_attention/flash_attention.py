@@ -39,8 +39,8 @@ TAKES = {"sm90": ((torch.bfloat16,), (64, 128, 256)),
          "simt": ((torch.float32, torch.bfloat16), (16, 32, 64, 128, 256))}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, out, B, S, T, Hq, Hkv, D, causal, scale, stream
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+# q, k, v, out, B, S, T, Hq, Hkv, D, causal, q_offset, scale, stream
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 _ENTRY = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}
 
 
@@ -51,14 +51,15 @@ def build(route: str) -> _build.Library:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, causal: bool, route: str) -> None:
+           out: torch.Tensor, causal: bool, route: str,
+           q_offset: int = 0) -> None:
     """Enqueue ``route``'s kernel on the current stream: contiguous ``q (B,
     S, Hq, D)``, ``k``/``v (B, T, Hkv, D)`` and ``out`` like ``q``, one
-    dtype."""
+    dtype; q's row ``s`` is key position ``s + q_offset``."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     rc = build(route).fn(_ENTRY[route], q.dtype)(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), B, S,
-        T, Hq, Hkv, D, int(causal), 1.0 / math.sqrt(D),
+        T, Hq, Hkv, D, int(causal), int(q_offset), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, KERNELS[route])

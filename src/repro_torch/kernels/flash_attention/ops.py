@@ -70,29 +70,34 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = 128,
-                    block_k: int = 128) -> torch.Tensor:
+                    block_k: int = 128, q_offset: int = 0) -> torch.Tensor:
     """q: (B, S, Hq, D); k/v: (B, T, Hkv, D) -> (B, S, Hq, D) in q's dtype.
 
     Query head h attends over kv head h // (Hq // Hkv); with ``causal``,
-    query position s sees kv positions t <= s.
+    query position s sees kv positions t <= s + ``q_offset`` (q is the
+    block of a longer sequence that starts at key position ``q_offset``:
+    a sequence-sharded rank's queries against the keys gathered up to its
+    block's end).
     """
     _check(q, k, v, block_q, block_k)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     dev = q.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     if dev.type == "cuda":
         route(q.dtype, q.shape[-1])
-    return flash_attention_op(q, k, v, causal)
+    return flash_attention_op(q, k, v, causal, int(q_offset))
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool) -> torch.Tensor:
+                       causal: bool, q_offset: int = 0) -> torch.Tensor:
     """The checked call as one op: the plain version on the CPU, the
     kernel on the card.  A capture records it as one node (its fake
     version gives the shape only, and launches and counts nothing)."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     path = route(q.dtype, q.shape[-1])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -101,14 +106,14 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one kv position")
     with torch.cuda.device(q.device):
-        _cuda.launch(q, k, v, out, causal, path)
+        _cuda.launch(q, k, v, out, causal, path, q_offset)
     flash_attention.launches += 1
     flash_attention.route_launches[path] += 1
     return out
 
 
 @flash_attention_op.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, q_offset=0):
     return q.new_empty(q.shape)
 
 
@@ -116,7 +121,8 @@ def _(q, k, v, causal):
 def _flops(q_shape, k_shape, v_shape, *args, out_shape=None,
            **kwargs) -> int:
     """QK^T and PV over every (query, key) pair, as ``FlopCounterMode``
-    counts ``scaled_dot_product_attention`` (causality not discounted)."""
+    counts ``scaled_dot_product_attention`` (causality, and a ``q_offset``,
+    not discounted)."""
     B, S, Hq, D = q_shape
     return 4 * B * Hq * S * k_shape[1] * D
 

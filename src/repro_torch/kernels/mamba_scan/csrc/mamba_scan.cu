@@ -5,7 +5,9 @@
 //                  (launched by mamba_scan_pallas)
 //
 // What it computes, for x, dt (B, L, d), Bt, Ct (B, L, N), A (d, N) and
-// D (d,), all f32, with h = 0 at t = 0:
+// D (d,), all f32, with h = h0 at t = 0 (h0 (B, d, N), zero when the
+// caller passes none: a later block of a sequence starts from the state
+// the earlier blocks leave):
 //   h[b, c, :] <- exp(dt[b, t, c] * A[c, :]) * h[b, c, :]
 //                 + (dt[b, t, c] * x[b, t, c]) * Bt[b, t, :]
 //   y[b, t, c]  = sum_n h[b, c, n] * Ct[b, t, n] + D[c] * x[b, t, c]
@@ -138,7 +140,8 @@ scan_kernel(const __grid_constant__ CUtensorMap xm,
             const __grid_constant__ CUtensorMap bm,
             const __grid_constant__ CUtensorMap cm,
             const float* __restrict__ A, const float* __restrict__ Dv,
-            float* __restrict__ y, float* __restrict__ h_out, int L, int d) {
+            const float* __restrict__ h0, float* __restrict__ y,
+            float* __restrict__ h_out, int L, int d) {
   __shared__ Slot ring[2];
   __shared__ __align__(16) float part[kChunk][kThreads];  // partial y
   __shared__ __align__(8) uint64_t full[2];
@@ -165,7 +168,9 @@ scan_kernel(const __grid_constant__ CUtensorMap xm,
 #pragma unroll
   for (int j = 0; j < kStates; ++j) {
     a[j] = ch < d ? A[(long long)ch * kN + kStates * ln + j] * kLog2e : 0.f;
-    h[j] = 0.f;
+    h[j] = h0 != nullptr && ch < d
+               ? h0[((long long)b * d + ch) * kN + kStates * ln + j]
+               : 0.f;
   }
   // the reduction pass always serves channel ch0 + tid % 32
   const int rc = tid % kChannels;
@@ -245,13 +250,14 @@ bool make_map(CUtensorMap* map, const float* t, int W, int L, int B,
 
 }  // namespace
 
-// x, dt (B, L, d), Bt, Ct (B, L, 16), A (d, 16), D (d,) -> y (B, L, d),
-// h (B, d, 16); d a multiple of 4, every pointer 16-byte aligned.
+// x, dt (B, L, d), Bt, Ct (B, L, 16), A (d, 16), D (d,), h0 (B, d, 16) or
+// null -> y (B, L, d), h (B, d, 16); d a multiple of 4, every pointer
+// 16-byte aligned.
 extern "C" int mamba_scan_f32(const float* x, const float* dt,
                               const float* Bt, const float* Ct,
-                              const float* A, const float* Dv, float* y,
-                              float* h, int B, int L, int d, int N,
-                              cudaStream_t stream) {
+                              const float* A, const float* Dv,
+                              const float* h0, float* y, float* h, int B,
+                              int L, int d, int N, cudaStream_t stream) {
   if (N != kN || d % 4 != 0 || L < 1) return (int)cudaErrorInvalidValue;
   CUtensorMap xm, dtm, bm, cm;
   if (!make_map(&xm, x, d, L, B, kChannels) ||
@@ -259,7 +265,7 @@ extern "C" int mamba_scan_f32(const float* x, const float* dt,
       !make_map(&bm, Bt, kN, L, B, kN) || !make_map(&cm, Ct, kN, L, B, kN))
     return (int)cudaErrorInvalidValue;
   dim3 grid((d + kChannels - 1) / kChannels, B);
-  scan_kernel<<<grid, kThreads, 0, stream>>>(xm, dtm, bm, cm, A, Dv, y, h, L,
-                                             d);
+  scan_kernel<<<grid, kThreads, 0, stream>>>(xm, dtm, bm, cm, A, Dv, h0, y, h,
+                                             L, d);
   return (int)cudaGetLastError();
 }

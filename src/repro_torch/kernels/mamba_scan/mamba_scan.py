@@ -24,8 +24,8 @@ MAX_STATES = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, dt, Bt, Ct, A, D, y, h, B, L, d, N, stream
-    "mamba_scan": ([_P] * 8 + [_I] * 4 + [_P], (torch.float32,)),
+    # x, dt, Bt, Ct, A, D, h0 (or null), y, h, B, L, d, N, stream
+    "mamba_scan": ([_P] * 9 + [_I] * 4 + [_P], (torch.float32,)),
 }
 
 
@@ -34,11 +34,12 @@ def build() -> _build.Library:
     return _build.build(SOURCE, _SIGNATURES)
 
 
-def launch(x, dt, Bt, Ct, A, D, y, h) -> None:
+def launch(x, dt, Bt, Ct, A, D, y, h, h0=None) -> None:
     """Enqueue the kernel on the current stream: contiguous float32 inputs
-    and the preallocated ``y (B, L, d)`` and ``h (B, d, N)``."""
+    and the preallocated ``y (B, L, d)`` and ``h (B, d, N)``; ``h0 (B, d,
+    N)``, the state before step 0 (zero when ``None``)."""
     Bsz, L, d = x.shape
     rc = build().fn("mamba_scan", torch.float32)(
-        *(_build.ptr(t) for t in (x, dt, Bt, Ct, A, D, y, h)), Bsz, L, d,
+        *(_build.ptr(t) for t in (x, dt, Bt, Ct, A, D, h0, y, h)), Bsz, L, d,
         A.shape[-1], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "mamba_scan")

@@ -47,8 +47,12 @@ holds in the port:
 
 Uneven blocks (kv heads under ``sharding.head_split``, the decode caches
 when Hkv < R: ``sharding.cache_layout``) differ from rank to rank; the
-record is rank 0's.  ``layout="fsdp_seq"`` (pure FSDP with
-sequence-sharded activations) is not ported.
+record is rank 0's.  ``layout="fsdp_seq"`` (pure FSDP over every rank with
+the sequence split over ``model``, ``sharding.fsdp_seq_specs``) builds the
+same three steps; its rank 0 holds the first block of the positions, which
+attends the fewest keys (the record is that rank's), and decode's new
+token is written by the last rank.  ``launch.perf_cell`` captures one cell
+with overrides and prints its roofline terms.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
         --shape decode_32k
@@ -148,7 +152,7 @@ class Step:
 def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
                opt_cfg: AdamWConfig | None = None, zero1: bool = True,
                n_micro: int | None = None, layout: str = "tp",
-               moe_impl: str = "ep_local", device="cuda",
+               moe_impl: str | None = None, device="cuda",
                abstract: bool = False):
     """Returns ``(step, args, meta)`` for one cell on ``mesh``.
 
@@ -163,15 +167,19 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
     its weights from seed 0 on ``device`` (the train launcher's);
     ``abstract``: every weight and argument a fake tensor
     (``core.graph.abstract``), nothing drawn or allocated, for
-    :func:`run_cell`'s capture.  ``layout="fsdp_seq"``
-    (pure FSDP over data x model with sequence-sharded activations) is
-    not ported."""
-    if layout != "tp":
-        raise NotImplementedError(
-            f"layout={layout!r}: pure FSDP with sequence-sharded "
-            "activations needs a sequence-sharded carry for mamba and "
-            "attention, which the port has not (ROADMAP.md, queue 1: the "
-            "tooling item's fsdp_seq)")
+    :func:`run_cell`'s capture.
+
+    ``layout``: ``"tp"`` (TP + EP over ``model``, FSDP over the data axes
+    for the large archs) or ``"fsdp_seq"`` (pure FSDP over data x model,
+    the sequence split over ``model``: ``models.lm.LanguageModel``; FSDP
+    always, the optimizer and the microbatches decided as under ``"tp"``).
+    ``moe_impl``: ``"ep_local"`` under ``"tp"`` and ``"scatter"`` under
+    ``"fsdp_seq"`` when ``None`` (``"ep_local"`` there raises)."""
+    if layout not in ("tp", "fsdp_seq"):
+        raise ValueError(f"unknown layout {layout!r}; 'tp' or 'fsdp_seq'")
+    seq = layout == "fsdp_seq"
+    if moe_impl is None:
+        moe_impl = "scatter" if seq else "ep_local"
     # blockwise attention stays rank-local for prefill via KV expansion
     # and TP-aligned head padding (the reference's confirmed defaults)
     if shape.kind == "prefill" and cfg.n_heads and cfg.n_kv_heads:
@@ -180,16 +188,20 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
     # the data axes' group (of a flattened sub-mesh on the multi-pod mesh)
     # is made on first use, which must not be under the fake mode
     sharding.axes_group(mesh, sharding.data_axes(mesh))
+    if seq:
+        sharding.axes_group(mesh, sharding.seq_axes(mesh))
     whole = factory.abstract_leaves(cfg)
     threshold = FSDP_TRAIN_BYTES if shape.kind == "train" \
         else FSDP_SERVE_BYTES
     _, used_fsdp = sharding.fsdp_pspecs(whole, sharding.param_pspecs(whole),
                                         mesh, threshold=threshold)
+    used_fsdp = used_fsdp or seq
 
     def build():
         gen = torch.Generator(device=dev).manual_seed(0)
         return factory.make_model(cfg, moe_impl=moe_impl, device=dev,
-                                  generator=gen, mesh=mesh, fsdp=used_fsdp)
+                                  generator=gen, mesh=mesh, fsdp=used_fsdp,
+                                  layout=layout)
 
     model = graph.abstract(build) if abstract else build()
     params = reference_leaves(model)
@@ -233,8 +245,8 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
     rows = next(iter(mine.values())).shape[0]
 
     def caches_of():
-        return init_caches(cfg, rows, shape.seq_len, dev,
-                           sharding.model_axis(mesh))
+        return init_caches(cfg, rows, shape.seq_len, dev, model.tp,
+                           model.seq)
     caches = graph.abstract(caches_of) if abstract else caches_of()
 
     @torch.no_grad()
@@ -272,21 +284,25 @@ def _memory(step: Step, args, captured, mesh) -> dict:
 
 def run_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
              save_hlo_dir: pathlib.Path | None = None,
-             n_micro: int | None = None, fold: bool = True) -> dict:
+             n_micro: int | None = None, fold: bool = True,
+             layout: str = "tp", moe_impl: str | None = None,
+             retry: bool = True) -> dict:
     """Build and capture one cell on ``mesh`` (rank 0's view; the process
     group must be the mesh's, a fake one of its size will do); returns its
     record.  ``save_hlo_dir``: trace the step's graph and save its code
     there, gzipped (``compile_s`` is 0.0 without it).  ``fold``: capture
     one microbatch of a train step and count it ``n_micro`` times
     (``core.graph.folded``), the same record as the unrolled capture's.
+    ``layout`` and ``moe_impl``: :func:`build_step`'s.
 
     Training cells that exceed the card's memory retry with doubled
     microbatching (adaptive activation-residency tuning) before reporting
-    a misfit."""
+    a misfit (``retry=False``: they report it)."""
     rec = {"arch": cfg.name, "shape": shape.name, "mesh": _mesh_name(mesh),
            "kind": shape.kind, "status": "ok"}
     t0 = time.time()
     step, args, meta = build_step(cfg, shape, mesh, n_micro=n_micro,
+                                  layout=layout, moe_impl=moe_impl,
                                   device="cpu", abstract=True)
     rec.update(meta)
     captured = graph.capture(step, *args, name=f"{cfg.name}__{shape.name}",
@@ -338,17 +354,18 @@ def run_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
 
     # adaptive retry: a training cell that misses the card's memory
     # doubles its microbatch count (up to one sequence per device)
-    if shape.kind == "train" and not rec["memory"]["fits_hbm"]:
+    if retry and shape.kind == "train" and not rec["memory"]["fits_hbm"]:
         per_dev = max(1, shape.global_batch // dp)
         cur = rec.get("n_micro", 1)
         if cur < per_dev:
-            retry = run_cell(cfg, shape, mesh, save_hlo_dir=save_hlo_dir,
-                             n_micro=min(per_dev, cur * 2), fold=fold)
-            retry.setdefault("retries", []).append(
+            again = run_cell(cfg, shape, mesh, save_hlo_dir=save_hlo_dir,
+                             n_micro=min(per_dev, cur * 2), fold=fold,
+                             layout=layout, moe_impl=moe_impl)
+            again.setdefault("retries", []).append(
                 {"n_micro": cur,
                  "live_bytes_device_estimate":
                      rec["memory"]["live_bytes_device_estimate"]})
-            return retry
+            return again
 
     if save_hlo_dir is not None:
         save_hlo_dir.mkdir(parents=True, exist_ok=True)

@@ -2,7 +2,10 @@
 JAX package's ``launch/train.py``, on one device or over the ranks of a
 mesh: data parallelism over its data axes (AdamW's moments ZeRO-1-sharded
 by default) and tensor parallelism over its ``model`` axis (the model
-built on the mesh; MoE archs dispatch ``ep_local``).
+built on the mesh; MoE archs dispatch ``ep_local``), or with
+``--layout fsdp_seq`` pure FSDP over every rank with the sequence split
+over ``model`` (``models.lm.LanguageModel``; MoE archs route
+``scatter``).
 
 Fault-tolerance contract:
   * restart-safe: on launch, restores the latest checkpoint if present;
@@ -21,7 +24,7 @@ trainer builds it; it runs on the card unless ``device`` names another.
     python -m repro_torch.launch.train --arch qwen2.5-3b --reduced --steps 20
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --arch qwen2.5-3b --reduced --steps 20 \
-        --mesh 2,2 --backend gloo --device cpu
+        --mesh 2,2 --backend gloo --device cpu [--layout fsdp_seq]
 """
 from __future__ import annotations
 
@@ -106,24 +109,25 @@ def train(cfg, shape: ShapeConfig, n_steps: int,
           ckpt_dir=None, ckpt_every: int = 50, restore: bool = True,
           log_every: int = 10, seed: int = 0,
           fail_at_step: int | None = None, device="cuda", mesh=None,
-          zero1: bool = True):
+          zero1: bool = True, layout: str = "tp"):
     """Returns (the trained model, history list of dicts).
 
     ``mesh``: data parallelism over its data axes and tensor parallelism
     over its ``model`` axis (every rank of the process group calls
     :func:`train` with the same arguments; each takes its data rows of
-    every global batch); ``zero1``: AdamW's moments as each rank's block.  A history entry holds the step's loss (the global
-    batch's), grad norm, lr, its wall time ``step_s`` and this rank's
-    moment bytes."""
+    every global batch); ``zero1``: AdamW's moments as each rank's block;
+    ``layout``: ``"tp"`` or ``"fsdp_seq"`` (``LanguageModel``).  A history
+    entry holds the step's loss (the global batch's), grad norm, lr, its
+    wall time ``step_s`` and this rank's moment bytes."""
     dev = factory.torch_device(device)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=n_steps)
     rank = 0
     if mesh is not None:
         rank = dist.get_rank()
-    tp = sharding.model_axis(mesh) is not None
+    tp = sharding.model_axis(mesh) is not None and layout == "tp"
     model = factory.make_model(
         cfg, device=dev, generator=torch.Generator(device=dev)
-        .manual_seed(seed), mesh=mesh,
+        .manual_seed(seed), mesh=mesh, layout=layout,
         moe_impl="ep_local" if tp and cfg.n_experts else "scatter")
     data = make_data(cfg, shape, seed=seed, device=dev)
     params = reference_leaves(model)
@@ -211,6 +215,9 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the arch to this many layers")
     ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--layout", default="tp", choices=("tp", "fsdp_seq"),
+                    help="with --mesh: tensor parallelism over model, or "
+                    "pure FSDP with the sequence split over model")
     ap.add_argument("--summary", action="store_true",
                     help="print one JSON line per rank: history, moment "
                     "and peak device bytes")
@@ -243,7 +250,7 @@ def main(argv=None) -> int:
                            ckpt_every=args.ckpt_every,
                            log_every=args.log_every,
                            fail_at_step=args.fail_at_step, device=dev,
-                           mesh=mesh)
+                           mesh=mesh, layout=args.layout)
         if args.summary:
             # one write per line: ranks share the launcher's stdout, and an
             # unbuffered print writes the text and its newline apart

@@ -23,6 +23,13 @@ use: ``stack_apply`` inside a pattern period's checkpointed ``_block``
 (the recompute gathers again in the backward pass, as XLA re-gathers a
 scanned layer, and only one period is whole at a time), ``stack_prefill``
 and ``stack_decode`` layer by layer.
+
+``seq`` (a ``sharding.SeqAxis``, the ``"fsdp_seq"`` layout, with no
+``mesh``): the residual is this rank's block of the positions (the
+reference pins it to ``P(data, model, None)``), ``positions`` its global
+positions; every mixer hands off over ``model`` (``models.layers``,
+``models.mamba``), the MoE layers route the global batch
+(``models.moe``), and the decode caches hold L / R positions a rank.
 """
 from __future__ import annotations
 
@@ -119,7 +126,8 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator,
 
 # -------------------------------------------------------------------- apply
 def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
-         per_row: bool = False, mesh=None):
+         per_row: bool = False, mesh=None, seq=None,
+         replicated: bool = False, need_aux: bool = True):
     """The layer's FFN half: (x, MoE aux loss or 0)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "dense":
@@ -129,41 +137,44 @@ def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
     elif spec.ffn == "moe":
         h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
         y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl,
-                             per_row=per_row, mesh=mesh)
+                             per_row=per_row, mesh=mesh, seq=seq,
+                             replicated=replicated, need_aux=need_aux)
         x = x + y
     return x, aux
 
 
 def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
-                 use_kernel: bool, moe_impl: str, mesh=None):
+                 use_kernel: bool, moe_impl: str, mesh=None, seq=None):
     tp = sharding.model_axis(mesh)
     if spec.mixer == "attn":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
         x = x + layers.attention_block(p["attn"], h, cfg, positions,
-                                       use_kernel=use_kernel, tp=tp)
+                                       use_kernel=use_kernel, tp=tp, seq=seq)
     elif spec.mixer == "mamba":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
         x = x + mamba.mamba_block(p["mamba"], h, cfg, use_kernel=use_kernel,
-                                  tp=tp)
-    return _ffn(p, spec, x, cfg, moe_impl, mesh=mesh)
+                                  tp=tp, seq=seq)
+    return _ffn(p, spec, x, cfg, moe_impl, mesh=mesh, seq=seq)
 
 
 def _block(layers_, x, aux, cfg: ArchConfig, positions, use_kernel: bool,
-           moe_impl: str, mesh=None):
+           moe_impl: str, mesh=None, seq=None):
     """The layers of one pattern period; the aux loss is carried through,
     as the reference's scan carries it."""
     for layer in map(fsdp.view, layers_):
         x, a = _apply_layer(layer, layer.spec, x, cfg, positions, use_kernel,
-                            moe_impl, mesh)
+                            moe_impl, mesh, seq)
         aux = aux + a
     return x, aux
 
 
 def stack_apply(stack, x, cfg: ArchConfig, positions=None,
                 use_kernel: bool = False, moe_impl: str = "scatter",
-                mesh=None):
+                mesh=None, seq=None):
     """Forward through the whole stack.  Returns (x, total_aux_loss).
-    ``mesh``: tensor and expert parallelism over its ``model`` axis.
+    ``mesh``: tensor and expert parallelism over its ``model`` axis;
+    ``seq``: sequence sharding (``x`` this rank's block, ``positions``
+    global).
 
     With ``cfg.remat`` and grad enabled, each pattern period (the
     reference's scanned block) is checkpointed: only its input is kept for
@@ -177,7 +188,7 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, len(stack), P):
         args = (stack[i:i + P], x, aux, cfg, positions, use_kernel, moe_impl,
-                mesh)
+                mesh, seq)
         x, aux = checkpoint(_block, *args, use_reentrant=False) if remat \
             else _block(*args)
     return x, aux
@@ -185,14 +196,17 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
 
 # ----------------------------------------------------------- prefill/decode
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
-                tp=None):
+                tp=None, seq=None):
     """Zeroed decode caches, one entry per layer: attention -> {"k": (B,
     max_len, Hkv, D), "v": ...}; mamba -> MambaState; FFN-only -> None.
     With ``tp`` (a ``sharding.ModelAxis``): this rank's block of each
-    (``sharding.cache_layout``)."""
+    (``sharding.cache_layout``); with ``seq``: the attention caches' block
+    of ``max_len / R`` positions, the mamba states whole."""
     dt = layers.dtype_of(cfg)
     heads = layers.attn_heads(cfg, tp)
     nkv = cfg.n_kv_heads if heads is None else len(heads.kv)
+    if seq is not None:
+        max_len = seq.block(max_len, f"{cfg.name}'s decode cache")
     shape = (batch, max_len, nkv, cfg.resolved_head_dim)
     caches = []
     for spec in layer_specs(cfg):
@@ -208,34 +222,43 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
 
 def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
                   use_kernel: bool = False, moe_impl: str = "scatter",
-                  mesh=None):
-    """Forward producing decode caches (k/v padded to ``max_len``)."""
-    S = x.shape[1]
+                  mesh=None, seq=None, positions=None):
+    """Forward producing decode caches (k/v padded to ``max_len``; with
+    ``seq``, this rank's block of ``max_len / R`` positions of them, cut
+    from the k / v its attention gathered, with no more communication)."""
     tp = sharding.model_axis(mesh)
+    if seq is not None:
+        Lc = seq.block(max_len, f"{cfg.name}'s decode cache")
     caches = []
     for layer in map(fsdp.view, stack):
         spec = layer.spec
         if spec.mixer == "attn":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, k, v = layers.attention_prefill(layer["attn"], h, cfg,
-                                                 use_kernel, tp)
+                                                 use_kernel, tp, seq,
+                                                 positions)
             x = x + out
-            pad = (0, 0, 0, 0, 0, max_len - S)
-            caches.append({"k": F.pad(k, pad), "v": F.pad(v, pad)})
+            pad = (0, 0, 0, 0, 0, max_len - k.shape[1])
+            k, v = F.pad(k, pad), F.pad(v, pad)
+            if seq is not None:
+                k = k[:, seq.rank * Lc:(seq.rank + 1) * Lc].contiguous()
+                v = v[:, seq.rank * Lc:(seq.rank + 1) * Lc].contiguous()
+            caches.append({"k": k, "v": v})
         elif spec.mixer == "mamba":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, state = mamba.mamba_prefill(layer["mamba"], h, cfg,
-                                             use_kernel, tp)
+                                             use_kernel, tp, seq)
             x = x + out
             caches.append(state)
         else:
             caches.append(None)
-        x, _ = _ffn(layer, spec, x, cfg, moe_impl, mesh=mesh)
+        x, _ = _ffn(layer, spec, x, cfg, moe_impl, mesh=mesh, seq=seq,
+                    need_aux=False)
     return x, caches
 
 
 def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
-                 moe_impl: str = "scatter", mesh=None):
+                 moe_impl: str = "scatter", mesh=None, seq=None):
     """One step through the stack.  x: (B, S, d); ``pos`` an int (the write
     index of the whole batch) or a (B,) tensor (one per row).  Attention
     caches are written in place; returns (x, caches).  With a position per
@@ -249,7 +272,8 @@ def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
         if spec.mixer == "attn":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, ck, cv = layers.attention_decode(layer["attn"], h, cfg,
-                                                  c["k"], c["v"], pos, tp)
+                                                  c["k"], c["v"], pos, tp,
+                                                  seq)
             x = x + out
             new_caches.append({"k": ck, "v": cv})
         elif spec.mixer == "mamba":
@@ -259,5 +283,6 @@ def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
             new_caches.append(state)
         else:
             new_caches.append(None)
-        x, _ = _ffn(layer, spec, x, cfg, moe_impl, per_row, mesh)
+        x, _ = _ffn(layer, spec, x, cfg, moe_impl, per_row, mesh, seq,
+                    replicated=True, need_aux=False)
     return x, new_caches

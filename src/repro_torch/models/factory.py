@@ -39,7 +39,8 @@ def torch_device(device) -> torch.device:
 def make_model(cfg: ArchConfig, use_kernel: bool = False,
                moe_impl: str = "scatter", device="cuda",
                generator: torch.Generator | None = None,
-               mesh=None, fsdp: bool = False) -> LanguageModel:
+               mesh=None, fsdp: bool = False,
+               layout: str = "tp") -> LanguageModel:
     """The model with its weights drawn on ``device`` from ``generator``
     (a fresh one seeded with 0 when None; it must live on ``device``).
     ``mesh`` (a ``DeviceMesh``): tensor and expert parallelism over its
@@ -47,14 +48,17 @@ def make_model(cfg: ArchConfig, use_kernel: bool = False,
     the whole model's and cut to this rank's block at once, so a rank's
     weights equal the whole model's and only one tensor at a time is
     ever whole.  ``fsdp``: each block is also cut over the mesh's data
-    axes (``LanguageModel``), likewise at once."""
+    axes (``LanguageModel``), likewise at once.  ``layout="fsdp_seq"``:
+    pure FSDP over every rank with the sequence split over ``model``
+    (``LanguageModel``)."""
     dev = torch_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif torch.device(generator.device).type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
     return LanguageModel(cfg, generator, use_kernel=use_kernel,
-                         moe_impl=moe_impl, mesh=mesh, fsdp=fsdp)
+                         moe_impl=moe_impl, mesh=mesh, fsdp=fsdp,
+                         layout=layout)
 
 
 def abstract_params(cfg: ArchConfig, mesh=None, fsdp: bool = False) -> dict:

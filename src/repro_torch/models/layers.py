@@ -16,6 +16,18 @@ every rank holds it.  A column-parallel product's input passes Megatron's
 ``model`` group); a row-parallel product's partial sums pass *g*
 (``transport.row_sum``: added in float32, then cast back).  A module
 whose heads or channels do not split over the ranks runs whole.
+
+Sequence sharding (``seq``, a ``parallel.sharding.SeqAxis``: the
+``"fsdp_seq"`` layout): each ``model`` rank holds a contiguous block of
+the positions, with its global positions for RoPE.  Attention gathers k
+and v along the sequence over ``model`` (``transport.gather_blocks``: one
+all-gather; the backward reduce-scatters dk and dv), and rank ``r``
+attends the first ``(r + 1) L / R`` keys with its queries at offset
+``r L / R`` (the kernel's ``q_offset``), so rank R-1 does R times rank 0's
+work: the load is not balanced (a zig-zag order would change which
+positions a rank holds).  The decode caches are split along L over
+``model``: :func:`attention_decode_seq` combines every rank's partial
+softmax ``(m, l, o)`` with one all-gather.
 """
 from __future__ import annotations
 
@@ -218,13 +230,15 @@ CHUNKED_ATTN_THRESHOLD = 2048
 
 
 def chunked_attention(q, k, v, causal: bool = True,
-                      q_block: int = 1024, kv_block: int = 1024):
+                      q_block: int = 1024, kv_block: int = 1024,
+                      q_offset: int = 0):
     """Blockwise streaming-softmax attention, the plain path for long
     sequences.
 
     q: (B, S, Hq, D); k/v: (B, T, Hkv, D).  Never materializes more than a
     (B, Hkv, g, q_block, kv_block) score tile; the running (max, denom, acc)
-    carry is the standard online-softmax recurrence.
+    carry is the standard online-softmax recurrence.  ``q_offset``: q's row
+    ``s`` is key position ``s + q_offset``.
     """
     from ..core.graph import folded, stand_ins
     B, S, Hq, D = q.shape
@@ -254,7 +268,8 @@ def chunked_attention(q, k, v, causal: bool = True,
                                      kc[:, ki]) * scale
                     if causal:
                         s = torch.where(
-                            (qi * qb + torch.arange(qb, device=q.device))
+                            (q_offset + qi * qb
+                             + torch.arange(qb, device=q.device))
                             [:, None] >= (ki * kb + torch.arange(
                                 kb, device=q.device))[None, :],
                             s, zero - math.inf)
@@ -278,7 +293,7 @@ def chunked_attention(q, k, v, causal: bool = True,
 
 
 def attention_block(p, x, cfg: ArchConfig, positions=None,
-                    use_kernel: bool = False, tp=None):
+                    use_kernel: bool = False, tp=None, seq=None):
     """Full-sequence (training / prefill) attention.
 
     With ``tp``, each rank attends with its query heads and the kv heads
@@ -288,12 +303,15 @@ def attention_block(p, x, cfg: ArchConfig, positions=None,
     ``_expand_and_pin_heads`` does, so the kernel's ``Hq % Hkv == 0``
     holds.  ``head_pad_multiple`` (padded query heads, zero-saddled) is in
     ``cfg.padded_heads``, which the heads are split from.  Neither changes
-    a value.
+    a value.  With ``seq``: this rank's block of the positions
+    (``positions`` global), against the keys gathered over ``model``.
     """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    if seq is not None:
+        return _attend_seq(q, k, v, seq, use_kernel)[0] @ p["wo"]
     heads = attn_heads(cfg, tp)
     k, v = _expand(k, v, heads, cfg.attn_expand_kv)
     return _out(_attend(q, k, v, use_kernel) @ p["wo"], tp, heads)
@@ -317,35 +335,62 @@ def _out(y, tp, split):
     return y if tp is None or split is None else transport.row_sum(y, tp.group)
 
 
-def _attend(q, k, v, use_kernel: bool):
-    """Causal attention over a whole sequence: the kernel, or the plain
-    paths split at :data:`CHUNKED_ATTN_THRESHOLD`.  The kernel's block sizes
-    are the sequence itself, which divides any length (the CUDA kernels
-    tile on their own; the wrapper's blocks only shape its checks), so a
-    prompt of any length runs on it."""
+def _attend(q, k, v, use_kernel: bool, q_offset: int = 0):
+    """Causal attention over a whole sequence (``q_offset``: of q's block
+    of it, against the keys up to the block's end): the kernel, or the
+    plain paths split at :data:`CHUNKED_ATTN_THRESHOLD`.  The kernel's
+    block sizes are the sequence itself, which divides any length (the
+    CUDA kernels tile on their own; the wrapper's blocks only shape its
+    checks), so a prompt of any length runs on it."""
     B, S = q.shape[:2]
+    T = k.shape[1]
     if use_kernel:
         out = fa_ops.flash_attention(q, k, v, causal=True, block_q=S,
-                                     block_k=k.shape[1])
+                                     block_k=T, q_offset=q_offset)
         return out.reshape(B, S, -1)
-    if S > CHUNKED_ATTN_THRESHOLD:
-        return chunked_attention(q, k, v, causal=True)
+    if max(S, T) > CHUNKED_ATTN_THRESHOLD:
+        return chunked_attention(q, k, v, causal=True, q_offset=q_offset)
+    if q_offset:
+        return gqa_attention(q, k, v, causal=True, kv_positions=torch.arange(
+            T, device=q.device), q_positions=q_offset + torch.arange(
+                S, device=q.device))
     return gqa_attention(q, k, v, causal=True)
 
 
+def _attend_seq(q, k, v, seq, use_kernel: bool):
+    """Rank ``r``'s block of causal attention under sequence sharding:
+    ``(out, k, v)``, k / v gathered whole along the sequence over
+    ``model`` in one all-gather (its backward reduce-scatters dk and dv),
+    of which the block's queries at offset ``r * S`` attend the first
+    ``(r + 1) * S``."""
+    S = q.shape[1]
+    kv = transport.gather_blocks(torch.stack([k, v]), seq.group, 2)
+    k, v = kv[0], kv[1]
+    end = (seq.rank + 1) * S
+    out = _attend(q, k[:, :end], v[:, :end], use_kernel, seq.rank * S)
+    return out, k, v
+
+
 def attention_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False,
-                      tp=None):
+                      tp=None, seq=None, positions=None):
     """Full-sequence attention that also returns the (k, v) cache rows:
-    ``(out, k (B, S, Hkv, D), v)`` (with ``tp``: this rank's kv heads)."""
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    ``(out, k (B, S, Hkv, D), v)`` (with ``tp``: this rank's kv heads; with
+    ``seq``: this rank's block of the positions ``positions``, and k / v of
+    the whole sequence, as gathered for the attention)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    if seq is not None:
+        out, k, v = _attend_seq(q, k, v, seq, use_kernel)
+        return out @ p["wo"], k, v
     heads = attn_heads(cfg, tp)
     out = _attend(q, *_expand(k, v, heads, cfg.attn_expand_kv),
                   use_kernel) @ p["wo"]
     return _out(out, tp, heads), k, v
 
 
-def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None):
+def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None,
+                     seq=None):
     """Decode step with a pre-filled KV cache; writes the new rows into
     ``cache_k`` / ``cache_v`` in place and attends over the whole cache.
 
@@ -355,8 +400,11 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None):
     batch or a (B,) tensor with one per row (the slots of a continuous
     engine, each at its own position).  Returns (out, cache_k, cache_v).
     With ``tp`` the caches hold this rank's kv heads
-    (``sharding.cache_layout``).
+    (``sharding.cache_layout``); with ``seq`` (:func:`attention_decode_seq`)
+    this rank's block of the positions.
     """
+    if seq is not None:
+        return attention_decode_seq(p, x, cfg, cache_k, cache_v, pos, seq)
     B, S = x.shape[0], x.shape[1]
     steps = torch.arange(S, device=x.device)
     if torch.is_tensor(pos) and pos.ndim == 1:
@@ -372,6 +420,51 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None):
     out = gqa_attention(q, *_expand(cache_k, cache_v, heads), causal=True,
                         kv_positions=kv_pos, q_positions=positions)
     return _out(out @ p["wo"], tp, heads), cache_k, cache_v
+
+
+def attention_decode_seq(p, x, cfg: ArchConfig, cache_k, cache_v, pos: int,
+                         seq):
+    """Decode under sequence sharding: the caches hold this rank's block
+    of ``L / R`` positions of the whole ``max_len`` (every kv head).  The
+    new tokens (the same on every ``model`` rank) are written by the rank
+    whose block holds their positions; every rank computes its partial
+    softmax ``(m, l, o)`` in float32 over its valid positions (an empty
+    block gives ``m = -inf``, ``l = 0``), and one all-gather over ``model``
+    combines them.  ``pos`` is an int: the whole batch at one position."""
+    if torch.is_tensor(pos) and pos.ndim:
+        raise NotImplementedError(
+            "layout='fsdp_seq' decodes a batch at one position; a position "
+            "per row (the continuous engines) has no sequence-sharded path")
+    B, S = x.shape[0], x.shape[1]
+    pos = int(pos)
+    positions = (pos + torch.arange(S, device=x.device)).expand(B, S)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    Lc = cache_k.shape[1]
+    lo = seq.rank * Lc
+    a, b = max(pos, lo), min(pos + S, lo + Lc)       # rows this rank owns
+    if a < b:
+        cache_k[:, a - lo:b - lo] = k[:, a - pos:b - pos]
+        cache_v[:, a - lo:b - lo] = v[:, a - pos:b - pos]
+    Hq, D = q.shape[2], q.shape[3]
+    Hkv = cache_k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bshgd,bthd->bhgst", qg, cache_k).float() / math.sqrt(D)
+    live = (pos + torch.arange(S, device=x.device))[:, None] >= (
+        lo + torch.arange(Lc, device=x.device))[None, :]       # (S, Lc)
+    s = s.masked_fill(~live, -math.inf)
+    m = s.amax(-1)                                             # (B,h,g,S)
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = e.sum(-1)
+    o = torch.einsum("bhgst,bthd->bhgsd", e, cache_v.float())
+    parts = transport.all_gather(torch.cat([o, m[..., None], l[..., None]],
+                                           -1), seq.group)
+    o, m, l = parts[..., :D], parts[..., D], parts[..., D + 1]
+    top = m.amax(0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - torch.where(
+        torch.isfinite(top), top, 0.0)), 0.0)                 # (R,B,h,g,S)
+    out = (w[..., None] * o).sum(0) / (w * l).sum(0)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * D).to(x.dtype)
+    return out @ p["wo"], cache_k, cache_v
 
 
 # ---------------------------------------------------------------------- MLPs

@@ -18,6 +18,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import fsdp, sharding, transport
@@ -44,21 +45,49 @@ class LanguageModel(nn.Module):
     ``fsdp``: each tensor is also cut over the data axes of ``mesh``
     (:func:`fsdp_plan`), its block set on the parameter as ``p.fsdp``; the
     layers, the embedding, the head and the final norm gather it where they
-    use it (``parallel.fsdp``)."""
+    use it (``parallel.fsdp``).
+
+    ``layout="fsdp_seq"`` (the reference's pure FSDP with
+    sequence-sharded activations; FSDP is implied): no tensor parallelism;
+    every tensor is cut over all ranks (``sharding.fsdp_seq_specs``) and
+    gathered whole where it is used, and each ``model`` rank runs its
+    contiguous block of ``L / R`` positions (``self.seq``, a
+    ``sharding.SeqAxis``), cut after :meth:`_embed_inputs`, at its global
+    positions.  The loss sums this rank's cross-entropy and divides by the
+    data shard's token count through one all-reduce over ``model``; the
+    logits of :meth:`forward` are gathered along the sequence; prefill
+    returns the last position's logits on every rank.  MoE layers route
+    with ``"scatter"`` or ``"dense"`` over the global batch
+    (``"ep_local"`` raises)."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  use_kernel: bool = False, moe_impl: str = "scatter",
-                 mesh=None, fsdp: bool = False):
+                 mesh=None, fsdp: bool = False, layout: str = "tp"):
         super().__init__()
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.moe_impl = moe_impl
         self.mesh = mesh
-        self.tp = tp = sharding.model_axis(mesh)
+        self.seq = None
+        if layout == "fsdp_seq":
+            if mesh is None:
+                raise ValueError("layout='fsdp_seq' needs a mesh")
+            if moe_impl == "ep_local" and cfg.n_experts:
+                raise ValueError(
+                    f"{cfg.name}: layout='fsdp_seq' gathers the experts "
+                    "whole; route with moe_impl='scatter' or 'dense' (got "
+                    "'ep_local')")
+            fsdp = True
+            self.seq = sharding.seq_axis(mesh)
+        elif layout != "tp":
+            raise ValueError(f"unknown layout {layout!r}; 'tp' or "
+                             "'fsdp_seq'")
+        self.tp = tp = None if self.seq is not None \
+            else sharding.model_axis(mesh)
         self.vocab = sharding.vocab_block(cfg, tp)
         if fsdp and mesh is None:
             raise ValueError("fsdp=True needs a mesh with data axes")
-        plan = fsdp_plan(cfg, mesh) if fsdp else {}
+        plan = fsdp_plan(cfg, mesh, layout) if fsdp else {}
         gen = generator
         dt = layers.dtype_of(cfg)
         keep = layers.whole
@@ -101,6 +130,8 @@ class LanguageModel(nn.Module):
                 blk = _block_of(plan, name)
                 if blk is not None:
                     p.fsdp = blk
+                elif self.seq is not None:
+                    p.seq_group = self.seq.group
 
     # ------------------------------------------------------------- embedding
     def _vocab_tp(self):
@@ -147,21 +178,65 @@ class LanguageModel(nn.Module):
                                                                tp.group)
 
     # --------------------------------------------------------------- forward
+    def _seq_block(self, x):
+        """This rank's block of the positions of ``x`` (B, L, d) and their
+        global positions (1, L / R)."""
+        n = self.seq.block(x.shape[1], self.cfg.name)
+        lo = self.seq.rank * n
+        pos = torch.arange(lo, lo + n, device=x.device)[None, :]
+        return x[:, lo:lo + n], pos
+
+    def _mixers(self):
+        """The stack's keyword arguments of this model's layout."""
+        if self.seq is not None:
+            return {"seq": self.seq}
+        return {"mesh": self.mesh}
+
     def _trunk(self, batch):
         x = self._embed_inputs(batch)
-        x, aux = blocks.stack_apply(self.stack, x, self.cfg,
+        positions = None
+        if self.seq is not None:
+            x, positions = self._seq_block(x)
+        x, aux = blocks.stack_apply(self.stack, x, self.cfg, positions,
                                     use_kernel=self.use_kernel,
-                                    moe_impl=self.moe_impl, mesh=self.mesh)
-        if self.cfg.frontend == "vision":
+                                    moe_impl=self.moe_impl, **self._mixers())
+        if self.cfg.frontend == "vision" and self.seq is None:
             x = x[:, self.cfg.img_seq:]       # logits only over text positions
         return x, aux
 
     def forward(self, batch):
         """Training-shape forward.  Returns (logits, aux_loss); under
         tensor parallelism the logits are gathered over ``model`` for the
-        caller (every rank returns them whole)."""
+        caller (every rank returns them whole), and under ``"fsdp_seq"``
+        along the sequence."""
         x, aux = self._trunk(batch)
-        return self._head(x), aux
+        if self.seq is None:
+            return self._head(x), aux
+        logits = transport.gather_whole(self._head_local(x), self.seq.group,
+                                        1)
+        if self.cfg.frontend == "vision":
+            logits = logits[:, self.cfg.img_seq:]
+        return logits, aux
+
+    def _seq_loss(self, x, aux, targets):
+        """The ``"fsdp_seq"`` loss: this rank's positions' cross-entropy
+        summed, all-reduced over ``model`` and divided by the data shard's
+        target count (vision: image positions carry no target)."""
+        logits = self._head_local(x).float()
+        n = targets.numel()
+        if self.cfg.frontend == "vision":
+            img = self.cfg.img_seq
+            targets = F.pad(targets, (img, 0))
+        lo = self.seq.rank * x.shape[1]
+        t = targets[:, lo:lo + x.shape[1]]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, t[..., None])[..., 0]
+        ce = lse - gold
+        if self.cfg.frontend == "vision":
+            pos = lo + torch.arange(x.shape[1], device=x.device)
+            ce = ce * (pos >= self.cfg.img_seq)
+        ce = transport.sum_forward(ce.sum(), self.seq.group) / n
+        return ce + 0.01 * aux
 
     def loss(self, batch):
         """Mean next-token cross-entropy (+0.01 * MoE aux loss).  Under
@@ -169,8 +244,10 @@ class LanguageModel(nn.Module):
         block (``transport.vocab_cross_entropy``): the logits are never
         gathered."""
         x, aux = self._trunk(batch)
-        logits = self._head_local(x)
         targets = batch["targets"].long()
+        if self.seq is not None:
+            return self._seq_loss(x, aux, targets)
+        logits = self._head_local(x)
         tp, lo = self._vocab_tp()
         if tp is not None:
             ce = transport.vocab_cross_entropy(logits, targets, lo, tp.group)
@@ -192,8 +269,23 @@ class LanguageModel(nn.Module):
         padding, and decode overwrites the stale cache rows at padded
         positions before they are ever attended.  With ``use_kernel`` the
         attention and Mamba layers run the CUDA kernels, at any length.
+        Under ``"fsdp_seq"`` the caches are this rank's blocks, and the
+        last position's logits (rank R-1's) are returned on every rank;
+        ``last_index`` raises there (no engine runs that layout).
         """
         x = self._embed_inputs(batch)
+        if self.seq is not None:
+            if last_index is not None:
+                raise NotImplementedError(
+                    "layout='fsdp_seq' prefill returns the last position; "
+                    "last_index (the bucketed prefill of the continuous "
+                    "engines) has no sequence-sharded path")
+            x, positions = self._seq_block(x)
+            x, caches = blocks.stack_prefill(
+                self.stack, x, self.cfg, max_len, use_kernel=self.use_kernel,
+                moe_impl=self.moe_impl, seq=self.seq, positions=positions)
+            last = transport.all_gather(x[:, -1:], self.seq.group)[-1]
+            return self._head(last), caches
         x, caches = blocks.stack_prefill(self.stack, x, self.cfg, max_len,
                                          use_kernel=self.use_kernel,
                                          moe_impl=self.moe_impl,
@@ -216,14 +308,15 @@ class LanguageModel(nn.Module):
         x = self._embed_inputs(batch)
         x, caches = blocks.stack_decode(self.stack, caches, x, self.cfg, pos,
                                         moe_impl=self.moe_impl,
-                                        mesh=self.mesh)
+                                        **self._mixers())
         return self._head(x), caches
 
     def init_caches(self, batch_size: int, max_len: int):
         """Zeroed decode caches (this rank's block of each under tensor
-        parallelism: ``sharding.cache_layout``)."""
+        parallelism: ``sharding.cache_layout``; under ``"fsdp_seq"``, its
+        block of the positions)."""
         return blocks.init_caches(self.cfg, batch_size, max_len, self.device,
-                                  self.tp)
+                                  self.tp, self.seq)
 
     @property
     def device(self) -> torch.device:
@@ -271,11 +364,13 @@ class _Sizes:
 
 
 @functools.lru_cache(maxsize=None)
-def _fsdp_specs(cfg: ArchConfig, names: tuple, shape: tuple) -> dict:
+def _fsdp_specs(cfg: ArchConfig, names: tuple, shape: tuple,
+                layout: str = "tp") -> dict:
     """``{short name: (the FSDP spec of its leaf, whether the leaf is
     stacked)}`` of ``cfg``'s whole model on a mesh of these axes
-    (``sharding.fsdp_specs``), from a model built under a fake mode (no
-    weight drawn).  Every layer of a stacked leaf has its spec, so a stack
+    (``sharding.fsdp_specs``; ``sharding.fsdp_seq_specs`` under
+    ``"fsdp_seq"``), from a model built under a fake mode (no weight
+    drawn).  Every layer of a stacked leaf has its spec, so a stack
     tensor is keyed by its name in the layer (``attn.wq``), as ``keep``
     names it."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -285,8 +380,10 @@ def _fsdp_specs(cfg: ArchConfig, names: tuple, shape: tuple) -> dict:
         named = list(model.named_parameters())
     leaves = leaves_of(cfg, named)
     whole = [sharding.WholeLeaf(leaf.path, leaf.shape) for leaf in leaves]
+    rule = sharding.fsdp_seq_specs if layout == "fsdp_seq" \
+        else sharding.fsdp_specs
     specs = dict(zip((leaf.path for leaf in leaves),
-                     sharding.fsdp_specs(whole, _Sizes(names, shape))))
+                     rule(whole, _Sizes(names, shape))))
     return {short_name(name): (specs[leaf_path(cfg, name)],
                                name.startswith("stack."))
             for name, _ in named}
@@ -298,15 +395,17 @@ def short_name(name: str) -> str:
     return name.split(".", 2)[2] if name.startswith("stack.") else name
 
 
-def fsdp_plan(cfg: ArchConfig, mesh) -> dict:
+def fsdp_plan(cfg: ArchConfig, mesh, layout: str = "tp") -> dict:
     """``{short name: sharding.FsdpBlock or None}``: this rank's block over
-    ``mesh``'s data axes of each port tensor under FSDP (keyed as
-    :func:`short_name` keys it), with the data axes' process group (every
-    rank must ask at the same point: a group over several axes is made on
-    first use)."""
+    ``mesh``'s data axes (under ``"fsdp_seq"``: the data axes and
+    ``model``) of each port tensor under FSDP (keyed as :func:`short_name`
+    keys it), with those axes' process group (every rank must ask at the
+    same point: a group over several axes is made on first use)."""
     specs = _fsdp_specs(cfg, tuple(mesh.mesh_dim_names),
-                        tuple(int(n) for n in mesh.shape))
-    group = sharding.axes_group(mesh, sharding.data_axes(mesh))
+                        tuple(int(n) for n in mesh.shape), layout)
+    axes = sharding.seq_axes(mesh) if layout == "fsdp_seq" \
+        else sharding.data_axes(mesh)
+    group = sharding.axes_group(mesh, axes)
     coord = mesh.get_coordinate()
     return {name: sharding.fsdp_block(s, stacked, mesh, coord, group)
             for name, (s, stacked) in specs.items()}

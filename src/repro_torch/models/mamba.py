@@ -24,6 +24,21 @@ r + 2N) partial sums are added in float32 over the ``model`` group before
 them, so their gradient is summed back too), then rounded to the model's
 dtype as the whole product is; ``out_proj``'s output is the one other
 all-reduce.
+
+Sequence sharding (``seq``, the ``"fsdp_seq"`` layout): each ``model``
+rank holds a contiguous block of the positions and every channel.  The
+depthwise conv reads the previous rank's last K-1 conv inputs (one
+all-gather of every rank's tail; rank 0 reads zeros, as the causal pad
+does).  The scan carries the state across blocks in two passes: pass 1
+scans the block from zero, giving ``h_end`` and the block's decay ``P =
+exp(A * sum_t dt_t)``; one all-gather of ``(h_end, P)`` gives rank r the
+state its block starts from, ``h_in = fold_{j<r}(h <- P_j h + h_end_j)``;
+pass 2 rescans the block from ``h_in`` (the kernel's ``h0``).  Both
+gathers' backward passes reduce-scatter, carrying the gradients into the
+earlier ranks' blocks.  Rank 0 runs one pass where no graph is built;
+under grad it rescans too, from its (zero) ``h_in``, so that every rank's
+graph holds the same collectives.  The decode state (the conv tail and the
+final state) is rank R-1's, held whole on every ``model`` rank.
 """
 from __future__ import annotations
 
@@ -89,10 +104,13 @@ def init_mamba(cfg: ArchConfig, gen: torch.Generator, keep=whole) -> Params:
                                         "A_log", "D", "out_proj")})
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv along time.  x: (B, L, di), w: (K, di)."""
+def _causal_conv(x, w, b, prev=None):
+    """Depthwise causal conv along time.  x: (B, L, di), w: (K, di);
+    ``prev`` (B, K-1, di): the K-1 inputs before x's first (zeros when
+    ``None``)."""
     K = w.shape[0]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    pad = F.pad(x, (0, 0, K - 1, 0)) if prev is None \
+        else torch.cat([prev, x], dim=1)
     out = torch.zeros_like(x)
     for k in range(K):
         out = out + pad[:, k: k + x.shape[1], :] * w[k]
@@ -129,16 +147,17 @@ def _ssm_inputs(p, x, cfg: ArchConfig, tp=None):
 SCAN_CHUNK = 128
 
 
-def selective_scan(x, dt, Bt, Ct, A, D, chunk: int = SCAN_CHUNK):
-    """``mamba_scan_ref`` from a zero state, each chunk of ``chunk`` steps
-    checkpointed (a length that ``chunk`` does not divide is one chunk, as
-    in the reference).  The same values, bit for bit."""
+def selective_scan(x, dt, Bt, Ct, A, D, chunk: int = SCAN_CHUNK, h0=None):
+    """``mamba_scan_ref`` from the state ``h0`` (zero when ``None``), each
+    chunk of ``chunk`` steps checkpointed (a length that ``chunk`` does not
+    divide is one chunk, as in the reference).  The same values, bit for
+    bit."""
     Bsz, L, d = x.shape
     if L % chunk:
         chunk = max(L, 1)
     xf = x.float()
     h = torch.zeros((Bsz, d, A.shape[-1]), dtype=torch.float32,
-                    device=x.device)
+                    device=x.device) if h0 is None else h0
     ys = []
     for s in range(0, L, chunk):
         y, h = checkpoint(scan_steps, xf[:, s:s + chunk], dt[:, s:s + chunk],
@@ -149,46 +168,98 @@ def selective_scan(x, dt, Bt, Ct, A, D, chunk: int = SCAN_CHUNK):
     return y + xf * D, h
 
 
-def _mix(p, x, cfg: ArchConfig, use_kernel: bool, tp=None):
+def _scan(xi, dt, Bt, Ct, A, D, use_kernel: bool, h0=None):
+    """The scan of one (block of a) sequence from ``h0``: the kernel (its
+    chunk the whole block), the checkpointed plain scan under grad, or the
+    plain scan."""
+    if use_kernel:
+        return ms_ops.mamba_scan(xi.float(), dt, Bt, Ct, A, D,
+                                 chunk=max(1, xi.shape[1]), h0=h0)
+    if torch.is_grad_enabled():
+        return selective_scan(xi, dt, Bt, Ct, A, D, h0=h0)
+    return mamba_scan_ref(xi, dt, Bt, Ct, A, D, h0)
+
+
+def _prev_tails(conv_in, K: int, seq):
+    """Every rank's last K-1 conv inputs, gathered along the sequence over
+    ``model`` (B, R (K-1), di), and the K-1 before this rank's block (the
+    previous rank's; zeros on rank 0, kept in the graph so that every
+    rank's backward runs the gather's reduce-scatter)."""
+    if conv_in.shape[1] < K - 1:
+        raise ValueError(f"a block of {conv_in.shape[1]} positions is "
+                         f"shorter than the conv's {K - 1}-input tail")
+    tails = transport.gather_blocks(conv_in[:, conv_in.shape[1] - (K - 1):],
+                                    seq.group, 1)
+    r = seq.rank
+    prev = tails.narrow(1, max(r - 1, 0) * (K - 1), K - 1)
+    return tails, prev if r else prev * 0.0
+
+
+def _seq_scan(xi, dt, Bt, Ct, A, D, seq, use_kernel: bool):
+    """The two-pass scan of this rank's block (module docstring)."""
+    y, h = _scan(xi, dt, Bt, Ct, A, D, use_kernel)
+    decay = torch.exp(A * dt.sum(1)[..., None])               # (B, di, N)
+    ends = transport.gather_blocks(torch.stack([h, decay]), seq.group, 0)
+    h_in = torch.zeros_like(h)
+    before = torch.arange(seq.size, device=h.device) < seq.rank
+    for j in range(seq.size):
+        h_in = torch.where(before[j], ends[2 * j + 1] * h_in + ends[2 * j],
+                           h_in)
+    if seq.rank or torch.is_grad_enabled():
+        y, h = _scan(xi, dt, Bt, Ct, A, D, use_kernel, h_in)
+    return y, h
+
+
+def _mix(p, x, cfg: ArchConfig, use_kernel: bool, tp=None, seq=None):
     """Full-sequence mixer: (out (B, L, d), conv inputs (B, L, di), final
-    scan state (B, di, N) f32).  The kernel's chunk is the whole sequence,
-    which divides any length (the CUDA kernel tiles on its own), so a
-    prompt of any length runs on it, unpadded: padding would enter the
-    final state.  With ``tp``: di is this rank's channels."""
+    scan state (B, di, N) f32, and with ``seq`` every rank's conv tail,
+    else ``None``).  The kernel's chunk is the whole sequence, which
+    divides any length (the CUDA kernel tiles on its own), so a prompt of
+    any length runs on it, unpadded: padding would enter the final state.
+    With ``tp``: di is this rank's channels; with ``seq``: this rank's
+    block of the positions, the final state its block's."""
     tp = channels(cfg, tp)
     if tp is not None:
         x = transport.sum_backward(x, tp.group)
     # the rank's in_proj block is [x_r | z_r], so one chunk splits it too
     conv_in, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B, L, di) each
-    xi = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    tails = prev = None
+    if seq is not None:
+        tails, prev = _prev_tails(conv_in, cfg.ssm_conv, seq)
+    xi = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"], prev))
     dt, Bt, Ct = _ssm_inputs(p, xi, cfg, tp)
     A = -torch.exp(p["A_log"])
-    if use_kernel:
-        y, h = ms_ops.mamba_scan(xi.float(), dt, Bt, Ct, A, p["D"],
-                                 chunk=max(1, xi.shape[1]))
-    elif torch.is_grad_enabled():
-        y, h = selective_scan(xi, dt, Bt, Ct, A, p["D"])
+    if seq is not None:
+        y, h = _seq_scan(xi, dt, Bt, Ct, A, p["D"], seq, use_kernel)
     else:
-        y, h = mamba_scan_ref(xi, dt, Bt, Ct, A, p["D"])
+        y, h = _scan(xi, dt, Bt, Ct, A, p["D"], use_kernel)
     y = y.to(x.dtype) * F.silu(z)
-    return _out(y @ p["out_proj"], tp), conv_in, h
+    return _out(y @ p["out_proj"], tp), conv_in, h, tails
 
 
 def _out(y, tp):
     return y if tp is None else transport.row_sum(y, tp.group)
 
 
-def mamba_block(p, x, cfg: ArchConfig, use_kernel: bool = False, tp=None):
+def mamba_block(p, x, cfg: ArchConfig, use_kernel: bool = False, tp=None,
+                seq=None):
     """Full-sequence mixer.  x: (B, L, d) -> (B, L, d)."""
-    return _mix(p, x, cfg, use_kernel, tp)[0]
+    return _mix(p, x, cfg, use_kernel, tp, seq)[0]
 
 
-def mamba_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False, tp=None):
+def mamba_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False, tp=None,
+                  seq=None):
     """Like ``mamba_block`` but also returns the decode state: the last
     K-1 conv inputs (zeros before the first, as the causal conv pads) and
-    the scan's final state (with ``tp``: this rank's channels)."""
-    out, conv_in, h = _mix(p, x, cfg, use_kernel, tp)
+    the scan's final state (with ``tp``: this rank's channels; with
+    ``seq``: rank R-1's, whole on every rank: its tail from the gathered
+    tails, its final state through one all-gather)."""
+    out, conv_in, h, tails = _mix(p, x, cfg, use_kernel, tp, seq)
     K = cfg.ssm_conv
+    if seq is not None:
+        last = transport.all_gather(h, seq.group)[-1]
+        return out, MambaState(conv=tails[:, tails.shape[1] - (K - 1):],
+                               ssm=last)
     tail = F.pad(conv_in, (0, 0, max(0, K - 1 - conv_in.shape[1]), 0))
     return out, MambaState(conv=tail[:, tail.shape[1] - (K - 1):], ssm=h)
 

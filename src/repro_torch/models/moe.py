@@ -28,12 +28,26 @@ The experts still run once, over every group's buffer.
 (``init_moe(..., keep=)``) and dispatches only to them; see
 :func:`moe_ffn_ep_local`.  Under tensor parallelism its input is the
 replicated residual every model rank holds.
+
+Sequence sharding (``seq``, the ``"fsdp_seq"`` layout,
+:func:`moe_ffn_seq`): the experts are gathered whole on every rank, and
+each rank holds its data shard's rows and its block of their positions.
+The reference routes each microbatch's global batch as one flat ``(B L,
+k)`` list, so the capacity is ``capacity(cfg, B_global L)`` and an
+assignment's rank within its expert counts every earlier assignment of
+the global list: those of the rows before it on every rank, those of its
+row's blocks on lower ``model`` ranks, and the earlier ones of this rank;
+one all-gather of every rank's per-(row, expert) counts gives them.  The
+same tokens drop as in the single-device reference.  The aux loss sums
+the top-1 counts and the router probabilities over every rank before the
+product.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..parallel import sharding, transport
@@ -242,13 +256,107 @@ def moe_ffn_ep_local(p, x, cfg: ArchConfig, mesh=None):
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
+# ---------------------------------------------------------------- fsdp_seq
+def _global_ranks(topi, E: int, seq, replicated: bool):
+    """Each of this rank's assignments' rank within its expert in the
+    global flat list ((B S k,), in this rank's flat order), and the global
+    token count.
+
+    ``topi`` (B, S, k): this rank's rows and positions.  ``replicated``:
+    every ``model`` rank holds the same tokens (decode), so only the data
+    ranks' tokens are distinct."""
+    B, S, k = topi.shape
+    flat = topi.reshape(B, S * k)
+    onehot = F.one_hot(flat, E)                                # (B, S k, E)
+    in_row = (onehot.cumsum(1) - 1).gather(2, flat[..., None])[..., 0]
+    counts = onehot.sum(1)                                     # (B, E)
+    R = seq.size
+    every = transport.all_gather(counts, seq.world)            # (W, B, E)
+    every = every.reshape(seq.n_data, R, B, E)
+    d = dist.get_rank(seq.world) // R
+    if replicated:
+        order = every[:, 0].reshape(seq.n_data * B, E)         # (d, row)
+        first = d * B
+        tokens = seq.n_data * B * S
+    else:                                                      # (d, row, m)
+        order = every.permute(0, 2, 1, 3).reshape(seq.n_data * B * R, E)
+        first = d * B * R + seq.rank
+        tokens = seq.n_data * R * B * S
+    before = order.cumsum(0) - order                           # exclusive
+    step = 1 if replicated else R
+    rows = before[first + step * torch.arange(B, device=topi.device)]
+    ranks = rows.gather(1, flat) + in_row                      # (B, S k)
+    return ranks.reshape(-1), tokens
+
+
+def moe_ffn_seq(p, x, cfg: ArchConfig, impl: str, seq,
+                replicated: bool = False, need_aux: bool = True):
+    """The MoE layer under sequence sharding (module docstring).  ``x``
+    (B, S, d): this rank's rows and block of positions (``replicated``:
+    the same tokens on every ``model`` rank, as decode runs them); ``p``
+    holds every expert.  Each rank fills a buffer of its own kept
+    assignments (those of global rank below C are a prefix of its
+    assignments to each expert, in order), runs every expert over it and
+    combines its tokens; no collective moves activations.  Without
+    ``need_aux`` (prefill, decode) the aux loss is 0, with no all-reduce."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    xf = x.reshape(T, d)
+    topw, topi, logits = _route(p, xf, cfg)
+    ranks, tokens = _global_ranks(topi.reshape(B, S, k), E, seq, replicated)
+    C = capacity(cfg, tokens)
+    flat_e, onehot, local = _ranks(topi, E, 1)
+    keep = ranks < C
+    Cl = min(C, T * k)                     # this rank's kept, per expert
+    xr = xf.repeat_interleave(k, dim=0)
+    if impl == "dense":
+        slots = torch.arange(E * Cl, device=x.device)
+        col = torch.where(keep, flat_e * Cl + local, E * Cl)
+        disp = (col[:, None] == slots).float()                 # (T k, E Cl)
+        buf = (disp.T @ xr.float()).to(x.dtype).reshape(E, Cl, d)
+        out = _expert_mlp(p, buf, cfg).reshape(E * Cl, d)
+        back = disp @ out.float()
+    else:
+        slot = torch.where(keep, flat_e * Cl + local, E * Cl)
+        buf = x.new_zeros((E * Cl + 1, d)).index_copy(0, slot, xr)[:E * Cl]
+        out = _expert_mlp(p, buf.reshape(E, Cl, d), cfg).reshape(E * Cl, d)
+        back = torch.cat([out, out.new_zeros((1, d))])[slot].float()
+    back = back * topw.reshape(-1)[:, None] * keep[:, None]
+    y = back.reshape(T, k, d).sum(1).to(x.dtype)
+    if not need_aux:
+        return y.reshape(B, S, d), torch.zeros((), device=x.device)
+    # aux: top-1 counts and probability sums over every rank, then E f.p
+    probs = torch.softmax(logits, dim=-1)
+    part = torch.stack([F.one_hot(topi[:, 0], E).float().sum(0),
+                        probs.sum(0)])
+    whole = transport.sum_forward_scaled(part, seq.world, seq.n_data)
+    n = tokens * (seq.size if replicated else 1)
+    aux = E * (whole[0] / n * (whole[1] / n)).sum()
+    return y.reshape(B, S, d), aux
+
+
 def moe_ffn(p, x, cfg: ArchConfig, impl: str = "scatter",
-            per_row: bool = False, mesh=None):
+            per_row: bool = False, mesh=None, seq=None,
+            replicated: bool = False, need_aux: bool = True):
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar).  ``per_row`` routes
     each batch row on its own (capacity and ranks per row, the aux loss
     over all rows).  ``impl="ep_local"`` dispatches over ``mesh``'s
-    ``model`` axis (:func:`moe_ffn_ep_local`)."""
+    ``model`` axis (:func:`moe_ffn_ep_local`).  ``seq``: routes the global
+    batch under sequence sharding (:func:`moe_ffn_seq`; ``replicated``:
+    the same tokens on every ``model`` rank; ``need_aux``: whether the
+    aux loss is used)."""
     B, S, d = x.shape
+    if seq is not None:
+        if impl not in ("dense", "scatter"):
+            raise NotImplementedError(
+                f"moe_impl={impl!r} under layout='fsdp_seq': the experts "
+                "are gathered whole and tokens route with 'scatter' or "
+                "'dense'")
+        if per_row:
+            raise NotImplementedError("per-row routing has no "
+                                      "sequence-sharded path")
+        return moe_ffn_seq(p, x, cfg, impl, seq, replicated, need_aux)
     if impl == "ep_local":
         if per_row:
             raise NotImplementedError(

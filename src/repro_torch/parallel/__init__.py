@@ -6,7 +6,7 @@ from .sharding import (DATA_AXES_SINGLE, DATA_AXES_MULTI, MODEL_AXIS,
                        data_axes, param_pspecs, batch_pspecs, cache_pspecs,
                        named, placements, zero1_pspecs, fsdp_pspecs,
                        FSDP_THRESHOLD_BYTES, sanitize_pspecs, layer_spec,
-                       local_shard, gather)
+                       local_shard, gather, fsdp_seq_specs)
 from .pipeline import (pipeline_apply, stage_block_counts,
                        compressed_psum)
 
@@ -15,4 +15,5 @@ __all__ = ["DATA_AXES_SINGLE", "DATA_AXES_MULTI", "MODEL_AXIS", "data_axes",
            "placements",
            "zero1_pspecs", "fsdp_pspecs", "FSDP_THRESHOLD_BYTES",
            "pipeline_apply", "stage_block_counts", "compressed_psum",
-           "sanitize_pspecs", "layer_spec", "local_shard", "gather"]
+           "sanitize_pspecs", "layer_spec", "local_shard", "gather",
+           "fsdp_seq_specs"]

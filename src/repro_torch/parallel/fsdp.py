@@ -17,8 +17,15 @@ parameter as ``p.fsdp``), and the layers read their parameters through
   reaches an FSDP leaf is therefore already summed over the data ranks
   (``train.loop`` divides it by their count and does not all-reduce it).
 
+Under ``"fsdp_seq"`` (``sharding.fsdp_seq_specs``) a block's group is every
+rank's (the data axes and ``model``), and each ``model`` rank computes only
+its positions' part of the gradient: the reduce-scatter over that group
+sums those parts too.  A parameter without a block under ``"fsdp_seq"``
+carries ``p.seq_group`` (the ``model`` group): its gradient is summed over
+that group on the way back (``transport.sum_backward``).
+
 Under gloo on the card both collectives are in ``transport.GLOO_CUDA``, so
-they take the direct route.  A tensor without a block passes as it is.
+they take the direct route.  Any other tensor passes as it is.
 """
 from __future__ import annotations
 
@@ -45,9 +52,13 @@ class _Gather(torch.autograd.Function):
 
 def gather(p: torch.Tensor) -> torch.Tensor:
     """``p`` whole over the data axes where it holds an FSDP block
-    (``p.fsdp``), else ``p`` itself."""
+    (``p.fsdp``), else ``p`` itself (its gradient summed over
+    ``p.seq_group`` where it has one)."""
     blk = getattr(p, "fsdp", None)
     if blk is None:
+        group = getattr(p, "seq_group", None)
+        if group is not None and torch.is_grad_enabled():
+            return transport.sum_backward(p, group)
         return p
     if torch.is_grad_enabled():
         return _Gather.apply(p, blk)

@@ -56,8 +56,9 @@ not split over R                               over R, so the module runs
                                                whole, with no collective
 decode caches      ``cache_pspecs``: L over    the kv heads the rank's query
 (attention, when   ``model`` (sequence-        heads read, over the whole
-Hkv % R != 0)      parallel cache)             length (a sequence-sharded
-                                               cache is not ported)
+Hkv % R != 0)      parallel cache)             length (under ``"tp"``; the
+                                               sequence-split cache is
+                                               ``"fsdp_seq"``'s, below)
 =================  ==========================  ===============================
 
 The fused ``wqkv`` / ``bqkv`` / ``w_gateup`` have no rule, so their spec
@@ -85,6 +86,44 @@ dim                stack: ``bq``, ``D``, ...)  rank is no block to gather; its
 =================  ==========================  ===============================
 
 :func:`fsdp_departures` names those leaves.
+
+The ``"fsdp_seq"`` layout (:func:`fsdp_seq_specs`, :class:`SeqAxis`):
+pure FSDP over every rank (data x model), no tensor parallelism, and the
+sequence split over ``model``: each ``model`` rank holds a contiguous
+block of ``L / R`` positions of every row of its data shard.  Every
+parameter is the block of ``sanitize(zero1_pspecs(P()-tree, axes=data +
+("model",)))`` (the reference's order), gathered whole over all ranks where
+it is used; its gradient is reduce-scattered over all ranks.  Its
+departures:
+
+=================  ==========================  ===============================
+leaf / state       the spec's block            the executed block, and why
+=================  ==========================  ===============================
+a stacked leaf     ``n_blocks / n`` whole      whole on every rank, as under
+whose entry is     layers                      FSDP above; its gradient is
+on the stack dim                               summed over ``model`` (each
+                                               rank's is of its positions)
+                                               and all-reduced over the data
+                                               axes
+attention decode   ``cache_pspecs``: heads     L over ``model``: contiguous
+caches (Hkv % R    over ``model``              blocks of ``max_len / R``
+== 0)                                          positions a rank, the bytes a
+                                               rank holds equal (a sequence-
+                                               sharded rank holds every head
+                                               of its positions)
+mamba decode       the channel dim over        whole on every ``model`` rank
+state              ``model``                   (rank R-1's, after the prompt;
+                                               small): decode runs the token
+                                               whole on every rank
+MoE                EP over ``model``           the experts gathered whole;
+(``moe_impl=                                   ``"ep_local"`` raises (tokens
+"ep_local"``)                                  route with ``"scatter"`` or
+                                               ``"dense"``, globally)
+``prefill(...,     the bucketed prefill's      raises: no engine runs this
+last_index=)``     last real position          layout
+=================  ==========================  ===============================
+
+:func:`fsdp_seq_departures` names the leaves of the first row.
 """
 from __future__ import annotations
 
@@ -866,3 +905,65 @@ def fsdp_departures(leaves, mesh) -> dict:
             out["/".join(map(str, leaf.path))] = (
                 "data axes on the stack dim: whole over the data axes")
     return out
+
+
+# ----------------------------------------------------------------- fsdp_seq
+def seq_axes(mesh) -> tuple:
+    """The axes ``"fsdp_seq"`` shards every parameter over: the data axes,
+    then ``model``."""
+    return tuple(data_axes(mesh)) + (MODEL_AXIS,)
+
+
+def fsdp_seq_specs(leaves, mesh) -> list:
+    """The specs of the ``"fsdp_seq"`` layout (the reference's pure FSDP):
+    ``sanitize_pspecs`` of ``zero1_pspecs`` of the empty specs over the
+    data axes and ``model`` together."""
+    return sanitize_pspecs(
+        leaves, zero1_pspecs(leaves, [spec()] * len(leaves), mesh,
+                             axes=seq_axes(mesh)), mesh)
+
+
+def fsdp_seq_departures(leaves, mesh) -> dict:
+    """``{leaf name: why}`` for the leaves whose executed ``"fsdp_seq"``
+    block departs from the spec's (the first row of the module docstring's
+    ``"fsdp_seq"`` table)."""
+    out = {}
+    for leaf, s in zip(leaves, fsdp_seq_specs(leaves, mesh)):
+        de = data_entry(s, mesh)
+        if de is not None and de[0] == 0 and leaf.path[0] == "stack":
+            out["/".join(map(str, leaf.path))] = (
+                "all ranks' axes on the stack dim: whole on every rank")
+    return out
+
+
+@dataclass(frozen=True)
+class SeqAxis:
+    """The sequence split of ``"fsdp_seq"``: the ``model`` axis's group,
+    its size R and this rank's coordinate r on it (the rank holds positions
+    ``[r * L / R, (r + 1) * L / R)`` of every row), and the group of every
+    rank (data axes, then ``model``: group rank ``d * R + r``) with the
+    data ranks' count."""
+
+    group: object
+    size: int
+    rank: int
+    world: object
+    n_data: int
+
+    def block(self, L: int, what: str = "the sequence") -> int:
+        """``L / R``, or a ``ValueError`` naming ``what``, ``L`` and R."""
+        if L % self.size:
+            raise ValueError(f"{what}: length {L} does not split over a "
+                             f"model axis of R = {self.size} (fsdp_seq)")
+        return L // self.size
+
+
+def seq_axis(mesh) -> SeqAxis:
+    """The :class:`SeqAxis` of ``mesh`` (with a ``model`` axis of 1, one
+    block: the whole sequence).  Every rank must ask at the same point: the
+    group over several axes is made on first use."""
+    world = axes_group(mesh, seq_axes(mesh))
+    R = axis_sizes(mesh)[MODEL_AXIS]
+    return SeqAxis(mesh.get_group(MODEL_AXIS), R,
+                   mesh.get_local_rank(MODEL_AXIS), world,
+                   axis_size(mesh, data_axes(mesh)))

@@ -242,9 +242,63 @@ class _MeanForward(torch.autograd.Function):
         return g, None
 
 
+class _SumForwardScaled(torch.autograd.Function):
+    """Forward: the sum over the group.  Backward: the gradient times
+    ``scale``: a sum over every rank whose result enters each data rank's
+    loss, which data parallelism then averages (``scale``: the data ranks'
+    count, so the average keeps the whole gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group, scale):
+        ctx.scale = scale
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None
+
+
 sum_forward = _SumForward.apply          # (x, group)
 sum_backward = _SumBackward.apply        # (x, group)
 mean_forward = _MeanForward.apply        # (x, group)
+sum_forward_scaled = _SumForwardScaled.apply     # (x, group, scale)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Forward: every rank's block concatenated along ``dim`` in group
+    order (one all-gather).  Backward: the gradient reduce-scattered back
+    to each rank's block: each rank's graph reads the whole for its own
+    part of the work (its queries, its positions), so the parts sum."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g.contiguous(), ctx.group, ctx.dim), \
+            None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """Forward: as :class:`_GatherBlocks`.  Backward: this rank's block of
+    the gradient: every rank computes the same function of the whole, so
+    each holds all of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+gather_blocks = _GatherBlocks.apply       # (x, group, dim)
+gather_whole = _GatherWhole.apply         # (x, group, dim)
 
 
 class _GatherLast(torch.autograd.Function):

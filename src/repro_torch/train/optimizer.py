@@ -108,12 +108,17 @@ def zero1_blocks(params, mesh) -> list:
     out its optimizer state (the dim a leaf's executed block splits over
     ``model`` is never picked: ``sharding.executed_pspecs``).  The block
     is of this rank's value of the leaf, whole along that dim.  Under FSDP
-    the specs are the FSDP layout's (``sharding.fsdp_specs``), and a leaf
-    with an FSDP block gets ``None``: its value is its moments' block."""
+    the specs are the FSDP layout's (``sharding.fsdp_specs``, or
+    ``sharding.fsdp_seq_specs`` where the blocks are over ``model`` too),
+    and a leaf with an FSDP block gets ``None``: its value is its moments'
+    block."""
     whole = [sharding.WholeLeaf(leaf.path, leaf.whole_shape)
              for leaf in params]
     fsdp = any(leaf.fsdp is not None for leaf in params)
-    base = sharding.fsdp_specs(whole, mesh) if fsdp \
+    seq = any(sharding.MODEL_AXIS in leaf.fsdp.axes for leaf in params
+              if leaf.fsdp is not None)
+    base = sharding.fsdp_seq_specs(whole, mesh) if seq \
+        else sharding.fsdp_specs(whole, mesh) if fsdp \
         else sharding.executed_pspecs(params, mesh)
     dp = sharding.data_axes(mesh)
     coord = mesh.get_coordinate()
@@ -151,8 +156,8 @@ def global_norm(leaves, params=None, mesh=None) -> torch.Tensor:
     ``model`` axis) the squares of the split leaves are summed over the
     ``model`` group, each entry weighted by 1 / the ranks holding it, and
     the leaves whole on every rank are counted once.  Under FSDP the
-    squares of the leaves with an FSDP block are also summed over the data
-    group."""
+    squares of the leaves with an FSDP block are also summed over their
+    blocks' group (the data axes; every rank under ``"fsdp_seq"``)."""
     axis = sharding.model_axis(mesh)
     fsdp = params is not None and mesh is not None \
         and any(p.fsdp is not None for p in params)
@@ -179,8 +184,8 @@ def global_norm(leaves, params=None, mesh=None) -> torch.Tensor:
     out = total[(False, False)] + over_model[0]
     if fsdp:
         over_data = total[(False, True)] + over_model[1]
-        out = out + sharding.transport.all_reduce(
-            over_data, sharding.axes_group(mesh, sharding.data_axes(mesh)))
+        group = next(p.fsdp.group for p in params if p.fsdp is not None)
+        out = out + sharding.transport.all_reduce(over_data, group)
     return out.sqrt()
 
 

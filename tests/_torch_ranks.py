@@ -321,15 +321,17 @@ def tp_decode(shape, names):
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
-def _train_model(cfg, mesh, tp, fsdp, optimizer, zero1):
-    """(model, leaves, optimizer state, ZeRO-1 blocks) of a reduced arch."""
+def _train_model(cfg, mesh, tp, fsdp, optimizer, zero1, layout="tp"):
+    """(model, leaves, optimizer state, ZeRO-1 blocks) of a reduced arch
+    (``layout="fsdp_seq"``: sequence-sharded pure FSDP on ``mesh``)."""
     from repro_torch.models import make_model
     from repro_torch.models.convert import reference_leaves
     from repro_torch.train.optimizer import (adafactor_init, adamw_init,
                                              zero1_blocks)
-    model = make_model(cfg, device="cpu", mesh=mesh if tp else None,
+    seq = layout == "fsdp_seq"
+    model = make_model(cfg, device="cpu", mesh=mesh if tp or seq else None,
                        moe_impl="ep_local" if tp and cfg.n_experts
-                       else "scatter", fsdp=fsdp,
+                       and not seq else "scatter", fsdp=fsdp, layout=layout,
                        generator=torch.Generator().manual_seed(0))
     params = reference_leaves(model)
     if optimizer == "adafactor":
@@ -338,7 +340,8 @@ def _train_model(cfg, mesh, tp, fsdp, optimizer, zero1):
     return model, params, adamw_init(params, blocks=blocks), blocks
 
 
-def _captured_schedule(cfg, mesh, fsdp, optimizer, zero1, batch):
+def _captured_schedule(cfg, mesh, fsdp, optimizer, zero1, batch,
+                       layout="tp"):
     """The collectives one rank counts for one train step, from a capture
     of the step on a model built under the captures' fake mode (no weight
     drawn): ``transport.as_counted`` of its ``CollectiveOp``s."""
@@ -347,7 +350,7 @@ def _captured_schedule(cfg, mesh, fsdp, optimizer, zero1, batch):
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.optimizer import AdamWConfig
     model, params, opt, _ = graph.abstract(_train_model, cfg, mesh, True,
-                                           fsdp, optimizer, zero1)
+                                           fsdp, optimizer, zero1, layout)
     opt["count"] = torch.zeros((), dtype=torch.int32)
     step = make_train_step(model.loss, AdamWConfig(**TRAIN_OPT), mesh=mesh,
                            zero1=zero1, optimizer=optimizer)
@@ -356,10 +359,11 @@ def _captured_schedule(cfg, mesh, fsdp, optimizer, zero1, batch):
 
 
 def dp_train(arch, zero1, steps, seq, shape=None, fsdp=False,
-             optimizer="adamw", schedule=False):
+             optimizer="adamw", schedule=False, layout="tp"):
     """``steps`` DP (+ ZeRO-1) train steps of a reduced arch over a (world,
     1) mesh (or a (data, model) mesh of ``shape``, tensor parallel, the
-    model built on it; ``fsdp``: also cut over the data axes), one row per
+    model built on it; ``fsdp``: also cut over the data axes;
+    ``layout="fsdp_seq"``: sequence-sharded pure FSDP instead), one row per
     data rank: losses, the whole leaves after (gathered), and this rank's
     moment bytes.  ``schedule``: also the collectives the first step
     counted (``transport.since``) and those of its capture."""
@@ -375,7 +379,7 @@ def dp_train(arch, zero1, steps, seq, shape=None, fsdp=False,
     mesh = _mesh(shape if tp else (n, 1))
     n = mesh.size(0)
     model, params, opt, blocks = _train_model(cfg, mesh, tp, fsdp,
-                                              optimizer, zero1)
+                                              optimizer, zero1, layout)
     step = make_train_step(model.loss, AdamWConfig(**TRAIN_OPT), mesh=mesh,
                            zero1=zero1, optimizer=optimizer)
     data = make_data(cfg, ShapeConfig("t", "train", seq, n), seed=0,
@@ -383,7 +387,7 @@ def dp_train(arch, zero1, steps, seq, shape=None, fsdp=False,
     out = {}
     if schedule:
         out["captured"] = _captured_schedule(cfg, mesh, fsdp, optimizer,
-                                             zero1, data.batch(0))
+                                             zero1, data.batch(0), layout)
     losses = []
     for i in range(steps):
         before = transport.snapshot()
@@ -460,6 +464,145 @@ def fsdp_model(shape, names):
                           for leaf in reference_leaves(models[1])),
             "counts": [m.param_count() for m in models],
             "whole_counts": [m.whole_param_count() for m in models]}
+    return out
+
+
+def _seq_model(cfg, mesh):
+    """A reduced arch built with ``layout="fsdp_seq"`` on ``mesh`` (seed
+    0, MoE layers routing with ``"scatter"``)."""
+    from repro_torch.models import make_model
+    return make_model(cfg, device="cpu", mesh=mesh, layout="fsdp_seq",
+                      generator=torch.Generator().manual_seed(0))
+
+
+def seq_model(shape, names, batch_shape):
+    """Every arch of ``names`` under ``"fsdp_seq"`` on a (data, model) mesh
+    of ``shape``: the logits of this rank's data rows (gathered along the
+    sequence), the loss, and every leaf's gradient through
+    ``loss_and_grads`` and ``reduce_over_data``, gathered whole (rank 0);
+    an arch whose length the ``model`` axis does not divide records the
+    ``ValueError``'s message."""
+    from repro_torch.models import make_inputs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.train.loop import (data_group, local_batch,
+                                        loss_and_grads, reduce_over_data)
+    mesh = _mesh(shape)
+    group, n_data = data_group(mesh)
+    out = {}
+    for name in names:
+        cfg = _tp_cfg(name)
+        model = _seq_model(cfg, mesh)
+        b = local_batch(make_inputs(cfg, ShapeConfig("t", "train",
+                                                     batch_shape[1],
+                                                     batch_shape[0]),
+                                    device="cpu"), mesh)
+        leaves = reference_leaves(model)
+        with torch.no_grad():
+            logits, aux = model(b)
+        loss, grads = loss_and_grads(model.loss, leaves, b)
+        loss, grads = reduce_over_data(loss, grads, group, n_data,
+                                       [leaf.fsdp is not None
+                                        for leaf in leaves])
+        gathered = [leaf.gather(g) for leaf, g in zip(leaves, grads)]
+        res = {"logits": logits.numpy(), "loss": float(loss),
+               "aux": float(aux), "coord": mesh.get_coordinate(),
+               "n_fsdp": sum(leaf.fsdp is not None for leaf in leaves)}
+        if dist.get_rank() == 0:
+            res["grads"] = [g.numpy() for g in gathered]
+        out[name] = res
+    return out
+
+
+def _gathered_caches(caches, seq) -> list:
+    """The decode caches whole: the attention caches' blocks gathered
+    along the positions over ``model``, the mamba states as they are."""
+    from repro_torch.parallel import transport
+    out = []
+    for c in caches:
+        if isinstance(c, dict):
+            out.append({k: transport.all_gather_dim(v, seq.group, 1)
+                        for k, v in c.items()})
+        else:
+            out.append(c)
+    return out
+
+
+def seq_decode(shape, names):
+    """``"fsdp_seq"`` ``prefill`` of this rank's rows of a (2, 12) prompt
+    (seed 7) and 8 greedy ``decode_step``s on a (data, model) mesh of
+    ``shape``: the 9 tokens of its rows, the block of positions its
+    attention caches hold, and the gathered prefill caches' largest
+    distance to the whole model's (one process, same seed)."""
+    from repro_torch.models import make_model
+    from repro_torch.train.loop import local_batch
+    mesh = _mesh(shape)
+    prompt = torch.tensor(np.random.default_rng(7).integers(
+        0, 256, TP_PROMPT), dtype=torch.int32)
+    out = {}
+    for name in names:
+        cfg = _tp_cfg(name)
+        model = _seq_model(cfg, mesh)
+        whole = make_model(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+        mine = local_batch({"tokens": prompt}, mesh)
+        with torch.no_grad():
+            logits, caches = model.prefill(mine, TP_MAX_LEN)
+            got = _gathered_caches(caches, model.seq)
+            _, want = whole.prefill({"tokens": prompt}, TP_MAX_LEN)
+            n = mine["tokens"].shape[0]
+            lo = mesh.get_coordinate()[0] * n
+            want = [None if w is None else
+                    {k: v[lo:lo + n] for k, v in w.items()}
+                    if isinstance(w, dict) else [v[lo:lo + n] for v in w]
+                    for w in want]
+            cache_err = max((float((a - b).abs().max())
+                             for c, w in zip(got, want) if c is not None
+                             for a, b in zip(c.values() if isinstance(c, dict)
+                                             else c, w.values()
+                                             if isinstance(w, dict) else w)),
+                            default=0.0)
+            toks = [logits.argmax(-1)]
+            for i in range(TP_NEW - 1):
+                logits, caches = model.decode_step(
+                    caches, {"tokens": toks[-1]}, TP_PROMPT[1] + i)
+                toks.append(logits.argmax(-1))
+        try:
+            model.prefill({"tokens": prompt[:, :9]}, TP_MAX_LEN)
+            odd = ""
+        except ValueError as e:
+            odd = str(e)
+        out[name] = {"tokens": torch.cat(toks, 1).numpy(),
+                     "coord": mesh.get_coordinate(), "odd_length": odd,
+                     "cache_len": next((c["k"].shape[1] for c in caches
+                                        if isinstance(c, dict)), None),
+                     "cache_err": cache_err}
+    return out
+
+
+def seq_moe(shape, p, x, capacity_factor):
+    """``moe_ffn`` under ``"fsdp_seq"`` (scatter and dense) of this rank's
+    rows and block of positions of ``x`` (B, L, d), the reduced
+    phi3.5-moe at ``capacity_factor``: its output block, the aux loss, and
+    which of its assignments (flat (B_r L_r, k) order) were kept."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding
+    cfg = _moe_cfg().replace(capacity_factor=capacity_factor)
+    mesh = _mesh(shape)
+    seq = sharding.seq_axis(mesh)
+    pt = {k: torch.tensor(v) for k, v in p.items()}
+    d_rank, m_rank = mesh.get_coordinate()
+    B, L = x.shape[0] // shape[0], x.shape[1] // shape[1]
+    xb = torch.tensor(x[d_rank * B:(d_rank + 1) * B,
+                        m_rank * L:(m_rank + 1) * L])
+    out = {"coord": mesh.get_coordinate()}
+    for impl in ("scatter", "dense"):
+        y, aux = moe.moe_ffn(pt, xb, cfg, impl=impl, seq=seq)
+        out[impl] = {"y": y.numpy(), "aux": float(aux)}
+    _, topi, _ = moe._route(pt, xb.reshape(B * L, -1), cfg)
+    ranks, tokens = moe._global_ranks(topi.reshape(B, L, -1),
+                                      cfg.n_experts, seq, False)
+    out["kept"] = (ranks < moe.capacity(cfg, tokens)).numpy()
     return out
 
 
@@ -586,5 +729,7 @@ def world(rank, n, **kw):
 PARTS = {"pipeline": pipeline, "compressed": compressed, "ep_moe": ep_moe,
          "ep_grads": ep_grads, "dp_train": dp_train, "elastic": elastic,
          "sweep": sweep, "tp_model": tp_model, "tp_decode": tp_decode,
-         "tp_elastic": tp_elastic, "fsdp_model": fsdp_model}
+         "tp_elastic": tp_elastic, "fsdp_model": fsdp_model,
+         "seq_model": seq_model, "seq_decode": seq_decode,
+         "seq_moe": seq_moe}
 TASKS = {"world": world}

@@ -29,6 +29,16 @@ rank programs) against the JAX package on the same numpy inputs:
   TP-only model, FSDP + ZeRO-1 steps against TP + ZeRO-1 (1e-6), the
   captured collective schedule against the executed one, and Adafactor on
   (1, 4) and (2, 2) against one rank;
+* ``layout="fsdp_seq"`` (pure FSDP over every rank, the sequence split
+  over ``model``) on (1, 4) and (2, 2): the forward, loss and gradients of
+  every reduced arch against the reference's single-device
+  ``jax.value_and_grad`` on the global batch (the TP bounds; the same
+  cached reference results as the TP test where the batch is the same),
+  prefill + 8 greedy decode steps against its ``ServeEngine`` (tokens
+  equal, the gathered caches at 1e-5), a MoE layer that drops tokens (the
+  same drops and aux as the reference), and three train steps on (2, 2)
+  against one rank (the TP training rule) with the captured collective
+  schedule equal to the executed one;
 * the elastic restore (saved on (1, 4), restored on (2, 2)), and
   ``launch.train``'s checkpoints across (2, 2) and (4, 1) (tensor
   parallel and not), byte for byte;
@@ -89,6 +99,8 @@ TP_ROWS, TP_SEQ = 2, 32               # rows of each data shard, sequence
 TP_DECODE = ("qwen2.5-3b", "jamba-v0.1-52b", "falcon-mamba-7b")
 TP_TRAIN_MESH, TP_TRAIN_STEPS = (2, 2), 3
 FSDP_NAMES = ("qwen2.5-3b", "jamba-v0.1-52b")
+SEQ_MESHES = ((1, 4), (2, 2))        # fsdp_seq: (data, model)
+SEQ_MOE_CF = 0.5                     # a capacity factor that drops tokens
 ADAFACTOR_MESHES = ((1, 4), (2, 2))
 # float32 bounds: the logits and each gradient leaf at 1e-4 (of the leaf's
 # largest magnitude: entries near zero are sums of terms that cancel,
@@ -165,7 +177,20 @@ def _parts(n, tmp):
         parts.append(("tp_elastic", {"directory": str(tmp / "tp_ckpt")}))
         parts.append(("fsdp_model:(2, 2)", {"shape": TP_TRAIN_MESH,
                                             "names": FSDP_NAMES}))
+        for shape in SEQ_MESHES:
+            parts += [(f"seq_model:{shape}", {
+                "shape": shape, "names": TP_NAMES,
+                "batch_shape": (TP_ROWS * shape[0], TP_SEQ)}),
+                (f"seq_decode:{shape}", {"shape": shape,
+                                         "names": TP_DECODE})]
+        parts.append(("seq_moe", {"shape": (2, 2), "p": p, "x": x,
+                                  "capacity_factor": SEQ_MOE_CF}))
         for arch in TRAIN_ARCHS:
+            parts.append((f"dp_train:seq:{arch}",
+                          {"arch": arch, "zero1": True,
+                           "steps": TP_TRAIN_STEPS, "seq": TRAIN_SEQ,
+                           "shape": TP_TRAIN_MESH, "layout": "fsdp_seq",
+                           "schedule": True}))
             parts.append((f"dp_train:tp:{arch}",
                           {"arch": arch, "zero1": True,
                            "steps": TP_TRAIN_STEPS, "seq": TRAIN_SEQ,
@@ -346,10 +371,12 @@ def test_ep_local_gradients_match_single_process_scatter(worlds, n, shape):
 _ONE_RANK: dict = {}
 
 
-def _one_rank(arch, n, steps=TRAIN_STEPS, optimizer="adamw"):
+def _one_rank(arch, n, steps=TRAIN_STEPS, optimizer="adamw", n_micro=None):
     """The port's 1-rank step over the global batch of ``n`` rows in ``n``
-    microbatches (microbatch j = row j, data rank j's row)."""
-    if (arch, n, steps, optimizer) not in _ONE_RANK:
+    microbatches (microbatch j = row j, data rank j's row; ``n_micro``:
+    that many instead)."""
+    n_micro = n if n_micro is None else n_micro
+    if (arch, n, steps, optimizer, n_micro) not in _ONE_RANK:
         cfg = get_arch(arch).reduced()
         model = make_model(cfg, device="cpu",
                            generator=torch.Generator().manual_seed(0))
@@ -357,18 +384,18 @@ def _one_rank(arch, n, steps=TRAIN_STEPS, optimizer="adamw"):
         opt = adamw_init(params) if optimizer == "adamw" \
             else adafactor_init(params)
         step = make_train_step(model.loss, AdamWConfig(**ranks.TRAIN_OPT),
-                               n_micro=n, optimizer=optimizer)
+                               n_micro=n_micro, optimizer=optimizer)
         data = make_data(cfg, ShapeConfig("t", "train", TRAIN_SEQ, n),
                          seed=0, device="cpu")
         losses = []
         for i in range(steps):
             params, opt, m = step(params, opt, data.batch(i))
             losses.append(float(m.loss))
-        _ONE_RANK[(arch, n, steps, optimizer)] = (
+        _ONE_RANK[(arch, n, steps, optimizer, n_micro)] = (
             losses, [leaf.value().numpy() for leaf in params],
             sum(x.numel() * x.element_size()
                 for k in ("mu", "nu") for x in opt.get(k, [])))
-    return _ONE_RANK[(arch, n, steps, optimizer)]
+    return _ONE_RANK[(arch, n, steps, optimizer, n_micro)]
 
 
 @pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "replicated"])
@@ -436,11 +463,30 @@ def _ref_step(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _whole_params(name):
-    """The whole model's parameters (seed 0) drawn in one process."""
+def _whole_tree(name):
+    """The whole model's parameters (seed 0) drawn in one process, as the
+    reference's tree."""
     model = make_model(ranks._tp_cfg(name), device="cpu",
                        generator=torch.Generator().manual_seed(0))
-    return jax.tree.leaves(params_to_jax(model))
+    return params_to_jax(model)
+
+
+def _whole_params(name):
+    return jax.tree.leaves(_whole_tree(name))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_out(name, n_rows, lo, rows):
+    """The reference's ``((loss, logits), grads)`` of ``name``'s
+    single-device model on rows ``[lo, lo + rows)`` of the ``n_rows``-row
+    batch, on the whole parameters: one cache for the TP test's data
+    shards and the fsdp_seq test's global batches (the same call where
+    they are the same rows)."""
+    batch = ref_inputs(_ref_cfg(name), RefShape("t", "train", TP_SEQ,
+                                                n_rows), abstract=False)
+    out = _ref_step(name)(_whole_tree(name), jax.tree.map(
+        lambda x: x[lo:lo + rows], batch))
+    return jax.tree.map(np.asarray, out)
 
 
 @pytest.mark.parametrize("name", TP_NAMES)
@@ -453,7 +499,6 @@ def test_tp_forward_loss_and_grads_match_the_reference(worlds, name):
     one process, bit for bit).  The leaves whole on every rank (norms, the
     router) have the same gradient on every rank, exactly: *f* / *g*
     already make each rank's the whole model's."""
-    vg = _ref_step(name)
     for n, shapes in TP_MESHES.items():
         for shape in shapes:
             res = [_part(r, f"tp_model:{shape}")[name] for r in worlds[n]]
@@ -461,11 +506,8 @@ def test_tp_forward_loss_and_grads_match_the_reference(worlds, name):
             for got, want in zip(jax.tree.leaves(params),
                                  _whole_params(name)):
                 np.testing.assert_array_equal(got, want)
-            batch = ref_inputs(_ref_cfg(name), RefShape(
-                "t", "train", TP_SEQ, TP_ROWS * shape[0]), abstract=False)
-            shards = [jax.tree.map(lambda x: x[i * TP_ROWS:(i + 1) * TP_ROWS],
-                                   batch) for i in range(shape[0])]
-            outs = [vg(params, b) for b in shards]
+            outs = [_ref_out(name, TP_ROWS * shape[0], i * TP_ROWS, TP_ROWS)
+                    for i in range(shape[0])]
             loss = np.mean([float(o[0][0]) for o in outs])
             grads = [np.mean(g, axis=0) for g in zip(*(
                 [np.asarray(x) for x in jax.tree.leaves(o[1])]
@@ -488,21 +530,30 @@ def test_tp_forward_loss_and_grads_match_the_reference(worlds, name):
                                            atol=RTOL_TP * scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _engine_tokens(name):
+    """The reference ``ServeEngine``'s greedy tokens of the (2, 12) prompt
+    (seed 7) on the whole parameters: the TP and fsdp_seq tests' oracle."""
+    prompt = np.random.default_rng(7).integers(
+        0, 256, ranks.TP_PROMPT).astype(np.int32)
+    engine = ServeEngine(ref_make_model(_ref_cfg(name)), _whole_tree(name),
+                         ranks.TP_MAX_LEN)
+    return np.asarray(engine.generate(prompt, ranks.TP_NEW))
+
+
 @pytest.mark.parametrize("name", TP_DECODE)
 def test_tp_prefill_and_decode_match_the_reference_engine(worlds, name):
     """TP prefill + 8 greedy decode steps on (1, 2) and (1, 4): the tokens
-    of the reference's ``ServeEngine`` (greedy) on the gathered
-    parameters, every rank; the caches hold the kv heads a rank's query
-    heads read (qwen2.5-3b's 2 kv heads over 4 ranks: one a rank)."""
-    prompt = np.random.default_rng(7).integers(
-        0, 256, ranks.TP_PROMPT).astype(np.int32)
-    want = None
+    of the reference's ``ServeEngine`` (greedy) on the whole model's
+    parameters (the gathered ones equal them bit for bit), every rank; the
+    caches hold the kv heads a rank's query heads read (qwen2.5-3b's 2 kv
+    heads over 4 ranks: one a rank)."""
     for n, shapes in TP_MESHES.items():
         res = [_part(r, f"tp_decode:{shapes[0]}")[name] for r in worlds[n]]
-        if want is None:
-            engine = ServeEngine(ref_make_model(_ref_cfg(name)),
-                                 res[0]["params"], ranks.TP_MAX_LEN)
-            want = np.asarray(engine.generate(prompt, ranks.TP_NEW))
+        for got, want in zip(jax.tree.leaves(res[0]["params"]),
+                             _whole_params(name)):
+            np.testing.assert_array_equal(got, want)
+        want = _engine_tokens(name)
         for got in res:
             np.testing.assert_array_equal(got["tokens"], want)
             assert got["params_equal"]          # params_from_jax(mesh=)
@@ -630,6 +681,131 @@ def test_adafactor_over_ranks_matches_one_rank(worlds, arch, shape):
         np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
         _close_or_sign(got["leaves"], leaves, lr_sum)
         assert got["n_fsdp"] > 0 if shape[0] > 1 else got["n_fsdp"] == 0
+
+
+# ------------------------------------------------------------- fsdp_seq
+@pytest.mark.parametrize("name", TP_NAMES)
+def test_fsdp_seq_forward_loss_and_grads_match_the_reference(worlds, name):
+    """``layout="fsdp_seq"`` on (1, 4) and (2, 2): each rank's logits (its
+    data rows, gathered along the sequence), the loss (the data ranks'
+    mean) and every gradient leaf (gathered over all ranks) against the
+    reference's single-device ``jax.value_and_grad`` on the global batch,
+    which the ranks' MoE layers route as one list (logits at 1e-4, loss
+    at 1e-5, each gradient leaf at 1e-4 of its scale).  Every leaf is
+    FSDP-cut at these widths."""
+    for shape in SEQ_MESHES:
+        rows = TP_ROWS * shape[0]
+        (loss, logits), grads = _ref_out(name, rows, 0, rows)
+        res = [_part(r, f"seq_model:{shape}")[name] for r in worlds[4]]
+        for got in res:
+            d = got["coord"][0]
+            np.testing.assert_allclose(
+                got["logits"], logits[d * TP_ROWS:(d + 1) * TP_ROWS],
+                rtol=RTOL_TP, atol=RTOL_TP)
+            np.testing.assert_allclose(got["loss"], float(loss),
+                                       rtol=RTOL_TP_LOSS)
+            assert got["n_fsdp"] > 0
+        want = jax.tree.leaves(grads)
+        assert len(res[0]["grads"]) == len(want)
+        for g, w in zip(res[0]["grads"], want):
+            assert g.shape == w.shape
+            scale = float(np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=RTOL_TP,
+                                       atol=RTOL_TP * scale)
+
+
+@pytest.mark.parametrize("name", TP_DECODE)
+def test_fsdp_seq_prefill_and_decode_match_the_reference_engine(worlds,
+                                                                name):
+    """``"fsdp_seq"`` prefill of each data rank's rows of the (2, 12)
+    prompt and 8 greedy decode steps on (1, 4) and (2, 2): the tokens of
+    the reference's ``ServeEngine`` on the whole prompt; the attention
+    caches hold ``max_len / R`` positions a rank, and gathered they are
+    the whole model's at 1e-5.  A prompt the ``model`` axis does not
+    split raises, naming the arch, the length and R."""
+    want = _engine_tokens(name)
+    cfg = ranks._tp_cfg(name)
+    for shape in SEQ_MESHES:
+        for res in worlds[4]:
+            got = _part(res, f"seq_decode:{shape}")[name]
+            n = ranks.TP_PROMPT[0] // shape[0]
+            d = got["coord"][0]
+            np.testing.assert_array_equal(got["tokens"],
+                                          want[d * n:(d + 1) * n])
+            assert got["cache_err"] <= 1e-5
+            if cfg.n_heads:
+                assert got["cache_len"] == ranks.TP_MAX_LEN // shape[1]
+            msg = got["odd_length"]
+            assert cfg.name in msg and "9" in msg \
+                and f"R = {shape[1]}" in msg, msg
+
+
+@pytest.mark.parametrize("impl", ["scatter", "dense"])
+def test_fsdp_seq_moe_drops_and_aux_match_the_reference(worlds, impl):
+    """The reduced phi3.5-moe's MoE layer at capacity factor 0.5 under
+    ``"fsdp_seq"`` on (2, 2), each rank its rows and block of positions:
+    the assignments kept are the reference's on the global batch (some
+    are dropped), the output blocks are the reference scatter's and
+    dense's (1e-5), and the aux loss is the global batch's."""
+    p, x, _ = _moe_inputs()
+    rcfg = ARCHS["phi3.5-moe-42b-a6.6b"].reduced().replace(
+        capacity_factor=SEQ_MOE_CF)
+    rp = {k: jnp.asarray(v) for k, v in p.items()}
+    Bg, Lg, d = x.shape
+    flat = jnp.asarray(x.reshape(-1, d))
+    want = {"scatter": ref_moe.moe_ffn_scatter(rp, flat, rcfg),
+            "dense": ref_moe.moe_ffn_dense(rp, flat, rcfg)}
+    _, topi, _ = ref_moe._route(rp, flat, rcfg)
+    topi = np.asarray(topi)
+    E, k = rcfg.n_experts, rcfg.experts_per_token
+    onehot = np.eye(E, dtype=np.int64)[topi.reshape(-1)]
+    rank = (np.cumsum(onehot, 0) - 1)[np.arange(onehot.shape[0]),
+                                      topi.reshape(-1)]
+    kept = (rank < ref_moe.capacity(rcfg, Bg * Lg)).reshape(Bg, Lg, k)
+    assert not kept.all()                       # the capacity drops some
+    y_want = np.asarray(want[impl][0]).reshape(x.shape)
+    B, L = Bg // 2, Lg // 2
+    for res in worlds[4]:
+        got = _part(res, "seq_moe")
+        i, j = got["coord"]
+        np.testing.assert_array_equal(
+            got["kept"], kept[i * B:(i + 1) * B,
+                              j * L:(j + 1) * L].reshape(-1))
+        np.testing.assert_allclose(
+            got[impl]["y"], y_want[i * B:(i + 1) * B, j * L:(j + 1) * L],
+            rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got[impl]["aux"], float(want[impl][1]),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_fsdp_seq_train_steps_match_one_rank(worlds, arch):
+    """Three ``"fsdp_seq"`` + ZeRO-1 steps on (data 2, model 2) against one
+    rank's steps over the same two rows as one microbatch (the MoE layers
+    route the global batch together): losses at 1e-5 and the parameters
+    by the TP training rule; every leaf is FSDP-cut over all ranks."""
+    losses, leaves, _ = _one_rank(arch, 2, TP_TRAIN_STEPS, n_micro=1)
+    opt = AdamWConfig(**ranks.TRAIN_OPT)
+    lr_sum = sum(float(cosine_schedule(opt, i + 1))
+                 for i in range(TP_TRAIN_STEPS))
+    for res in worlds[4]:
+        got = _part(res, f"dp_train:seq:{arch}")
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+        _close_or_sign(got["leaves"], leaves, lr_sum)
+        assert got["n_fsdp"] == len(leaves)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_fsdp_seq_captured_schedule_equals_the_executed_one(worlds, arch):
+    """The (2, 2) ``"fsdp_seq"`` step captured under the captures' fake
+    mode records the collectives that one rank's first real step counted:
+    the same calls and bytes of each all-gather (weights, k / v, conv
+    tails, scan states), reduce-scatter and all-reduce."""
+    for res in worlds[4]:
+        got = _part(res, f"dp_train:seq:{arch}")
+        assert got["captured"] == got["executed"]
+        assert {"all_gather", "reduce_scatter", "all_reduce"} <= \
+            set(got["executed"])
 
 
 def test_tp_elastic_restore_is_exact(worlds):

@@ -22,7 +22,13 @@ pure-Python half, function by function:
 * the folded capture (one microbatch of a train step, one time step of the
   scan and one tile of the blockwise attention with grad disabled) against
   the unrolled one: the same record;
-* ``layout="fsdp_seq"`` raises.
+* ``layout="fsdp_seq"``: ``sharding.fsdp_seq_specs`` against the
+  reference's ``sanitize_pspecs(zero1_pspecs(P()-tree, axes=data +
+  model))`` for every arch at full width on four meshes, ``build_step``'s
+  meta over every production cell, ``run_cell`` on the reduced qwen2.5-3b
+  (train, prefill, decode) and jamba (prefill) at (2, 4) with no per-layer
+  all-reduce, and ``launch.perf_cell`` in a subprocess against
+  ``run_cell``'s record (the reference script's keys, one renamed).
 
 Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` for 512 host devices;
 the module restores it at once, so later JAX subprocesses of this worker
@@ -59,7 +65,9 @@ from repro_torch.models.config import ShapeConfig        # noqa: E402
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
-          "2x4": ((2, 4), ("data", "model"))}
+          "2x4": ((2, 4), ("data", "model")),
+          "2x2": ((2, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model"))}
 PRODUCTION = ["16x16", "2x16x16"]
 REDUCED_SHAPES = [ShapeConfig("train_4k", "train", 64, 8),
                   ShapeConfig("prefill", "prefill", 64, 8),
@@ -243,12 +251,111 @@ def test_folded_capture_gives_the_unrolled_record(name, shape, n_micro):
         assert folded["n_micro"] == n_micro
 
 
-def test_fsdp_seq_is_not_ported():
+def _spec_tuple(s) -> tuple:
+    """A reference ``PartitionSpec`` as the port's spec tuple."""
+    from repro_torch.parallel.sharding import spec
+    return spec(*tuple(s))
+
+
+@pytest.mark.parametrize("mesh_name", PRODUCTION + ["2x2", "1x4"])
+def test_fsdp_seq_specs_match_the_reference(mesh_name):
+    """Every leaf of all ten archs at full width: the port's
+    ``fsdp_seq_specs`` is the reference dry run's pure-FSDP layout,
+    ``sanitize_pspecs(zero1_pspecs(params, P()-tree, axes=data + model))``,
+    and every arch has leaves it splits."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.parallel.sharding import sanitize_pspecs
+    from repro_torch.models.factory import abstract_leaves
+    from repro_torch.parallel.sharding import data_axes, fsdp_seq_specs
+    with _world(mesh_name) as (mesh, amesh):
+        for name in ARCHS:
+            params = _ref_params(REF_ARCHS[name])
+            base = jax.tree.map(lambda _: P(), params)
+            axes = tuple(ref_par.data_axes(amesh)) + ("model",)
+            want = jax.tree.leaves(
+                sanitize_pspecs(params, ref_par.zero1_pspecs(
+                    params, base, amesh, axes=axes), amesh),
+                is_leaf=lambda x: isinstance(x, P))
+            got = fsdp_seq_specs(abstract_leaves(ARCHS[name]), mesh)
+            assert got == [_spec_tuple(w) for w in want], name
+            assert any(data_axes(mesh)[0] in str(g) for g in got), name
+
+
+@pytest.mark.parametrize("mesh_name", PRODUCTION)
+def test_build_step_fsdp_seq_meta_matches_the_reference(mesh_name):
+    """Every cell's ``meta`` under ``layout="fsdp_seq"``: FSDP always (the
+    reference's ``used_fsdp = True``), the optimizer and the microbatches
+    as under ``"tp"``."""
+    with _world(mesh_name) as (mesh, amesh):
+        for cfg, shape in _cells():
+            _, _, meta = dryrun.build_step(cfg, shape, mesh, device="cpu",
+                                           layout="fsdp_seq", abstract=True)
+            want = dict(_reference_meta(cfg.name, shape, amesh), fsdp=True)
+            assert meta == want, (cfg.name, shape.name)
+
+
+SEQ_CELLS = [("qwen2.5-3b", "train_4k"), ("qwen2.5-3b", "prefill"),
+             ("qwen2.5-3b", "decode"), ("jamba-v0.1-52b", "prefill")]
+
+
+@pytest.mark.parametrize("name,kind", SEQ_CELLS,
+                         ids=["qwen-train", "qwen-prefill", "qwen-decode",
+                              "jamba-prefill"])
+def test_run_cell_fsdp_seq_has_no_per_layer_all_reduce(name, kind):
+    """``run_cell`` under ``"fsdp_seq"`` on the reduced arch at (2, 4):
+    the reference's keys and analytic fields, FSDP, and the weights
+    all-gathered per layer with no tensor-parallel all-reduce: prefill and
+    decode run none, and a train step's all-reduces (the loss, the data
+    ranks' scalars) do not grow with the depth."""
+    shape = {s.name: s for s in REDUCED_SHAPES}[kind]
+    recs = []
     with _world("2x4") as (mesh, _):
-        with pytest.raises(NotImplementedError, match="fsdp_seq"):
-            dryrun.build_step(ARCHS["qwen2.5-3b"].reduced(),
-                              REDUCED_SHAPES[0], mesh, layout="fsdp_seq",
-                              abstract=True, device="cpu")
+        for n_layers in (2, 4) if kind == "train_4k" else (2,):
+            cfg = ARCHS[name].reduced().replace(n_layers=n_layers)
+            rec = dryrun.run_cell(cfg, shape, mesh, layout="fsdp_seq")
+            _hold_record(rec, REF_ARCHS[name].reduced().replace(
+                n_layers=n_layers), shape, mesh)
+            assert rec["status"] == "ok" and rec["fsdp"] is True
+            assert rec["collectives"]["all-gather"]["count"] >= 2 * n_layers
+            recs.append(rec)
+    counts = [r["collectives"].get("all-reduce", {}).get("count", 0)
+              for r in recs]
+    if kind == "train_4k":
+        assert counts[0] == counts[1] > 0
+        assert recs[1]["collectives"]["all-gather"]["count"] > \
+            recs[0]["collectives"]["all-gather"]["count"]
+    else:
+        assert counts == [0]
+
+
+def test_perf_cell_prints_run_cells_terms():
+    """``python -m repro_torch.launch.perf_cell`` on ``qwen2.5-3b x
+    decode_32k`` (2 layers, ``fsdp_seq``) in a subprocess (its own fake
+    group of 256 ranks): the reference script's keys with ``live_tpu_GB``
+    renamed, and the values of ``run_cell``'s record of the same cell."""
+    from repro_torch.launch import perf_cell
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.perf_cell", "--arch",
+         "qwen2.5-3b", "--shape", "decode_32k", "--set", "n_layers=2",
+         "--layout", "fsdp_seq"], env=env, capture_output=True, text=True,
+        timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout)
+    assert set(got) == {"overrides", "n_micro", "compute_s", "memory_s",
+                        "collective_s", "dominant", "wire_GB",
+                        "live_device_GB", "roofline_fraction",
+                        "useful_ratio", "compile_s"}
+    cfg = ARCHS["qwen2.5-3b"].replace(n_layers=2)
+    with _world("16x16") as (mesh, _):
+        rec = dryrun.run_cell(cfg, SHAPES["decode_32k"], mesh,
+                              layout="fsdp_seq", retry=False)
+    want = perf_cell.summary(rec, {"n_layers": 2}, 0.0)
+    got.pop("compile_s")
+    want.pop("compile_s")
+    assert got == want
 
 
 def test_cli_writes_a_record_and_its_graph(tmp_path):

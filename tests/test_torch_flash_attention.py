@@ -5,6 +5,13 @@ plain version.
 
 Tolerances are the reference's own (``test_kernels.py``): float32 atol =
 rtol = 2e-5, bfloat16 3e-2.
+
+``q_offset`` (a block of queries of a longer sequence, against the keys up
+to its end: a sequence-sharded rank's attention) is held against the rows
+of the whole sequence's call: the plain version against the JAX kernel's
+rows on the CPU, the kernels against the plain version and against their
+own whole call's rows (bit for bit where the block starts on a q tile) on
+the card.
 """
 import numpy as np
 import pytest
@@ -291,3 +298,71 @@ def test_simt_kernel_at_ragged_lengths(cuda, S):
     assert flash_attention.route_launches["simt"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(),
                                attention_ref(q, k, v).cpu().numpy(), **F32)
+
+
+# ------------------------------------------------------------------ q_offset
+#: (S, o): a block of S queries at key position o of a 256-position
+#: sequence (tile-aligned, ragged, and the last positions).
+OFFSETS = [(64, 128), (96, 100), (64, 192), (256, 0)]
+
+
+@pytest.mark.parametrize("S,o", OFFSETS)
+def test_ref_with_q_offset_is_rows_of_the_reference_kernel(jax_ref, S, o):
+    """``attention_ref(q[:, o:o+S], k[:, :o+S], v[:, :o+S], q_offset=o)``
+    is rows ``o:o+S`` of the JAX kernel (interpret mode) on the whole
+    sequence; the wrapper's CPU call and the chunked plain path give the
+    same rows."""
+    jnp, jax_flash, _, _ = jax_ref
+    q, k, v = _qkv(2, 256, 256, 8, 2, 64, seed=S + o)
+    want = np.asarray(jax_flash(*_jax(jnp, (q, k, v)), causal=True))
+    qs, ks, vs = _torch((q[:, o:o + S], k[:, :o + S], v[:, :o + S]))
+    got = attention_ref(qs, ks, vs, causal=True, q_offset=o)
+    np.testing.assert_allclose(got.numpy(), want[:, o:o + S], **F32)
+    assert torch.equal(flash_attention(qs, ks, vs, block_q=S, block_k=o + S,
+                                       q_offset=o), got)
+    chunked = chunked_attention(qs, ks, vs, q_block=32, kv_block=32,
+                                q_offset=o)
+    np.testing.assert_allclose(chunked.numpy(),
+                               want[:, o:o + S].reshape(2, S, -1), **F32)
+
+
+def test_q_offset_must_not_be_negative():
+    q, k, v = _torch(_qkv(1, 8, 8, 2, 2, 16))
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, v, q_offset=-1)
+
+
+#: (route, dtype, D, Hq, Hkv, S, o, T): a rank's block at the offsets a
+#: sequence-sharded model gives it (the last of four blocks, and a middle
+#: one), and a ragged block.
+Q_OFFSET_CASES = [("sm90", torch.bfloat16, 128, 8, 2, 256, 768, 1024),
+                  ("sm90", torch.bfloat16, 128, 8, 2, 256, 256, 512),
+                  ("sm90", torch.bfloat16, 64, 6, 2, 100, 300, 400),
+                  ("simt", torch.float32, 64, 4, 2, 128, 384, 512),
+                  ("simt", torch.float32, 16, 4, 2, 100, 300, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,dtype,D,Hq,Hkv,S,o,T", Q_OFFSET_CASES)
+def test_kernel_with_q_offset_matches_plain(cuda, path, dtype, D, Hq, Hkv,
+                                            S, o, T):
+    """The kernel at ``q_offset`` against the plain version; where the
+    block starts on a q tile (128 rows sm90, 64 simt), its output is the
+    whole sequence's call's rows bit for bit (the same tiles, masks and
+    order), and ``q_offset=0`` is the call without it, bit for bit."""
+    q, k, v = _torch(_qkv(2, T, T, Hq, Hkv, D, seed=o + S), dtype, cuda)
+    qs = q[:, o:o + S].contiguous()
+    assert route(dtype, D) == path
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(qs, k, v, block_q=S, block_k=T, q_offset=o)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches[path] == before[path] + 1
+    tol = F32 if dtype == torch.float32 else BF16
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        attention_ref(qs, k, v, q_offset=o).float().cpu().numpy(), **tol)
+    whole = flash_attention(q, k, v, block_q=T, block_k=T)
+    if o % (128 if path == "sm90" else 64) == 0 and o + S == T:
+        assert torch.equal(got, whole[:, o:o + S])
+    assert torch.equal(flash_attention(q, k, v, block_q=T, block_k=T,
+                                       q_offset=0), whole)

@@ -4,6 +4,14 @@ package's Pallas kernel (interpret mode) and oracles, and — on a CUDA
 device only — the CUDA kernel against the plain version.
 
 Tolerance is the reference's own (``test_kernels.py``): atol = rtol = 1e-4.
+
+``h0`` (a later block of a sequence scanned from the state the earlier
+blocks leave, as a sequence-sharded rank scans) is held against the JAX
+kernel's whole-sequence scan on the CPU, with the two-pass combine of four
+blocks (each block scanned from zero, the states folded by the blocks'
+decays, each rescanned from its carry) beside it; on the card, the kernel
+from a state against the plain version, and ``h0=None`` against zeros bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -192,3 +200,92 @@ def test_kernel_at_ragged_lengths(cuda, L, d, N):
     assert mamba_scan.launches == before + 1
     assert y.shape == (1, L, d) and h.shape == (1, d, N)
     _check((y, h), [t.cpu().numpy() for t in mamba_scan_ref(*ins)])
+
+
+# ----------------------------------------------------------------------- h0
+def _two_pass(x, dt, Bt, Ct, A, D, blocks: int, scan=mamba_scan_ref):
+    """The sequence-sharded scan of ``models.mamba`` over ``blocks`` equal
+    blocks: pass 1 from zero (h_end, and the decay P = exp(A sum dt)), the
+    carry h_in of block r folded from the blocks before it, pass 2 from
+    h_in.  Returns the concatenated y and the last block's h."""
+    n = x.shape[1] // blocks
+    parts = [slice(r * n, (r + 1) * n) for r in range(blocks)]
+    ends = []
+    for s in parts:
+        _, h = scan(x[:, s], dt[:, s], Bt[:, s], Ct[:, s], A, D)
+        ends.append((h, torch.exp(A * dt[:, s].sum(1)[..., None])))
+    ys, h_in = [], torch.zeros_like(ends[0][0])
+    for r, s in enumerate(parts):
+        y, h = scan(x[:, s], dt[:, s], Bt[:, s], Ct[:, s], A, D, h0=h_in)
+        ys.append(y)
+        h_in = ends[r][1] * h_in + ends[r][0]
+    return torch.cat(ys, 1), h
+
+
+def test_second_half_from_the_first_halfs_state_is_the_whole_scan(jax_ref):
+    """``mamba_scan_ref`` of the second half from the first half's final
+    state (and the wrapper's CPU call with ``h0``) equals the JAX kernel's
+    scan of the whole sequence."""
+    jnp, jax_scan, _, _ = jax_ref
+    arrays = _inputs(2, 128, 32, 8, seed=12)
+    y_all, h_all = jax_scan(*(jnp.asarray(a, jnp.float32) for a in arrays),
+                            d_block=32, chunk=64)
+    x, dt, Bt, Ct, A, D = _torch(arrays)
+    y1, h1 = mamba_scan_ref(x[:, :64], dt[:, :64], Bt[:, :64], Ct[:, :64],
+                            A, D)
+    y2, h2 = mamba_scan_ref(x[:, 64:], dt[:, 64:], Bt[:, 64:], Ct[:, 64:],
+                            A, D, h0=h1)
+    _check((torch.cat([y1, y2], 1), h2), (y_all, h_all))
+    y3, h3 = mamba_scan(x[:, 64:], dt[:, 64:], Bt[:, 64:], Ct[:, 64:], A, D,
+                        chunk=64, h0=h1)
+    assert torch.equal(y3, y2) and torch.equal(h3, h2)
+
+
+def test_two_pass_combine_over_four_blocks_is_the_whole_scan(jax_ref):
+    """Four blocks, each scanned from zero, their final states folded by
+    the blocks' decays into each block's carry and rescanned from it: the
+    JAX kernel's whole-sequence scan."""
+    jnp, jax_scan, _, _ = jax_ref
+    arrays = _inputs(2, 128, 32, 8, seed=13)
+    want = jax_scan(*(jnp.asarray(a, jnp.float32) for a in arrays),
+                    d_block=32, chunk=32)
+    _check(_two_pass(*_torch(arrays), blocks=4), want)
+
+
+def test_h0_of_the_wrong_shape_raises():
+    x, dt, Bt, Ct, A, D = _torch(_inputs(1, 16, 8, 4))
+    with pytest.raises(ValueError, match="h0"):
+        mamba_scan(x, dt, Bt, Ct, A, D, h0=torch.zeros(1, 8, 5))
+
+
+#: (B, L, d, N): a rank's block at the LM's width (the fourth of 4,096
+#: positions, scaled down to fit the test), and padded d and N.
+H0_CASES = [(2, 256, 1024, 16), (1, 100, 30, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,d,N", H0_CASES)
+def test_kernel_from_a_state_matches_plain(cuda, B, L, d, N):
+    """The kernel from a nonzero ``h0`` against the plain version; the
+    four-block two-pass combine on the kernel against the whole-sequence
+    scan in float64; ``h0=None`` and ``h0`` of zeros bit for bit."""
+    ins = _torch(_inputs(B, 4 * L, d, N, seed=L + d), device=cuda)
+    h0 = torch.as_tensor(np.random.default_rng(d).normal(size=(B, d, N)),
+                         dtype=torch.float32, device=cuda)
+    x, dt, Bt, Ct, A, D = ins
+    blk = [t[:, :L] for t in (x, dt, Bt, Ct)]
+    before = mamba_scan.launches
+    y, h = mamba_scan(*blk, A, D, chunk=L, h0=h0)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    _check((y, h), [t.cpu().numpy()
+                    for t in mamba_scan_ref(*blk, A, D, h0=h0)])
+    got = _two_pass(*ins, blocks=4,
+                    scan=lambda *a, h0=None: mamba_scan(*a, chunk=L, h0=h0))
+    # a float64 recurrence: the float32 plain version is no oracle over so
+    # many steps (test_kernel_does_not_drift_over_a_long_sequence)
+    _check(got, [t.cpu().numpy()
+                 for t in mamba_scan_ref(*(t.double() for t in ins))])
+    zero = mamba_scan(*blk, A, D, chunk=L, h0=torch.zeros_like(h0))
+    none = mamba_scan(*blk, A, D, chunk=L)
+    assert torch.equal(zero[0], none[0]) and torch.equal(zero[1], none[1])

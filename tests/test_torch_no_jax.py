@@ -29,7 +29,8 @@ PARALLEL_MODULES = {"repro_torch.parallel", "repro_torch.parallel.sharding",
                     "repro_torch.parallel.pipeline",
                     "repro_torch.parallel.transport",
                     "repro_torch.parallel.fsdp",
-                    "repro_torch.launch.mesh", "repro_torch.launch.dryrun"}
+                    "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                    "repro_torch.launch.perf_cell"}
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -45,11 +46,13 @@ def test_importing_every_port_module_loads_no_jax():
 
 def test_parallel_entry_points_load_no_jax():
     """``import repro_torch.parallel, repro_torch.parallel.fsdp,
-    repro_torch.launch.mesh, repro_torch.launch.dryrun`` in a fresh
-    interpreter leaves jax and the JAX package out of ``sys.modules``."""
+    repro_torch.launch.mesh, repro_torch.launch.dryrun,
+    repro_torch.launch.perf_cell`` in a fresh interpreter leaves jax and the
+    JAX package out of ``sys.modules``."""
     code = ("import json, sys; import repro_torch.parallel, "
             "repro_torch.parallel.fsdp, repro_torch.launch.mesh, "
-            "repro_torch.launch.dryrun; print(json.dumps(sorted(k for k in "
+            "repro_torch.launch.dryrun, repro_torch.launch.perf_cell; "
+            "print(json.dumps(sorted(k for k in "
             "sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
             "'repro'))))")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

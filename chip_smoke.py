@@ -137,6 +137,33 @@ failure exits non-zero and no result line is printed:
                 against the host "numpy" plan at rtol 1e-9, and per site
                 the beneficial share, the ranking by gain and the best
                 scenario;
+ 13b. analysis — the analysis tier (``repro_torch.analysis``) on the card:
+                (a) for every case ``kernelcheck`` registers, each CUDA
+                source's exported plan (``<entry>_plan``) equal to
+                ``ops.plan`` (the card's SM count, the bracket kernel's
+                occupancy and the halo flags route's co-resident CTAs read
+                from it), within the card's limits, and each kernel
+                instantiation's registers, spills, static and dynamic
+                shared memory and occupancy (``<entry>_attrs``): registers
+                x threads <= 65,536, shared memory <= 227 KB, occupancy >
+                0; (b) every kernel and route at a small and a main-path
+                shape launched through its raw ``launch*`` into outputs
+                between 64 KB guards of sentinel bytes: three launches on
+                one fill and one on another bit for bit (every element
+                written, none read before it is written), the guards
+                untouched, the result against the plain version at the
+                kernel's tolerance (no sanitizer runs on the card); (c)
+                ``ircheck``'s eight entries captured on the card, their
+                findings equal to the host run's, one real call each after
+                a warm-up under ``torch.cuda.set_sync_debug_mode("warn")``
+                (which sees PyTorch's syncs, not the kernels' ``ctypes``
+                launches: a step whose capture saw no host sync and no tensor
+                made from host data must raise none) with its memory growth
+                beside the capture's peak, and the same for the serve
+                phase's model (float32 after serve (b)) in one 8-slot
+                decode step; (d) ``repro_torch.lint``, ``kernelcheck``,
+                ``dataflow`` and ``ircheck`` as processes on the host, in a
+                thread started before phase 13, each exiting 0;
  14. train    — training on the card, whose path runs no kernel (the
                 reference's trainer builds its model without them; every
                 kernel's count is read around the phase and must stay 0):
@@ -248,7 +275,8 @@ failure exits non-zero and no result line is printed:
                 ``fsdp_seq`` in (j)'s thread;
  16. the ``kernels`` JSON line (the bracket kernel's launches also by
      path, the advisor's among them; the LM kernels' launches of the
-     forward and of serving; ``launches_train``, 0 for each;
+     forward and of serving; ``launches_analysis``, the wrappers' launches
+     of 13b's real calls; ``launches_train``, 0 for each;
      ``launches_parallel``, the ranks' launches of phase 15, (k)'s
      prefill among them; the LM kernels' (k) rows under ``q_offset`` /
      ``h0``), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -260,6 +288,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import pathlib
 from concurrent.futures import ThreadPoolExecutor
 import statistics
@@ -2071,7 +2100,8 @@ def phase_advisor(torch, np, pt, sb, grid_mesh, st, hp, grid, app_times,
     apps, cap_s = {}, {}
     for backend in ("message_based", "message_free"):
         t0 = time.perf_counter()
-        apps[f"stencil/{backend}"] = capture(
+        # one capture per backend: two steps, not one step recaptured
+        apps[f"stencil/{backend}"] = capture(  # repro_torch: noqa[compile-in-loop]
             st.make_step(grid_mesh(px, py), backend), tiles,
             name=f"stencil_{backend}")
         cap_s[f"stencil/{backend}"] = time.perf_counter() - t0
@@ -2695,9 +2725,13 @@ def _run_group(cmd, timeout: float, what: str) -> tuple:
 
 
 def run_ranks(cmd, timeout: float, what: str) -> str:
-    """:func:`_run_group` that must exit 0; returns its stdout."""
+    """:func:`_run_group` that must exit 0; returns its stdout.  On a
+    failure the message holds the first traceback (the rank that failed
+    first) and the end of the ranks' stderr."""
     rc, out, err = _run_group(cmd, timeout, what)
-    assert rc == 0, (what, rc, err[-4000:])
+    first = err.find("Traceback")
+    assert rc == 0, (what, rc, err[first:first + 6000] if first >= 0
+                     else "", err[-4000:])
     return out
 
 
@@ -3704,8 +3738,10 @@ def rank_world(out_dir):
     from repro_torch.launch.mesh import init_ranks
     from repro_torch.parallel import transport
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # float32 products in full float32 for the whole run: the plain
+    # versions' bounds assume it
+    torch.backends.cuda.matmul.allow_tf32 = False  # repro_torch: noqa[default-dtype-leak]
+    torch.backends.cudnn.allow_tf32 = False  # repro_torch: noqa[default-dtype-leak]
     dev = init_ranks("gloo", "cuda")
     rank = dist.get_rank()
     res = {"rank": rank}
@@ -4338,8 +4374,10 @@ def rank_nccl(out_dir):
     from repro_torch.launch.mesh import init_ranks, make_mesh
     from repro_torch.parallel import transport
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # float32 products in full float32 for the whole run: the plain
+    # versions' bounds assume it
+    torch.backends.cuda.matmul.allow_tf32 = False  # repro_torch: noqa[default-dtype-leak]
+    torch.backends.cudnn.allow_tf32 = False  # repro_torch: noqa[default-dtype-leak]
     dev = init_ranks("nccl", "cuda")
     try:
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
@@ -4358,6 +4396,550 @@ def rank_nccl(out_dir):
         dist.destroy_process_group()
     (pathlib.Path(out_dir) / "nccl0.json").write_text(json.dumps(info))
     return 0
+
+
+# --------------------------------------------------------------------------
+# 13b. analysis: the analysis tier on the card
+# --------------------------------------------------------------------------
+
+#: Bytes of sentinel before and after every output of (b)'s launches, and
+#: the fill of each launch: three on one fill, one on another.
+ANALYSIS_GUARD = 65536
+ANALYSIS_FILLS = (0xA5, 0xA5, 0xA5, 0x5A)
+#: (d): the analysis tier's CLIs on the host, each of which must exit 0.
+ANALYSIS_TOOLS = (
+    ("lint", ["-m", "repro_torch.lint", "src/repro_torch", "chip_smoke.py"]),
+    ("kernelcheck", ["-m", "repro_torch.analysis.kernelcheck"]),
+    ("dataflow", ["-m", "repro_torch.analysis.dataflow"]),
+    ("ircheck", ["-m", "repro_torch.analysis.ircheck", "--format", "json"]))
+ANALYSIS_TOOL_TIMEOUT_S = 300
+#: (b)'s main-path shapes: the LM's attention and mixer at train_4k.
+ANALYSIS_FLASH_MAIN = (2, 4096, 4096, 32, 8, 128, True)
+ANALYSIS_SCAN_MAIN = (2, 4096, 8192)
+
+
+def _start_tools():
+    """(d): the CPU tools as processes on the host, one after another in
+    a thread of this process (no card: ``CUDA_VISIBLE_DEVICES`` empty)."""
+    import os
+    import threading
+    res = {"runs": [], "error": None}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            for name, args in ANALYSIS_TOOLS:
+                t1 = time.perf_counter()
+                proc = subprocess.run([sys.executable, *args], env=env,
+                                      cwd=ROOT, capture_output=True,
+                                      text=True,
+                                      timeout=ANALYSIS_TOOL_TIMEOUT_S)
+                res["runs"].append((name, proc.returncode, proc.stdout,
+                                    proc.stderr[-3000:],
+                                    time.perf_counter() - t1))
+        except Exception as e:                  # reported by _finish_tools
+            res["error"] = repr(e)
+        res["wall_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, res
+
+
+def _finish_tools(tools) -> dict:
+    """(d): wait for the CPU tools; each must exit 0.  Returns ircheck's
+    JSON report by entry name."""
+    thread, res = tools
+    thread.join(ANALYSIS_TOOL_TIMEOUT_S * len(ANALYSIS_TOOLS))
+    assert not thread.is_alive(), "analysis (d): the CPU tools did not end"
+    assert res["error"] is None, res["error"]
+    out = {}
+    for name, rc, stdout, err, secs in res["runs"]:
+        assert rc == 0, (f"analysis (d): {name} exited {rc}", stdout[-3000:],
+                         err)
+        summary = ((err or stdout).strip().splitlines() or ["-"])[-1]
+        log(f"analysis (d): {name} on the host: exit 0 in {secs:.1f} s "
+            f"({summary[:160]})")
+        if name == "ircheck":
+            out = {e["name"]: e for e in json.loads(stdout)["entries"]}
+    log(f"analysis (d): the four CPU tools {res['wall_s']:.1f} s in their "
+        "thread")
+    return out
+
+
+def analysis_plans(torch) -> dict:
+    """(a): for every registered case, the C side's plan against
+    ``ops.plan`` (the card's SM count, the bracket kernel's occupancy and
+    the halo flags route's co-resident CTAs read from the card), the
+    card's limits, and each instantiation's attributes.  Returns the
+    attributes by (kernel, instantiation)."""
+    from repro_torch.analysis import kernelcheck as kc
+    from repro_torch.kernels import _plan
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.halo_exchange import halo_exchange as hx_build
+    from repro_torch.kernels.halo_exchange import ops as hx_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.sweep_bracket import ops as sb_ops
+    from repro_torch.kernels.sweep_bracket import sweep_bracket as sb_build
+    fa_build = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    ms_build = importlib.import_module(
+        "repro_torch.kernels.mamba_scan.mamba_scan")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dtypes = {"float64": torch.float64, "float32": torch.float32,
+              "bfloat16": torch.bfloat16}
+
+    def bracket(case):
+        dt = dtypes[case["dtype"]]
+        size = dt.itemsize
+        n_pairs = 3 * (case["n_max"] + case["n_max"] % 2)
+        res = n_pairs * 2 * size <= sb_ops.RESIDENT_BYTES
+        lib = sb_build.build()
+        args = (case["S"], case["n_seg"], n_pairs, res, size, sms)
+        smem = sb_ops.plan(*args, 1).smem
+        attrs = _plan.c_attrs(lib.fn("sweep_bracket_attrs", dt), int(res),
+                              smem)
+        p = sb_ops.plan(*args, attrs["occupancy"])
+        c = _plan.c_plan(lib.fn("sweep_bracket_plan", dt), case["S"],
+                         case["n_seg"], n_pairs, int(res), n=13)
+        assert c[11:] == (sms, attrs["occupancy"]), (case, c, sms, attrs)
+        return (p, c[:11], attrs,
+                f"{case['dtype']} {'resident' if res else 'tiled'}", None)
+
+    def segsum(case):
+        dt = dtypes[case["dtype"]]
+        lib = sb_build.build()
+        p = sb_ops.segsum_case_plan(case)
+        c = _plan.c_plan(lib.fn("segsum_plan", dt), case["rows"], case["n"],
+                         case["n_seg"])
+        return p, c, _plan.c_attrs(lib.fn("segsum_attrs", dt), 0, 0), \
+            case["dtype"], None
+
+    def flash(case):
+        dt = dtypes[case["dtype"]]
+        route = fa_ops.route(dt, case["D"])
+        lib, entry = fa_build.build(route), fa_build.ENTRY[route]
+        p = fa_ops.case_plan(case)
+        c = _plan.c_plan(lib.fn(entry + "_plan", dt),
+                         *(case[k] for k in ("B", "S", "T", "Hq", "Hkv",
+                                             "D")))
+        attrs = _plan.c_attrs(lib.fn(entry + "_attrs", dt), case["D"], p.smem)
+        return p, c, attrs, f"{route} {case['dtype']} D={case['D']}", None
+
+    def scan(case):
+        lib = ms_build.build()
+        p = ms_ops.case_plan(case)
+        c = _plan.c_plan(lib.fn("mamba_scan_plan", torch.float32), case["B"],
+                         case["L"], case["d"] + -case["d"] % 4, 16)
+        return p, c, _plan.c_attrs(lib.fn("mamba_scan_attrs", torch.float32),
+                                   0, 0), "float32", None
+
+    def halo(case):
+        dt = dtypes[case["dtype"]]
+        units = hx_ops.case_units(case)
+        vec = units != math.prod(case["plane"])
+        route = case.get("route") or hx_ops.route_for(case["n"])
+        max_ctas = hx_build.max_ctas(dt, vec)
+        p = hx_ops.plan(case["n"], units, route, sms, max_ctas)
+        lib = hx_build.build()
+        c = _plan.c_plan(lib.fn("halo_exchange_plan", dt), case["n"], units,
+                         p.grid[0] // case["n"], hx_build.ROUTES[route],
+                         int(vec))
+        attrs = _plan.c_attrs(lib.fn("halo_exchange_attrs", dt),
+                              2 * hx_build.ROUTES[route] + int(vec), 0)
+        return p, c, attrs, f"{route} {case['dtype']} " \
+            f"{'16-byte' if vec else 'element'} units", max_ctas
+
+    planners = {"sweep_bracket": bracket, "segment_sum": segsum,
+                "flash_attention": flash, "mamba_scan": scan,
+                "halo_exchange": halo}
+    inst, n_cases = {}, 0
+    for name in kc.known_kernels():
+        for case in kc.cases(name):
+            p, c, attrs, variant, co_res = planners[name](dict(case))
+            assert tuple(c) == p.as_ints(), (name, case, c, p.as_ints())
+            bad = [n for n, ok, _ in _plan.limits(p, co_res) if not ok]
+            assert not bad, (name, case, bad)
+            smem = attrs["static_smem"] + p.smem
+            regs = attrs["num_regs"] * p.threads
+            assert regs <= _plan.REGISTERS_PER_SM, (name, case, attrs)
+            assert smem <= _plan.MAX_SMEM, (name, case, attrs, p.smem)
+            assert attrs["occupancy"] > 0, (name, case, attrs, p.smem)
+            n_cases += 1
+            key = (p.kernel, variant)
+            if key not in inst or p.smem > inst[key]["smem"]:
+                inst[key] = dict(attrs, smem=p.smem, threads=p.threads)
+    log(f"analysis (a): {n_cases} cases of {len(kc.known_kernels())} "
+        f"kernels: the C plan equals ops.plan for every one, within the "
+        f"card's limits ({sms} SMs)")
+    for (kernel, variant), a in sorted(inst.items()):
+        log(f"analysis (a): {kernel} [{variant}]: {a['num_regs']} registers "
+            f"x {a['threads']} threads = {a['num_regs'] * a['threads']} of "
+            f"{_plan.REGISTERS_PER_SM}; shared {a['static_smem']} static + "
+            f"{a['smem']} dynamic B (largest plan); {a['occupancy']} CTA(s) "
+            f"per SM at that plan")
+    spills = {k: a["local_bytes"] for k, a in inst.items() if a["local_bytes"]}
+    log("analysis (a): local memory a thread (stack frame and spills; the "
+        "build report splits them): " + ("; ".join(
+            f"{k} [{v}] {b} B" for (k, v), b in sorted(spills.items()))
+            or "none"))
+    return inst
+
+
+def _guarded(torch, specs, fill):
+    """Outputs of ``specs`` ((shape, dtype) each), each inside a buffer of
+    :data:`ANALYSIS_GUARD` bytes before and after it, every byte
+    ``fill``."""
+    raws, outs = [], []
+    for shape, dtype in specs:
+        n = math.prod(shape) * dtype.itemsize
+        raw = torch.full((n + 2 * ANALYSIS_GUARD,), fill, dtype=torch.uint8,
+                         device=DEVICE)
+        outs.append(raw[ANALYSIS_GUARD:ANALYSIS_GUARD + n].view(dtype)
+                    .view(shape))
+        raws.append(raw)
+    return raws, outs
+
+
+def hold_guarded(torch, label, specs, run, want, tol) -> tuple:
+    """(b): ``run(outs, i)`` launches a raw kernel into ``outs``: three
+    launches over one fill and one over another give the same bits (every
+    element written, none read before it is written, no race between CTAs
+    that shows), the guard bytes stay as filled (no write outside the
+    outputs), and each output against the plain version ``want`` at
+    ``tol`` (bit for bit when ``None``).  Returns max |out -
+    want| and the miss of ``tol`` (``None`` when it holds), which the caller
+    asserts after every case has run."""
+    bits = []
+    for i, fill in enumerate(ANALYSIS_FILLS):
+        raws, outs = _guarded(torch, specs, fill)
+        run(outs, i)
+        torch.cuda.synchronize()
+        for raw, o in zip(raws, outs):
+            end = ANALYSIS_GUARD + o.numel() * o.element_size()
+            assert bool((raw[:ANALYSIS_GUARD] == fill).all()) and \
+                bool((raw[end:] == fill).all()), \
+                f"analysis (b) {label}: a write outside the output"
+        bits.append([o.reshape(-1).view(torch.uint8).clone() for o in outs])
+    for b in bits[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(bits[0], b)), \
+            f"analysis (b) {label}: the launches' bits differ"
+    if tol is None:
+        assert all(torch.equal(o, w) for o, w in zip(outs, want)), label
+        return 0.0, None
+    err, miss = 0.0, None
+    for o, w in zip(outs, want):
+        try:
+            err = max(err, hold(torch, o, w, tol))
+        except AssertionError as e:         # reported with every case's
+            miss = f"{label}: {e}"
+            err = max(err, float((o.double() - w.double()).abs().max()))
+    return err, miss
+
+
+def analysis_launches(torch, np):
+    """(b): every kernel and route, at one small and one main-path shape,
+    launched through its raw ``launch*`` into guarded outputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import halo_exchange as hx
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import sweep_bracket as sb
+    from repro_torch.kernels.halo_exchange import halo_exchange as hx_build
+    from repro_torch.kernels.halo_exchange import ops as hx_ops
+    from repro_torch.kernels.sweep_bracket import ops as sb_ops
+    from repro_torch.kernels.sweep_bracket import sweep_bracket as sb_build
+    fa_build = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    ms_build = importlib.import_module(
+        "repro_torch.kernels.mamba_scan.mamba_scan")
+    dev = torch.device(DEVICE)
+    f64 = torch.float64
+    rows = []
+
+    def t(a, dtype=f64):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    # the bracket kernel, resident and tiled
+    for S, n_seg, ns in ((16, 3, (128, 128, 128)),
+                         (S_MAIN, 4, (192, 64, 96))):
+        rng = np.random.default_rng(S + n_seg)
+        groups = [sb.csr_group(t(rng.uniform(1.0, 500.0, n)),
+                               t(rng.uniform(0.1, 3.0, n)),
+                               t(np.sort(rng.integers(0, n_seg, n)),
+                                 torch.int64), n_seg) for n in ns]
+        d, x = t(rng.uniform(-150, 400, S)), t(rng.uniform(150, 700, S))
+        ref = sb.bracket_segsum_ref(*[(g.lat, g.w, g.seg) for g in groups],
+                                    d, x, n_seg)
+        want = [ref[k] for k in sb_ops.BRACKET_NAMES]
+        args = [(g.pairs, g.offsets, g.bounds) for g in groups]
+        for resident in (True, False):
+            err, miss = hold_guarded(
+                torch, f"bracket S={S}", [((S, n_seg), f64)] * 4,
+                lambda outs, i: sb_build.launch_bracket(
+                    args, d, x, n_seg, resident, outs), want, TOL["f64"])
+            rows.append((f"bracket_kernel [{'resident' if resident else 'tiled'}]"
+                         f" f64 S={S} n_seg={n_seg} n={ns}", err, miss))
+    # the segment sum: unsorted ids, and the main path's sorted ones
+    for shape, n_seg, ordered in (((3, 70), 6, False),
+                                  ((S_MAIN, 192), 4, True)):
+        rng = np.random.default_rng(shape[1])
+        ids = rng.integers(0, n_seg, shape[1])
+        seg, offsets, perm = sb_ops._csr(t(np.sort(ids) if ordered else ids,
+                                           torch.int64), n_seg)
+        xs = t(rng.normal(size=shape))
+        err, miss = hold_guarded(
+            torch, f"segsum {shape}", [((shape[0], n_seg), f64)],
+            lambda outs, i: sb_build.launch_segsum(xs, offsets, perm, n_seg,
+                                                   outs[0]),
+            [sb.segment_sum_ref(xs, seg, n_seg)], TOL["segsum"])
+        rows.append((f"segsum_kernel f64 {shape} -> {n_seg}"
+                     f"{'' if ordered else ' (unsorted)'}", err, miss))
+    # the halo exchange on both routes: an odd plane, HPCG's level 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, plane, dtype in ((3, (33, 31), torch.float32),
+                            (8, (256, 256), torch.float32)):
+        blocks = t(np.random.default_rng(n).normal(size=(n, 2, *plane)),
+                   dtype)
+        lo, hi = blocks[:, 0], blocks[:, -1]
+        p = lo[0].numel()
+        vec = hx_ops.vector_ok(p, lo.element_size(), (lo.stride(0),
+                                                  hi.stride(0)),
+                           (lo.data_ptr(), hi.data_ptr()))
+        units = p * lo.element_size() // 16 if vec else p
+        want = hx.ring_halo_exchange_ref(lo, hi)
+        for route in hx_ops.ROUTES:
+            if route == "cluster" and n > hx_ops.CLUSTER_MAX:
+                continue
+            max_ctas = hx_build.max_ctas(dtype, vec) \
+                if route == "flags" else None
+            chunks = hx_ops.chunk_count(n, units, sms, max_ctas)
+            flags = torch.zeros(2 * n * chunks * 16, dtype=torch.int64,
+                                device=dev) if route == "flags" else None
+            hold_guarded(
+                torch, f"halo {route} n={n}", [((n, *plane), dtype)] * 2,
+                lambda outs, i: hx_build.launch(lo, hi, outs[0], outs[1],
+                                                route, vec, chunks, flags,
+                                                i + 1), want, None)
+            rows.append((f"halo_{route}_kernel f32 n={n} plane {plane} "
+                         f"({'16-byte' if vec else 'element'} units, "
+                         f"{chunks} chunks)", 0.0, None))
+    # flash attention on both routes: a ragged small case, the LM's shape
+    for route, dtype, cases in (
+            ("sm90", torch.bfloat16, ((2, 192, 320, 8, 2, 128, False),
+                                      ANALYSIS_FLASH_MAIN)),
+            ("simt", torch.float32, ((1, 256, 256, 4, 4, 64, True),
+                                     ANALYSIS_FLASH_MAIN))):
+        for B, S, T, Hq, Hkv, D, causal in cases:
+            rng = np.random.default_rng(S + Hq)
+            q, k, v = (t(rng.normal(size=s), dtype) for s in (
+                (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+            want = [fa.attention_ref(q, k, v, causal)]
+            err, miss = hold_guarded(
+                torch, f"flash {route} S={S}", [((B, S, Hq, D), dtype)],
+                lambda outs, i: fa_build.launch(q, k, v, outs[0], causal,
+                                                route), want,
+                TOL_FLASH["bf16" if dtype == torch.bfloat16 else "f32"])
+            del want
+            rows.append((f"{fa_build.KERNELS[route]} {str(dtype)[6:]} B={B} "
+                         f"S={S} T={T} Hq={Hq} Hkv={Hkv} D={D} "
+                         f"causal={causal}", err, miss))
+    # the scan: a small case and serve (a)'s prefill (2 x 1,024 tokens)
+    # against the plain version at the JAX tests' 1e-4; the LM forward's
+    # 4,096 steps against a float64 recurrence, where the float32 plain
+    # version is no oracle (phase_lm_kernels): the kernel must come no
+    # further from it than the plain version does
+    for B, L, d in ((2, 128, 64), (2, 1024, 8192), ANALYSIS_SCAN_MAIN):
+        rng = np.random.default_rng(L + d)
+        ins = [t(a, torch.float32) for a in (
+            rng.normal(size=(B, L, d)),
+            np.abs(rng.normal(0.05, 0.02, size=(B, L, d))),
+            rng.normal(size=(B, L, 16)), rng.normal(size=(B, L, 16)),
+            -np.abs(rng.normal(1, 0.3, size=(d, 16))), rng.normal(size=(d,)))]
+        got = []
+
+        def run(outs, i):
+            ms_build.launch(*ins, outs[0], outs[1])
+            got[:] = [o.clone() for o in outs]
+        err, miss = hold_guarded(
+            torch, f"scan L={L} d={d}", [((B, L, d), torch.float32),
+                                         ((B, d, 16), torch.float32)],
+            run, ms.mamba_scan_ref(*ins), TOL_SCAN)
+        label = f"scan_kernel f32 B={B} L={L} d={d} N=16"
+        if (B, L, d) == ANALYSIS_SCAN_MAIN:
+            plain = ms.mamba_scan_ref(*ins)
+            exact = ms.mamba_scan_ref(*(x.double() for x in ins))
+
+            def off(outs):
+                return max(float((o.double() - e).abs().max())
+                           for o, e in zip(outs, exact))
+            dev64, plain64 = off(got), off(plain)
+            label += (f" (max |out - float64 recurrence| {dev64:.3e}, the "
+                      f"plain version's {plain64:.3e})")
+            miss = None if dev64 <= plain64 else \
+                f"{label}: further from float64 than the plain version"
+            del plain, exact
+        rows.append((label, err, miss))
+        del ins, got
+    for label, err, miss in rows:
+        log(f"analysis (b): {label}: 3 launches over one fill and 1 over "
+            f"another bit for bit, {ANALYSIS_GUARD} guard bytes each side "
+            f"untouched, max_abs_err {err:.3e} against the plain version"
+            + ("" if miss is None else f" BEYOND ITS TOLERANCE ({miss})"))
+    misses = [m for _, _, m in rows if m is not None]
+    assert not misses, misses
+    return len(rows)
+
+
+def _sync_site() -> str:
+    """``path:line`` of the innermost frame under ``src/`` on the stack: the
+    line whose op synchronized, named as ircheck's audit names it (the
+    warning's own frame may be PyTorch's)."""
+    import traceback
+    src = ROOT / "src"
+    for f in reversed(traceback.extract_stack()):
+        path = pathlib.Path(f.filename).resolve()
+        if path.is_relative_to(src):
+            return f"{path.relative_to(ROOT).as_posix()}:{f.lineno}"
+    return "<outside src>"
+
+
+def _real_call(torch, spec) -> tuple:
+    """One real call of ``spec``'s step after a warm-up one: the line of
+    each synchronizing operation PyTorch's sync debug mode warns of during
+    it (its own syncs: the kernels' ``ctypes`` launches are not PyTorch's),
+    and the growth of ``max_memory_allocated`` over the memory in use
+    before it."""
+    import warnings
+    syncs = []
+
+    def note(message, *_):
+        if "called a synchronizing CUDA operation" in str(message):
+            syncs.append(_sync_site())
+    with torch.set_grad_enabled(spec.grad):
+        spec.fn(*spec.args, **spec.kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note     # called where the op returns
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = spec.fn(*spec.args, **spec.kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated() - base
+        del out
+    return syncs, growth
+
+
+def _hold_syncs(label, syncs, rep) -> None:
+    """Every sync warning of a real call at a line where the card's
+    capture saw a host sync that the entry's allow list permits."""
+    allowed = {where for _, where in rep.allowed}
+    outside = sorted(set(syncs) - allowed)
+    assert not outside, (f"analysis (c) {label}: sync warnings outside the "
+                         f"allow list at {outside} (allowed: "
+                         f"{sorted(allowed)})")
+
+
+def analysis_ircheck(torch, model, cpu_reports: dict) -> dict:
+    """(c): every registered entry captured on the card, its findings held
+    equal to the CPU run's; one real call after a warm-up under the sync
+    debug mode, each sync warning held to a line the entry's allow list
+    permits; its memory growth beside the capture's peak.  Then the serve phase's model (jamba x 8 at its
+    widths, float32 after serve (b)) in one 8-slot decode step."""
+    from repro_torch.analysis import ircheck as irc
+    base = irc.load_baseline(irc.BASELINE)
+    rows = {}
+    for name in irc.known_entrypoints():
+        with irc.ranks(irc.min_devices(name)):
+            spec = irc.build_entry(name, DEVICE, abstract=True)
+            rep, cap = irc.check_entry(spec, base["entries"].get(name),
+                                       base["slack"])
+            cpu = cpu_reports[name]
+            got = [(f.rule, f.message) for f in rep.findings]
+            assert got == [(f["rule"], f["message"])
+                           for f in cpu["findings"]], (name, got, cpu)
+            real = irc.build_entry(name, DEVICE, abstract=False)
+            syncs, growth = _real_call(torch, real)
+            del real, spec
+        _hold_syncs(name, syncs, rep)
+        rows[name] = dict(peak=cap.peak_bytes, growth=growth,
+                          syncs=len(syncs),
+                          cpu_peak=cpu["metrics"]["peak_live_bytes"],
+                          **rep.metrics)
+        log(f"analysis (c): {name} on {DEVICE}: {rep.status}, findings as "
+            f"on the CPU ({len(got)}); captured peak {cap.peak_bytes:,} B "
+            f"(CPU capture {rows[name]['cpu_peak']:,} B), a real call grew "
+            f"max_memory_allocated by {growth:,} B (ratio "
+            f"{growth / max(cap.peak_bytes, 1):.3f}); sync warnings "
+            f"{len(syncs)} {sorted(set(syncs))}, all at allowed lines (the "
+            f"capture saw {rep.metrics['host_syncs']} host sync(s), "
+            f"{rep.metrics['host_to_device']} tensor(s) from host data, "
+            f"{len(rep.allowed)} allowed)")
+    # the full-width step: serve (b) left the model in float32, so its
+    # caches take the weights' type
+    from torch.utils import _pytree as pytree
+    wdt = next(model.parameters()).dtype
+    caches = pytree.tree_map(
+        lambda t: t.to(wdt) if t.is_floating_point() else t,
+        model.init_caches(SERVE_SLOTS, SERVE_MAX_LEN))
+    tokens = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(SERVE_SLOTS, dtype=torch.int32, device=DEVICE) \
+        * (SERVE_MAX_LEN // SERVE_SLOTS)
+    spec = irc.EntrySpec(
+        name=f"decode {LM_ARCH} x {LM_LAYERS}",
+        fn=lambda c, t, p: model.decode_step(c, {"tokens": t}, p),
+        args=(caches, tokens, pos))
+    rep, cap = irc.check_entry(spec)
+    assert rep.status == "ok", [str(f) for f in rep.findings]
+    syncs, growth = _real_call(torch, spec)
+    _hold_syncs(spec.name, syncs, rep)
+    rows["full-width decode"] = dict(peak=cap.peak_bytes, growth=growth,
+                                     syncs=len(syncs), **rep.metrics)
+    log(f"analysis (c): {LM_ARCH} x {LM_LAYERS} decode_step at "
+        f"{SERVE_SLOTS} slots, cache {SERVE_MAX_LEN} "
+        f"({next(model.parameters()).dtype}): {rep.status}, "
+        f"{sum(cap.ops.values())} ops; captured peak {cap.peak_bytes:,} B, "
+        f"copy bytes {rep.metrics['copy_transpose_bytes']:,}; a real call "
+        f"grew max_memory_allocated by {growth:,} B (ratio "
+        f"{growth / max(cap.peak_bytes, 1):.3f}); sync warnings "
+        f"{len(syncs)} {sorted(set(syncs))} (none allowed; the capture saw "
+        f"{rep.metrics['host_syncs']} host sync(s), "
+        f"{rep.metrics['host_to_device']} tensor(s) from host data)")
+    del caches, spec, cap
+    return rows
+
+
+def phase_analysis(torch, np, model, card, tools) -> dict:
+    """13b. analysis: the analysis tier on the card ((a) plans and
+    attributes, (b) guarded launches, (c) ircheck's entries and the
+    full-width decode step) beside its CPU tools on the host ((d), started
+    with :func:`_start_tools` before phase 13, whose capture leaves the
+    host's other cores free).  Returns the kernel wrappers' launches
+    during the phase."""
+    t0 = time.perf_counter()
+    before = _kernel_counts()
+    analysis_plans(torch)
+    t_a = time.perf_counter()
+    n_b = analysis_launches(torch, np)
+    t_b = time.perf_counter()
+    torch.cuda.empty_cache()
+    cpu = _finish_tools(tools)
+    t_d = time.perf_counter()
+    rows = analysis_ircheck(torch, model, cpu)
+    after = _kernel_counts()
+    log(f"analysis [{card}]: phase {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t_a - t0:.1f} s, (b) {n_b} launch sets {t_b - t_a:.1f} s, (d) "
+        f"waited {t_d - t_b:.1f} s, (c) {len(rows)} steps "
+        f"{time.perf_counter() - t_d:.1f} s)")
+    torch.cuda.empty_cache()
+    return {k: after[k] - before[k] for k in after}
 
 
 def main() -> int:
@@ -4395,10 +4977,10 @@ def main() -> int:
     ms_build = importlib.import_module(
         "repro_torch.kernels.mamba_scan.mamba_scan")
 
-    # float32 products in full float32 on the card (the plain versions'
-    # bounds assume it)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # float32 products in full float32 for the whole run: the plain
+    # versions' bounds assume it
+    torch.backends.cuda.matmul.allow_tf32 = False  # repro_torch: noqa[default-dtype-leak]
+    torch.backends.cudnn.allow_tf32 = False  # repro_torch: noqa[default-dtype-leak]
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -4464,9 +5046,10 @@ def main() -> int:
     for k, err in zip(kernels[-2:], serve_errs):
         launches[k["name"]] += serve_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err)
-    del model            # the engines' captured steps hold it through 13
 
-    # 13. the advisor on the apps' and the engines' captured steps
+    # 13. the advisor on the apps' and the engines' captured steps (13b's
+    #     CPU tools start beside it, on the host)
+    tools = _start_tools()
     kernels[0]["launches_by_path"]["advisor"] = phase_advisor(
         torch, np, pt, sb, grid_mesh, st, hp, grid, app_times, serve_steps,
         card)
@@ -4475,6 +5058,14 @@ def main() -> int:
     del grid, serve_steps
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    torch.cuda.empty_cache()
+
+    # 13b. the analysis tier on the card (plans, guarded launches, ircheck,
+    #      the full-width decode step) beside its CPU tools
+    analysis = phase_analysis(torch, np, model, card, tools)
+    for k in kernels:
+        k["launches_analysis"] = analysis[k["name"]]
+    del model
     torch.cuda.empty_cache()
 
     # 14. training on the card: no kernel on its path

@@ -328,14 +328,21 @@ def _rank_group(plan: ExecPlan):
     return dist.group.WORLD
 
 
+def gather_flat(out: dict, group) -> torch.Tensor:
+    """Every rank's one-shard chunk outputs packed into one float64 vector
+    (indices and counts are below 2**53, so exact), one all-gather: ``(n,
+    size)`` rows in rank order, on the outputs' device."""
+    flat = torch.cat([out[n].reshape(-1).to(torch.float64)
+                      for n in sorted(out)])
+    return transport.all_gather(flat, group)
+
+
 def _gather_shards(out: dict, group) -> dict:
     """Every rank's one-shard chunk outputs (a leading axis of 1) as NumPy
-    arrays with a leading axis of ranks, in rank order: packed into one
-    float64 vector (indices and counts are below 2**53, so exact), one
-    all-gather, unpacked to the outputs' dtypes."""
+    arrays with a leading axis of ranks, in rank order: :func:`gather_flat`,
+    unpacked to the outputs' dtypes."""
     names = sorted(out)
-    flat = torch.cat([out[n].reshape(-1).to(torch.float64) for n in names])
-    rows = transport.all_gather(flat, group).cpu().numpy()
+    rows = gather_flat(out, group).cpu().numpy()
     res, at = {}, 0
     for n in names:
         shape, size = tuple(out[n].shape[1:]), out[n][0].numel()

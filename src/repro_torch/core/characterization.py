@@ -17,6 +17,7 @@ float32, and ``torch.maximum`` takes no scalar operand).
 from __future__ import annotations
 
 import enum
+import numbers
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,7 +50,11 @@ def as_float(*xs) -> tuple:
                   and x.is_floating_point()), None)
     dev = first.device if first is not None else torch.device("cpu")
     dtype = first.dtype if first is not None else torch.float64
-    return tuple(torch.as_tensor(x, dtype=dtype, device=dev) for x in xs)
+    # a number is filled on the device (the same rounding as as_tensor's):
+    # a tensor made from it would be a copy from the host, which waits
+    return tuple(torch.full((), x, dtype=dtype, device=dev)
+                 if isinstance(x, numbers.Real) else
+                 torch.as_tensor(x, dtype=dtype, device=dev) for x in xs)
 
 
 def _at_least(x, lo: float):

@@ -60,6 +60,16 @@ MATRIX_FIELDS = ("t_transfer_mpi_ns", "t_transfer_cxl_ns",
 #: ``j = len(edges)`` the ``sp >= edges[-1]`` overflow.
 SPEEDUP_HIST_EDGES = np.linspace(0.0, 2.0, 41)
 
+
+def hist_edges(dtype: torch.dtype, device) -> torch.Tensor:
+    """``SPEEDUP_HIST_EDGES`` made on ``device`` as ``linspace`` makes them
+    (``i * step + start``, the same bits), not copied from the host: a
+    copy from the host waits for the card."""
+    n = len(SPEEDUP_HIST_EDGES)
+    lo, hi = float(SPEEDUP_HIST_EDGES[0]), float(SPEEDUP_HIST_EDGES[-1])
+    return (torch.arange(n, dtype=torch.float64, device=device)
+            * ((hi - lo) / (n - 1)) + lo).to(dtype)
+
 #: Scenario-axis chunk the streaming ``"distributed"`` backend prices at a
 #: time: each chunk's ``(chunk, n_calls)`` matrices stay a few MB.
 DIST_CHUNK_DEFAULT = 65536
@@ -271,7 +281,9 @@ def price_topk_chunk(cb, view, valid, idx, k: int,
     1)`` exact bucket counts; ``n_beneficial`` / ``gain_sum`` ``(n_dev,
     n_calls)``.
     """
-    return {name: val.cpu().numpy() for name, val in
+    # the chunk's few candidates and aggregates are its result on the host
+    return {name: val.cpu().numpy()  # repro_torch: noqa[host-sync-in-hot-path]
+            for name, val in
             topk_chunk_tensors(cb, view, valid, idx, k, n_devices).items()}
 
 
@@ -300,12 +312,12 @@ def topk_chunk_tensors(cb, view, valid, idx, k: int,
     sp = base / (base - gain.sum(dim=-1))                  # (n_dev, n_loc)
     ok = valid.reshape(n_dev, n_loc)
     gidx = idx.reshape(n_dev, n_loc)
-    inf = torch.tensor(float("inf"), dtype=sp.dtype, device=dev)
+    inf = float("inf")
 
     spv = torch.where(ok, sp, -inf)
     pos = _top_rows(spv, k_local)
     fpos = _top_rows(torch.where(ok, -(sp - 1.0).abs(), -inf), k_local)
-    edges = torch.as_tensor(SPEEDUP_HIST_EDGES, dtype=sp.dtype, device=dev)
+    edges = hist_edges(sp.dtype, dev)
     n_hist = len(SPEEDUP_HIST_EDGES) + 1
     # one bincount over every shard: shard j's buckets at j * n_hist, the
     # masked rows in one extra bin past the end, dropped
@@ -331,3 +343,91 @@ def topk_chunk_tensors(cb, view, valid, idx, k: int,
         "gain_sum": torch.where(okc, gain, 0.0).sum(dim=1),
     }
     return out
+
+
+# --------------------------------------------------------------------------
+# Captured entry points (repro_torch.analysis.ircheck registrations)
+# --------------------------------------------------------------------------
+
+def _ircheck_bundle():
+    """Small deterministic compiled bundle: every data-source class, two
+    call-sites (the reference's ``_ircheck_bundle``)."""
+    from .sweep import compile_bundle
+    from .traces import (CommRecord, CounterSet, DataSource, LoadSample,
+                         TraceBundle)
+    bundle = TraceBundle(sampling_period=500.0)
+    bundle.counters = CounterSet(ld_ins=5e9, l1_ldm=6e8, l3_ldm=9e7,
+                                 tot_cyc=3.1e9, imc_reads=2.2e8,
+                                 wall_time_ns=1.5e9)
+    sources = tuple(DataSource)
+    for i, cid in enumerate(("recv_a", "recv_b")):
+        for j in range(12):
+            bundle.add_sample(LoadSample(
+                call_id=cid, lat_ns=30.0 + 17.0 * ((3 * i + j) % 13),
+                source=sources[(i + j) % len(sources)],
+                weight=1.0 + 0.25 * j))
+        bundle.add_comm(CommRecord(call_id=cid, bytes=4096 * (i + 1),
+                                   count=3))
+    return compile_bundle(bundle)
+
+
+def _ircheck_grid_spec(device="cpu", abstract=True):
+    """``price_grid_fused`` over 8 scenarios of the multinode grid: the
+    fused bracket op and the physics around it, float64 (the counterpart
+    of the reference's ``sweep.price_grid_jax``).  The bundle's CSR form is
+    made before the capture, as ``price`` caches it."""
+    from ..analysis.ircheck import EntrySpec, src_for
+    from .params import ModelParams
+    from .sweep import ParamGrid, _scenario_view
+
+    cb = _ircheck_bundle()
+    cb.tensors(device, torch.float64)
+    grid = ParamGrid.product(ModelParams.multinode(),
+                             cxl_lat_ns=[300.0, 400.0, 500.0, 600.0],
+                             cxl_atomic_lat_ns=[350.0, 550.0])
+    view = _scenario_view(grid).to(device, torch.float64)
+    return EntrySpec(name="sweep.price_grid_torch",
+                     fn=lambda v: price_grid_fused(cb, v), args=(view,),
+                     x64=True, src=src_for(price_grid_fused))
+
+
+def _ircheck_topk_spec(device="cpu", abstract=True):
+    """One rank's streaming chunk of 8 scenarios on a 4-rank group: this
+    rank's 2 rows priced and reduced to its top 4, then the all-gather of
+    every rank's candidates (``adaptive.run_distributed``'s step)."""
+    import torch.distributed as dist
+
+    from ..analysis.ircheck import EntrySpec, src_for
+    from .adaptive import gather_flat
+    from .params import ModelParams
+    from .sweep import ParamGrid, _scenario_view
+
+    n_dev, S, k = 4, 8, 4
+    cb = _ircheck_bundle()
+    cb.tensors(device, torch.float64)
+    grid = ParamGrid.sample(ModelParams.multinode(), S, seed=0,
+                            cxl_lat_ns=(250.0, 700.0),
+                            cxl_atomic_lat_ns=(300.0, 800.0))
+    n_loc = S // n_dev
+    view = _scenario_view(grid)._slice(slice(0, n_loc)).to(device,
+                                                          torch.float64)
+    valid = torch.ones(n_loc, dtype=torch.bool, device=device)
+    idx = torch.arange(n_loc, dtype=torch.int64, device=device)
+    group = dist.group.WORLD
+
+    def step(v, ok, ix):
+        return gather_flat(topk_chunk_tensors(cb, v, ok, ix, k), group)
+    return EntrySpec(
+        name="sweep.price_topk_chunk", fn=step, args=(view, valid, idx),
+        x64=True, mesh_axes={"scenarios": n_dev},
+        allow_syncs={"aten::bincount": "the histogram's bincount sizes its "
+                     "output from the data: one sync a chunk, whose "
+                     "candidates go to the host anyway"},
+        src=src_for(price_topk_chunk))
+
+
+def register_ircheck_entrypoints(register) -> None:
+    """Register the sweep's captured steps with
+    ``repro_torch.analysis.ircheck`` (called by its ``_load_builtins``)."""
+    register("sweep.price_grid_torch", _ircheck_grid_spec)
+    register("sweep.price_topk_chunk", _ircheck_topk_spec, min_devices=4)

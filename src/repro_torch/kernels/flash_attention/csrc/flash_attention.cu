@@ -242,17 +242,29 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The launch geometry: a CTA per (64-row q block, batch x q head), the
+// tiles in dynamic shared memory.
+struct Plan {
+  dim3 grid, block;
+  size_t smem;
+};
+
+template <int D>
+Plan plan_d(int B, int S, int Hq) {
+  return {dim3((S + kBQ - 1) / kBQ, B * Hq), dim3(kThreads),
+          Tiles<D>::kBytes};
+}
+
 template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, T* o, int B, int S, int Tk,
              int Hq, int Hkv, int causal, int q_off, float scale,
              cudaStream_t stream) {
-  const size_t bytes = Tiles<D>::kBytes;
+  const Plan g = plan_d<D>(B, S, Hq);
   cudaError_t err = cudaFuncSetAttribute(
       attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      (int)g.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
-  attn_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  attn_kernel<T, D><<<g.grid, g.block, g.smem, stream>>>(
       q, k, v, o, S, Tk, Hq, Hkv, causal, q_off, scale);
   return (int)cudaGetLastError();
 }
@@ -282,6 +294,56 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int Tk,
   }
 }
 
+void put(const Plan& g, int* out) {
+  const int v[11] = {(int)g.grid.x, (int)g.grid.y, (int)g.grid.z,
+                     (int)g.block.x, (int)g.block.y, (int)g.block.z,
+                     (int)g.smem, 1, 1, 1, 0};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+}
+
+int plan(int B, int S, int Hq, int D, int* out) {
+  switch (D) {
+    case 16: put(plan_d<16>(B, S, Hq), out); return 0;
+    case 32: put(plan_d<32>(B, S, Hq), out); return 0;
+    case 64: put(plan_d<64>(B, S, Hq), out); return 0;
+    case 128: put(plan_d<128>(B, S, Hq), out); return 0;
+    case 256: put(plan_d<256>(B, S, Hq), out); return 0;
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The attributes of attn_kernel<T, D>, with the dynamic shared memory
+// limit set as the launcher sets it, and its CTAs per SM at `smem`.
+template <typename T, int D>
+int attrs_d(int smem, int* out) {
+  cudaFuncAttributes a{};
+  int occ = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tiles<D>::kBytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, attn_kernel<T, D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, attn_kernel<T, D>, kThreads, smem);
+  const int v[6] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    a.maxThreadsPerBlock, a.maxDynamicSharedSizeBytes, occ};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)err;
+}
+
+// variant: the head width D.
+template <typename T>
+int attrs(int variant, int smem, int* out) {
+  switch (variant) {
+    case 16: return attrs_d<T, 16>(smem, out);
+    case 32: return attrs_d<T, 32>(smem, out);
+    case 64: return attrs_d<T, 64>(smem, out);
+    case 128: return attrs_d<T, 128>(smem, out);
+    case 256: return attrs_d<T, 256>(smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 #define ATTN_ARGS(T)                                                        \
@@ -294,4 +356,24 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int Tk,
 extern "C" int flash_attention_f32(ATTN_ARGS(float)) { return ATTN_CALL; }
 extern "C" int flash_attention_bf16(ATTN_ARGS(__nv_bfloat16)) {
   return ATTN_CALL;
+}
+
+// The geometry the launcher uses for (B, S, T, Hq, Hkv, D), into out[11]:
+// grid xyz, block xyz, dynamic shared bytes, cluster xyz, cooperative.
+#define PLAN_ARGS int B, int S, int Tk, int Hq, int Hkv, int D, int* out
+extern "C" int flash_attention_plan_f32(PLAN_ARGS) {
+  return plan(B, S, Hq, D, out);
+}
+extern "C" int flash_attention_plan_bf16(PLAN_ARGS) {
+  return plan(B, S, Hq, D, out);
+}
+
+// attn_kernel's attributes for head width `variant` and its CTAs per SM at
+// `smem` dynamic bytes, into out[6]: registers, local bytes, static shared
+// bytes, max threads, max dynamic shared bytes, occupancy.
+extern "C" int flash_attention_attrs_f32(int variant, int smem, int* out) {
+  return attrs<float>(variant, smem, out);
+}
+extern "C" int flash_attention_attrs_bf16(int variant, int smem, int* out) {
+  return attrs<__nv_bfloat16>(variant, smem, out);
 }

@@ -730,6 +730,19 @@ bool make_map(CUtensorMap* map, const void* x, int D, int H, int L, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The launch geometry: a CTA of three warpgroups per (batch x q head,
+// 128-row q block), Shape<D>::kSmem of dynamic shared memory.
+struct Plan {
+  dim3 grid, block;
+  size_t smem;
+};
+
+template <int D>
+Plan plan_d(int B, int S, int Hq) {
+  return {dim3(B * Hq, (S + kBQ - 1) / kBQ), dim3(kThreads),
+          Shape<D>::kSmem};
+}
+
 template <int D>
 int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
              const __nv_bfloat16* v, __nv_bfloat16* o, int B, int S, int Tk,
@@ -741,12 +754,12 @@ int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
       !make_map(&km, k, D, Hkv, Tk, B, Sh::kBK) ||
       !make_map(&vm, v, D, Hkv, Tk, B, Sh::kBK))
     return (int)cudaErrorInvalidValue;
+  const Plan g = plan_d<D>(B, S, Hq);
   cudaError_t err = cudaFuncSetAttribute(
       attn_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Sh::kSmem);
+      (int)g.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
-  attn_sm90_kernel<D><<<grid, kThreads, Sh::kSmem, stream>>>(
+  attn_sm90_kernel<D><<<g.grid, g.block, g.smem, stream>>>(
       qm, km, vm, o, S, Tk, Hq, Hkv, causal, q_off, scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -772,5 +785,60 @@ extern "C" int flash_attention_sm90_bf16(const __nv_bfloat16* q,
                            scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+namespace {
+
+void put(const Plan& g, int* out) {
+  const int v[11] = {(int)g.grid.x, (int)g.grid.y, (int)g.grid.z,
+                     (int)g.block.x, (int)g.block.y, (int)g.block.z,
+                     (int)g.smem, 1, 1, 1, 0};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+}
+
+// The attributes of attn_sm90_kernel<D>, with the dynamic shared memory
+// limit set as the launcher sets it, and its CTAs per SM at `smem`.
+template <int D>
+int attrs_d(int smem, int* out) {
+  cudaFuncAttributes a{};
+  int occ = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Shape<D>::kSmem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, attn_sm90_kernel<D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, attn_sm90_kernel<D>, kThreads, smem);
+  const int v[6] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    a.maxThreadsPerBlock, a.maxDynamicSharedSizeBytes, occ};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)err;
+}
+
+}  // namespace
+
+// The geometry the launcher uses for (B, S, T, Hq, Hkv, D), into out[11]:
+// grid xyz, block xyz, dynamic shared bytes, cluster xyz, cooperative.
+extern "C" int flash_attention_sm90_plan_bf16(int B, int S, int Tk, int Hq,
+                                              int Hkv, int D, int* out) {
+  switch (D) {
+    case 64: put(plan_d<64>(B, S, Hq), out); return 0;
+    case 128: put(plan_d<128>(B, S, Hq), out); return 0;
+    case 256: put(plan_d<256>(B, S, Hq), out); return 0;
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// attn_sm90_kernel's attributes for head width `variant` and its CTAs per
+// SM at `smem` dynamic bytes, into out[6]: registers, local bytes, static
+// shared bytes, max threads, max dynamic shared bytes, occupancy.
+extern "C" int flash_attention_sm90_attrs_bf16(int variant, int smem,
+                                               int* out) {
+  switch (variant) {
+    case 64: return attrs_d<64>(smem, out);
+    case 128: return attrs_d<128>(smem, out);
+    case 256: return attrs_d<256>(smem, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

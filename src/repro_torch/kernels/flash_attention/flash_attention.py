@@ -41,13 +41,19 @@ TAKES = {"sm90": ((torch.bfloat16,), (64, 128, 256)),
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, out, B, S, T, Hq, Hkv, D, causal, q_offset, scale, stream
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
-_ENTRY = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}
+ENTRY = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}
 
 
 def build(route: str) -> _build.Library:
-    """Compile (if needed) and load one route's library; idempotent."""
-    return _build.build(SOURCES[route],
-                        {_ENTRY[route]: (_ARGS, TAKES[route][0])})
+    """Compile (if needed) and load one route's library; idempotent.  Its
+    entries: the launcher, ``<entry>_plan`` (B, S, T, Hq, Hkv, D, out: the
+    launch geometry) and ``<entry>_attrs`` (D, smem, out: the kernel's
+    attributes)."""
+    dtypes = TAKES[route][0]
+    return _build.build(SOURCES[route], {
+        ENTRY[route]: (_ARGS, dtypes),
+        ENTRY[route] + "_plan": ([_I] * 6 + [_P], dtypes),
+        ENTRY[route] + "_attrs": ([_I, _I, _P], dtypes)})
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,7 +64,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype; q's row ``s`` is key position ``s + q_offset``."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    rc = build(route).fn(_ENTRY[route], q.dtype)(
+    rc = build(route).fn(ENTRY[route], q.dtype)(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), B, S,
         T, Hq, Hkv, D, int(causal), int(q_offset), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -24,10 +24,54 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from .. import _plan
 from . import flash_attention as _cuda
 from .ref import attention_ref
 
 _TYPES = (torch.float32, torch.bfloat16)
+
+
+def grid(B: int, S: int, Hq: int, route_: str) -> tuple:
+    """The grid of ``route_``'s launch (``plan``'s and the wrapper's
+    guard's): (batch x q head, 128-row q blocks) for ``"sm90"``, (64-row q
+    blocks, batch x q head) for ``"simt"``."""
+    if route_ == "sm90":
+        return _plan.dim3(B * Hq, -(-S // 128))
+    if route_ != "simt":
+        raise ValueError(f"no route {route_!r}")
+    return _plan.dim3(-(-S // 64), B * Hq)
+
+
+def plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
+         route_: str) -> _plan.LaunchPlan:
+    """The launch ``route_``'s ``<entry>_plan`` computes.  ``"sm90"``
+    (``attn_sm90_kernel``): a CTA of 384 threads (three warpgroups) per
+    (batch x q head, 128-row q block), the q tile and a ring of kv tiles in
+    dynamic shared memory, three TMA maps; ``"simt"`` (``attn_kernel``): a
+    CTA of 256 threads per (64-row q block, batch x q head)."""
+    if route_ == "sm90":
+        bk, stages = (64, 2) if D > 128 else (128, 3)
+        kv = bk * D * 2
+        bufs = (("1024-byte alignment pad", 1024), ("q tile", 128 * D * 2),
+                ("k ring", stages * kv), ("v ring", stages * kv),
+                ("mbarriers", (1 + 4 * stages) * 8))
+
+        def tma(name, H, L, rows):
+            return _plan.TmaMap(name, (D, H, L, B),
+                                (D * 2, H * D * 2, L * H * D * 2),
+                                (64, 1, rows, 1), 2, swizzle=128)
+        return _plan.LaunchPlan(
+            "attn_sm90_kernel", grid(B, S, Hq, route_),
+            _plan.dim3(384), sum(b for _, b in bufs),
+            buffers=tuple((n, b, "dynamic") for n, b in bufs),
+            tma=(tma("q", Hq, S, 128), tma("k", Hkv, T, bk),
+                 tma("v", Hkv, T, bk)), thread_quantum=128)
+    bufs = (("q tile", 64 * (D + 4) * 4), ("k tile (transposed)", D * 64 * 4),
+            ("v tile", 64 * D * 4), ("probabilities", 64 * 68 * 4))
+    return _plan.LaunchPlan(
+        "attn_kernel", grid(B, S, Hq, route_), _plan.dim3(256),
+        sum(b for _, b in bufs),
+        buffers=tuple((n, b, "dynamic") for n, b in bufs))
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -42,6 +86,40 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
             return name
     raise ValueError(f"the kernels take head widths "
                      f"{_cuda.TAKES['simt'][1]}, got {head_dim}")
+
+
+def case_plan(case: dict) -> _plan.LaunchPlan:
+    """The plan of an analysis case (``analysis.kernelcheck``): ``B``,
+    ``S``, ``T``, ``Hq``, ``Hkv``, ``D`` and ``dtype`` pick the route as
+    the wrapper does."""
+    return plan(*(case[k] for k in ("B", "S", "T", "Hq", "Hkv", "D")),
+                route(getattr(torch, case["dtype"]), case["D"]))
+
+
+def _case_tiles(case: dict, p: _plan.LaunchPlan, cta) -> dict:
+    """The rows of one (batch, q head) that CTA ``cta`` writes, longest
+    q block first: ``attn_sm90_kernel`` takes (batch x head) from
+    ``blockIdx.x`` and 128-row blocks from ``y``, ``attn_kernel`` 64-row
+    blocks from ``x`` and (batch x head) from ``y``."""
+    S, Hq, D = case["S"], case["Hq"], case["D"]
+    if p.kernel == "attn_sm90_kernel":
+        bh, blk, rows = cta[0], cta[1], 128
+    else:
+        bh, blk, rows = cta[1], cta[0], 64
+    q0 = (-(-S // rows) - 1 - blk) * rows
+    b, h = divmod(bh, Hq)
+    return {"out": [((b, b + 1), (q0, min(q0 + rows, S)), (h, h + 1),
+                     (0, D))]}
+
+
+def _make_dataflow():
+    from ...analysis.dataflow import DataflowContract
+    return DataflowContract(
+        ("parallel",) * 3, case_plan,
+        lambda c: {"out": (c["B"], c["S"], c["Hq"], c["D"])}, _case_tiles)
+
+
+DATAFLOW = _make_dataflow()
 
 
 def _check(q, k, v, block_q: int, block_k: int) -> None:
@@ -86,7 +164,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     if dev.type == "cuda":
-        route(q.dtype, q.shape[-1])
+        path = route(q.dtype, q.shape[-1])
+        if q.numel():
+            B, S, Hq, _ = q.shape
+            _plan.refuse_grid(_cuda.KERNELS[path], grid(B, S, Hq, path))
     return flash_attention_op(q, k, v, causal, int(q_offset))
 
 

@@ -270,22 +270,37 @@ int max_ctas(int* out) {
 
 enum Route { kCluster = 0, kFlags = 1 };
 
+// The launch geometry: n x chunks CTAs of kThreads on grid x, no dynamic
+// shared memory; one cluster of n CTAs per chunk on the cluster route, a
+// cooperative launch on the flags route.
+struct Plan {
+  dim3 grid, block, cluster;
+  size_t smem;
+  int cooperative;
+};
+
+Plan plan(int n, int chunks, int route) {
+  return {dim3(n * chunks), dim3(kThreads),
+          dim3(route == kCluster ? n : 1), 0, route == kFlags};
+}
+
 template <typename U>
 int launch(Ring<U> g, int chunks, int route, Flag* flags, long long epoch,
            cudaStream_t stream) {
   g.chunk = (g.P + chunks - 1) / chunks;
-  const dim3 grid(g.n * chunks), block(kThreads);
+  const Plan p = plan(g.n, chunks, route);
   cudaError_t err;
   if (route == kCluster) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = block;
+    cfg.gridDim = p.grid;
+    cfg.blockDim = p.block;
+    cfg.dynamicSmemBytes = p.smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = g.n;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
+    attr[0].val.clusterDim.x = p.cluster.x;
+    attr[0].val.clusterDim.y = p.cluster.y;
+    attr[0].val.clusterDim.z = p.cluster.z;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, halo_cluster_kernel<U>, g);
@@ -295,12 +310,31 @@ int launch(Ring<U> g, int chunks, int route, Flag* flags, long long epoch,
     Flag target = 2ull * (Flag)epoch;
     void* args[] = {&g, &chunks, &ready, &done, &target};
     err = cudaLaunchCooperativeKernel((const void*)halo_flags_kernel<U>,
-                                      grid, block, args, 0, stream);
+                                      p.grid, p.block, args, p.smem, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// The attributes of one route's kernel over units U and its CTAs per SM at
+// `smem` dynamic bytes, into out[6].
+template <typename U>
+int attrs(int route, int smem, int* out) {
+  cudaFuncAttributes a{};
+  int occ = 0;
+  const void* kernel = route == kCluster
+                           ? (const void*)halo_cluster_kernel<U>
+                           : (const void*)halo_flags_kernel<U>;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel,
+                                                        kThreads, smem);
+  const int v[6] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    a.maxThreadsPerBlock, a.maxDynamicSharedSizeBytes, occ};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)err;
 }
 
 // T is the float type; with vec the units are 16 bytes (16 / sizeof(T)
@@ -350,4 +384,39 @@ extern "C" int halo_max_ctas_f64(int vec, int* out) {
 }
 extern "C" int halo_max_ctas_f32(int vec, int* out) {
   return vec ? max_ctas<uint4>(out) : max_ctas<unsigned int>(out);
+}
+
+// The geometry the launcher uses for n ranks of P elements in `chunks`
+// chunks on `route`, into out[11]: grid xyz, block xyz, dynamic shared
+// bytes, cluster xyz, cooperative.
+#define HALO_PLAN                                                          \
+  if (n < 1 || chunks < 1 || P < 0 || (route != kCluster && route != kFlags)) \
+    return (int)cudaErrorInvalidValue;                                     \
+  const Plan g = plan(n, chunks, route);                                   \
+  const int v[11] = {(int)g.grid.x,    (int)g.grid.y,    (int)g.grid.z,    \
+                     (int)g.block.x,   (int)g.block.y,   (int)g.block.z,   \
+                     (int)g.smem,      (int)g.cluster.x, (int)g.cluster.y, \
+                     (int)g.cluster.z, g.cooperative};                     \
+  for (int i = 0; i < 11; ++i) out[i] = v[i];                              \
+  return 0
+extern "C" int halo_exchange_plan_f64(int n, long long P, int chunks,
+                                      int route, int vec, int* out) {
+  HALO_PLAN;
+}
+extern "C" int halo_exchange_plan_f32(int n, long long P, int chunks,
+                                      int route, int vec, int* out) {
+  HALO_PLAN;
+}
+
+// variant = 2 x route + vec: that route's kernel over 16-byte (vec) or
+// element units; its attributes and CTAs per SM at `smem`, into out[6]:
+// registers, local bytes, static shared bytes, max threads, max dynamic
+// shared bytes, occupancy.
+extern "C" int halo_exchange_attrs_f64(int variant, int smem, int* out) {
+  return variant % 2 ? attrs<uint4>(variant / 2, smem, out)
+                     : attrs<unsigned long long>(variant / 2, smem, out);
+}
+extern "C" int halo_exchange_attrs_f32(int variant, int smem, int* out) {
+  return variant % 2 ? attrs<uint4>(variant / 2, smem, out)
+                     : attrs<unsigned int>(variant / 2, smem, out);
 }

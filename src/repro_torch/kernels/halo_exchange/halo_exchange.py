@@ -31,6 +31,10 @@ _SIGNATURES = {
                        _P], _FLOATS),
     # vec, out: the flags route's CTAs that can be resident at once
     "halo_max_ctas": ([_I, _P], _FLOATS),
+    # n, P, chunks, route, vec, out: the launch geometry (``_plan.c_plan``)
+    "halo_exchange_plan": ([_I, _L, _I, _I, _I, _P], _FLOATS),
+    # 2 x route + vec, smem, out: a kernel's attributes (``_plan.c_attrs``)
+    "halo_exchange_attrs": ([_I, _I, _P], _FLOATS),
 }
 
 

@@ -26,6 +26,7 @@ import math
 import torch
 
 from ...comm import message_free
+from .. import _plan
 from . import halo_exchange as _cuda
 from .ref import ring_exchange_collective, ring_halo_exchange_ref
 
@@ -78,6 +79,78 @@ def chunk_count(n: int, units: int, sms: int, max_ctas: int | None = None
                                f"{max_ctas}")
         chunks = min(chunks, max_ctas // n)
     return chunks
+
+
+def plan(n: int, units: int, route: str, sms: int,
+         max_ctas: int | None = None) -> _plan.LaunchPlan:
+    """The launch ``halo_exchange_plan_*`` computes for ``n`` ranks of
+    ``units`` units a strip on ``route``, with :func:`chunk_count`'s chunks
+    for ``sms`` SMs (and, on the flags route, ``max_ctas`` co-resident
+    CTAs, which the card reports): ``n x chunks`` CTAs of :data:`THREADS`
+    on grid x, one cluster of ``n`` per chunk or one cooperative grid."""
+    chunks = chunk_count(n, units, sms,
+                         max_ctas if route == "flags" else None)
+    kernel = {"cluster": "halo_cluster_kernel",
+              "flags": "halo_flags_kernel"}[route]
+    static = (("mbarriers", 16),) if route == "cluster" else ()
+    return _plan.LaunchPlan(
+        kernel, _plan.dim3(n * chunks), _plan.dim3(THREADS),
+        cluster=_plan.dim3(n if route == "cluster" else 1),
+        cooperative=route == "flags",
+        static_smem=sum(b for _, b in static),
+        buffers=tuple((name, b, "static") for name, b in static))
+
+
+def case_max_ctas(case: dict) -> int:
+    """Co-resident CTAs of an analysis case: an H100's 132 SMs x 8 CTAs of
+    256 threads unless the case says."""
+    return case.get("max_ctas", case.get("sms", 132) * 2048 // THREADS)
+
+
+def case_units(case: dict) -> int:
+    """Units a strip of an analysis case moves: 16-byte ones where the
+    plane is a 16-byte multiple (contiguous blocks, aligned), else
+    elements."""
+    p = math.prod(case["plane"])
+    size = 8 if case["dtype"] == "float64" else 4
+    return p * size // 16 if p * size % 16 == 0 else p
+
+
+def case_plan(case: dict) -> _plan.LaunchPlan:
+    """The plan of an analysis case (``analysis.kernelcheck``): ``n``
+    ranks, one ``plane`` a strip, ``dtype``, an optional ``route``."""
+    return plan(case["n"], case_units(case),
+                case.get("route") or route_for(case["n"]),
+                case.get("sms", 132), case_max_ctas(case))
+
+
+def _case_tiles(case: dict, p: _plan.LaunchPlan, cta) -> dict:
+    """CTA x is chunk c of rank r (``r = x % n`` on the cluster route,
+    where a cluster's rank is its CTA rank, ``r = x / chunks`` on the
+    flags route); it writes its chunk of the left neighbour's
+    ``from_next`` and the right neighbour's ``from_prev``."""
+    n, units = case["n"], case_units(case)
+    chunks = p.grid[0] // n
+    if p.cluster[0] > 1 or not p.cooperative:
+        c, r = divmod(cta[0], n)
+    else:
+        r, c = divmod(cta[0], chunks)
+    size = -(-units // chunks)
+    span = (c * size, min(c * size + size, units))
+    left, right = (r - 1) % n, (r + 1) % n
+    return {"recv_hi": [((left, left + 1), span)],
+            "recv_lo": [((right, right + 1), span)]}
+
+
+def _make_dataflow():
+    from ...analysis.dataflow import DataflowContract
+    return DataflowContract(
+        ("parallel",) * 3, case_plan,
+        lambda c: {name: (c["n"], case_units(c))
+                   for name in ("recv_lo", "recv_hi")}, _case_tiles)
+
+
+DATAFLOW = _make_dataflow()
 
 
 def _rank_strip_contiguous(t: torch.Tensor) -> bool:

@@ -248,7 +248,50 @@ bool make_map(CUtensorMap* map, const float* t, int W, int L, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The launch geometry: a CTA per 32 channels of one batch row, static
+// shared memory only.
+struct Plan {
+  dim3 grid, block;
+  size_t smem;
+};
+
+Plan plan(int B, int d) {
+  return {dim3((d + kChannels - 1) / kChannels, B), dim3(kThreads), 0};
+}
+
+void put(const Plan& g, int* out) {
+  const int v[11] = {(int)g.grid.x, (int)g.grid.y, (int)g.grid.z,
+                     (int)g.block.x, (int)g.block.y, (int)g.block.z,
+                     (int)g.smem, 1, 1, 1, 0};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+}
+
 }  // namespace
+
+// The geometry the launcher below uses for (B, L, d, N), into out[11]:
+// grid xyz, block xyz, dynamic shared bytes, cluster xyz, cooperative.
+extern "C" int mamba_scan_plan_f32(int B, int L, int d, int N, int* out) {
+  if (N != kN || d % 4 != 0 || L < 1) return (int)cudaErrorInvalidValue;
+  put(plan(B, d), out);
+  return 0;
+}
+
+// scan_kernel's attributes (variant 0, the only one) and its CTAs per SM
+// at `smem` dynamic bytes, into out[6]: registers, local bytes, static
+// shared bytes, max threads, max dynamic shared bytes, occupancy.
+extern "C" int mamba_scan_attrs_f32(int variant, int smem, int* out) {
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, scan_kernel);
+  int occ = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, scan_kernel,
+                                                        kThreads, smem);
+  const int v[6] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    a.maxThreadsPerBlock, a.maxDynamicSharedSizeBytes, occ};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)err;
+}
 
 // x, dt (B, L, d), Bt, Ct (B, L, 16), A (d, 16), D (d,), h0 (B, d, 16) or
 // null -> y (B, L, d), h (B, d, 16); d a multiple of 4, every pointer
@@ -264,8 +307,8 @@ extern "C" int mamba_scan_f32(const float* x, const float* dt,
       !make_map(&dtm, dt, d, L, B, kChannels) ||
       !make_map(&bm, Bt, kN, L, B, kN) || !make_map(&cm, Ct, kN, L, B, kN))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((d + kChannels - 1) / kChannels, B);
-  scan_kernel<<<grid, kThreads, 0, stream>>>(xm, dtm, bm, cm, A, Dv, h0, y, h,
-                                             L, d);
+  const Plan g = plan(B, d);
+  scan_kernel<<<g.grid, g.block, g.smem, stream>>>(xm, dtm, bm, cm, A, Dv, h0,
+                                                   y, h, L, d);
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, dt, Bt, Ct, A, D, h0 (or null), y, h, B, L, d, N, stream
     "mamba_scan": ([_P] * 9 + [_I] * 4 + [_P], (torch.float32,)),
+    # B, L, d, N, out: the launch geometry (``_plan.c_plan``)
+    "mamba_scan_plan": ([_I] * 4 + [_P], (torch.float32,)),
+    # variant, smem, out: the kernel's attributes (``_plan.c_attrs``)
+    "mamba_scan_attrs": ([_I, _I, _P], (torch.float32,)),
 }
 
 

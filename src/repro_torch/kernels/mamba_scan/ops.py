@@ -24,8 +24,69 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import _plan
 from . import mamba_scan as _cuda
 from .ref import mamba_scan_ref
+
+#: ``scan_kernel``'s tiles (``csrc/mamba_scan.cu``): channels per CTA,
+#: threads per CTA, time steps per TMA load.
+CHANNELS, THREADS, CHUNK = 32, 128, 32
+#: its static shared memory: a two-chunk ring of (x, dt) 32 x 32 and
+#: (Bt, Ct) 32 x 16 float tiles, the partial y of a chunk, two mbarriers
+STATIC_SMEM = (("ring", 2 * (2 * CHUNK * CHANNELS + 2 * CHUNK * 16) * 4),
+               ("partial y", CHUNK * THREADS * 4), ("mbarriers", 16))
+
+
+def grid(B: int, d: int) -> tuple:
+    """The launch's grid (``plan``'s and the wrapper's guard's): 32-channel
+    blocks of ``d`` (padded to a multiple of 4), the batch on y."""
+    return _plan.dim3(-(-d // CHANNELS), B)
+
+
+def plan(B: int, L: int, d: int, N: int = 16) -> _plan.LaunchPlan:
+    """The launch ``mamba_scan_plan_f32`` computes for the kernel's shapes:
+    ``d`` channels (padded to a multiple of 4 by the wrapper), ``N`` 16
+    states; its four TMA maps over x, dt (rows of ``d`` floats) and Bt, Ct
+    (rows of 16)."""
+    maps = tuple(_plan.TmaMap(name, (w, L, B), (w * 4, L * w * 4), (box, CHUNK,
+                                                                  1), 4)
+                 for name, w, box in (("x", d, CHANNELS), ("dt", d, CHANNELS),
+                                      ("Bt", N, N), ("Ct", N, N)))
+    return _plan.LaunchPlan(
+        "scan_kernel", grid(B, d), _plan.dim3(THREADS),
+        static_smem=sum(b for _, b in STATIC_SMEM),
+        buffers=tuple((n, b, "static") for n, b in STATIC_SMEM), tma=maps)
+
+
+def case_plan(case: dict) -> _plan.LaunchPlan:
+    """The plan of an analysis case (``analysis.kernelcheck``): ``B``,
+    ``L``, ``d`` (padded to a multiple of 4 as the wrapper pads it)."""
+    return plan(case["B"], case["L"], case["d"] + -case["d"] % 4,
+                _cuda.MAX_STATES)
+
+
+def _case_outputs(case: dict) -> dict:
+    B, L, d = case["B"], case["L"], case["d"] + -case["d"] % 4
+    return {"y": (B, L, d), "h": (B, d, _cuda.MAX_STATES)}
+
+
+def _case_tiles(case: dict, p: _plan.LaunchPlan, cta) -> dict:
+    """CTA ``(x, b)`` walks channels ``32 x .. 32 x + 31`` of batch row
+    ``b`` over every step, and writes their y and final state."""
+    B, L, d = _case_outputs(case)["y"]
+    ch0, b = cta[0] * CHANNELS, cta[1]
+    ch = (ch0, min(ch0 + CHANNELS, d))
+    return {"y": [((b, b + 1), (0, L), ch)],
+            "h": [((b, b + 1), ch, (0, _cuda.MAX_STATES))]}
+
+
+def _make_dataflow():
+    from ...analysis.dataflow import DataflowContract
+    return DataflowContract(("parallel",) * 3, case_plan, _case_outputs,
+                            _case_tiles)
+
+
+DATAFLOW = _make_dataflow()
 
 
 def _check(x, dt, Bt, Ct, A, D, d_block: int, chunk: int, h0=None) -> None:
@@ -76,6 +137,9 @@ def mamba_scan(x, dt, Bt, Ct, A, D, d_block: int = 256, chunk: int = 256,
         if A.shape[1] > _cuda.MAX_STATES:
             raise ValueError(f"the kernel holds at most {_cuda.MAX_STATES} "
                              f"states per channel, got N={A.shape[1]}")
+        Bsz, _, d = x.shape
+        if x.numel():
+            _plan.refuse_grid("scan_kernel", grid(Bsz, d + -d % 4))
     return mamba_scan_op(x, dt, Bt, Ct, A, D, h0)
 
 

@@ -395,16 +395,55 @@ segsum_kernel(const T* __restrict__ x, int rows, int n,
   out[r * n_seg + c] = acc;
 }
 
+// The launch geometry of both kernels: a grid on x (and, for segsum, the
+// segment on y), no cluster, no cooperative launch.
+struct Plan {
+  dim3 grid, block;
+  size_t smem;
+};
+
+void put(const Plan& g, int* out) {
+  const int v[11] = {(int)g.grid.x, (int)g.grid.y, (int)g.grid.z,
+                     (int)g.block.x, (int)g.block.y, (int)g.block.z,
+                     (int)g.smem, 1, 1, 1, 0};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+}
+
+// The dynamic shared memory of a launch over n_seg sites and n_pairs
+// pairs: the stage's two buffers of (kTile, cs), the sites' metadata when
+// n_seg <= kMetaSites, then the pairs (resident) or the window.
+template <typename T>
+size_t bracket_smem(int n_seg, int n_pairs, int resident, int* cs,
+                    int* meta) {
+  using P = typename PairOf<T>::type;
+  *cs = min(n_seg, kStageBytes / (2 * kTile * (int)sizeof(T)));
+  *meta = n_seg <= kMetaSites;
+  const size_t fixed = (size_t)2 * kTile * *cs * sizeof(T) +
+                       (*meta ? meta_bytes<P>(n_seg) : 0);
+  return fixed + (resident ? (size_t)n_pairs * sizeof(P)
+                           : (size_t)kWindow * sizeof(P));
+}
+
+// A persistent grid: the scenario tiles, at most occ CTAs per SM.
+Plan bracket_plan(int S, size_t smem, int sms, int occ) {
+  const int tiles = (S + kTile - 1) / kTile;
+  return {dim3(min(tiles, max(1, occ) * sms)), dim3(kThreads), smem};
+}
+
+// The device's SM count and the kernel's CTAs per SM at smem bytes, asked
+// once per device (and again when smem changes); the first call also
+// raises the kernel's dynamic shared memory limit to the most any launch
+// takes.
 template <typename T, bool kResident>
-int launch_bracket(const Bracket<T>& p, size_t smem, cudaStream_t stream) {
+cudaError_t occupancy(size_t smem, int* sms_out, int* occ_out) {
   auto kernel = bracket_kernel<T, kResident>;
   // per device: the SM count and the CTAs per SM at the last smem size
   static int sms[kMaxDevices], occ[kMaxDevices];
   static size_t occ_smem[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[dev] == 0) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -413,17 +452,26 @@ int launch_bracket(const Bracket<T>& p, size_t smem, cudaStream_t stream) {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
                                    dev);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
   if (occ_smem[dev] != smem || occ[dev] == 0) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[dev], kernel,
                                                         kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     occ_smem[dev] = smem;
   }
-  const int tiles = (p.S + kTile - 1) / kTile;
-  const int grid = min(tiles, max(1, occ[dev]) * sms[dev]);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  *sms_out = sms[dev];
+  *occ_out = occ[dev];
+  return cudaSuccess;
+}
+
+template <typename T, bool kResident>
+int launch_bracket(const Bracket<T>& p, size_t smem, cudaStream_t stream) {
+  int sms = 0, occ = 0;
+  cudaError_t err = occupancy<T, kResident>(smem, &sms, &occ);
+  if (err != cudaSuccess) return (int)err;
+  const Plan g = bracket_plan(p.S, smem, sms, occ);
+  bracket_kernel<T, kResident><<<g.grid, g.block, g.smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -434,26 +482,79 @@ int bracket(Group<T> hit, Group<T> lfb, Group<T> miss, const T* delta,
   using P = typename PairOf<T>::type;
   Bracket<T> p{{hit, lfb, miss}, delta, cxl, S, n_seg, 0, 0,
                {o_hit, o_lmem, o_lhalf, o_mcong}};
-  p.cs = min(n_seg, kStageBytes / (2 * kTile * (int)sizeof(T)));
-  p.meta = n_seg <= kMetaSites;
-  // shared memory: the stage's two buffers, the sites' metadata, then
-  // the pairs (resident) or the window
-  const size_t fixed = (size_t)2 * kTile * p.cs * sizeof(T) +
-                       (p.meta ? meta_bytes<P>(n_seg) : 0);
-  const size_t bundle = (size_t)(hit.n + lfb.n + miss.n) * sizeof(P);
+  const int n_pairs = hit.n + lfb.n + miss.n;
+  const size_t smem = bracket_smem<T>(n_seg, n_pairs, resident, &p.cs,
+                                      &p.meta);
   if (resident) {
-    if (bundle > (size_t)kResidentBytes) return (int)cudaErrorInvalidValue;
-    return launch_bracket<T, true>(p, fixed + bundle, (cudaStream_t)stream);
+    if ((size_t)n_pairs * sizeof(P) > (size_t)kResidentBytes)
+      return (int)cudaErrorInvalidValue;
+    return launch_bracket<T, true>(p, smem, (cudaStream_t)stream);
   }
-  return launch_bracket<T, false>(p, fixed + kWindow * sizeof(P),
-                                  (cudaStream_t)stream);
+  return launch_bracket<T, false>(p, smem, (cudaStream_t)stream);
+}
+
+// The geometry the launcher uses, into out[11], and the SM count and CTAs
+// per SM it took from the card into out[11], out[12].
+template <typename T>
+int bracket_plan_c(int S, int n_seg, int n_pairs, int resident, int* out) {
+  int cs = 0, meta = 0, sms = 0, occ = 0;
+  const size_t smem = bracket_smem<T>(n_seg, n_pairs, resident, &cs, &meta);
+  cudaError_t err = resident ? occupancy<T, true>(smem, &sms, &occ)
+                             : occupancy<T, false>(smem, &sms, &occ);
+  if (err != cudaSuccess) return (int)err;
+  put(bracket_plan(S, smem, sms, occ), out);
+  out[11] = sms;
+  out[12] = occ;
+  return 0;
+}
+
+// A kernel's attributes and its CTAs per SM at smem dynamic bytes, into
+// out[6].
+template <typename K>
+int read_attrs(K kernel, int threads, int smem, int* out) {
+  cudaFuncAttributes a{};
+  int occ = 0;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel,
+                                                        threads, smem);
+  const int v[6] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    a.maxThreadsPerBlock, a.maxDynamicSharedSizeBytes, occ};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)err;
+}
+
+// variant 0: the tiled bracket kernel, 1: the resident one (the dynamic
+// shared memory limit raised as the launcher raises it), 2: segsum.
+template <typename T>
+int attrs(int variant, int smem, int* out) {
+  int sms = 0, occ = 0;
+  cudaError_t err;
+  switch (variant) {
+    case 0:
+      err = occupancy<T, false>(smem, &sms, &occ);
+      if (err != cudaSuccess) return (int)err;
+      return read_attrs(bracket_kernel<T, false>, kThreads, smem, out);
+    case 1:
+      err = occupancy<T, true>(smem, &sms, &occ);
+      if (err != cudaSuccess) return (int)err;
+      return read_attrs(bracket_kernel<T, true>, kThreads, smem, out);
+    case 2:
+      return read_attrs(segsum_kernel<T>, kBlock, smem, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+Plan segsum_plan(int rows, int n_seg) {
+  return {dim3((rows + kBlock - 1) / kBlock, n_seg), dim3(kBlock), 0};
 }
 
 template <typename T>
 int launch_segsum(const T* x, int rows, int n, const int* offsets,
                   const int* perm, int n_seg, T* out, void* stream) {
-  const dim3 grid((rows + kBlock - 1) / kBlock, n_seg);
-  segsum_kernel<T><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+  const Plan g = segsum_plan(rows, n_seg);
+  segsum_kernel<T><<<g.grid, g.block, g.smem, (cudaStream_t)stream>>>(
       x, rows, n, offsets, perm, n_seg, out);
   return (int)cudaGetLastError();
 }
@@ -489,4 +590,43 @@ extern "C" int segsum_f32(const float* x, int rows, int n, const int* offsets,
                           const int* perm, int n_seg, float* out,
                           void* stream) {
   return launch_segsum(x, rows, n, offsets, perm, n_seg, out, stream);
+}
+
+// The launch geometry of S scenarios over n_seg sites and n_pairs pairs
+// (the three groups' together), into out[13]: grid xyz, block xyz, dynamic
+// shared bytes, cluster xyz, cooperative, then the SM count and CTAs per
+// SM the persistent grid was sized with.
+extern "C" int sweep_bracket_plan_f64(int S, int n_seg, int n_pairs,
+                                      int resident, int* out) {
+  return bracket_plan_c<double>(S, n_seg, n_pairs, resident, out);
+}
+extern "C" int sweep_bracket_plan_f32(int S, int n_seg, int n_pairs,
+                                      int resident, int* out) {
+  return bracket_plan_c<float>(S, n_seg, n_pairs, resident, out);
+}
+// variant 0: bracket_kernel tiled, 1: resident; its attributes and CTAs
+// per SM at `smem`, into out[6]: registers, local bytes, static shared
+// bytes, max threads, max dynamic shared bytes, occupancy.
+extern "C" int sweep_bracket_attrs_f64(int variant, int smem, int* out) {
+  return attrs<double>(variant, smem, out);
+}
+extern "C" int sweep_bracket_attrs_f32(int variant, int smem, int* out) {
+  return attrs<float>(variant, smem, out);
+}
+// segsum_kernel's geometry for (rows, n) -> n_seg, into out[11].
+extern "C" int segsum_plan_f64(int rows, int n, int n_seg, int* out) {
+  put(segsum_plan(rows, n_seg), out);
+  return 0;
+}
+extern "C" int segsum_plan_f32(int rows, int n, int n_seg, int* out) {
+  put(segsum_plan(rows, n_seg), out);
+  return 0;
+}
+extern "C" int segsum_attrs_f64(int variant, int smem, int* out) {
+  return variant == 0 ? attrs<double>(2, smem, out)
+                      : (int)cudaErrorInvalidValue;
+}
+extern "C" int segsum_attrs_f32(int variant, int smem, int* out) {
+  return variant == 0 ? attrs<float>(2, smem, out)
+                      : (int)cudaErrorInvalidValue;
 }

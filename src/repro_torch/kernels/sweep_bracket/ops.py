@@ -20,7 +20,10 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
+from .. import _plan
 from . import sweep_bracket as _cuda
 from .ref import bracket_segsum_ref, segment_sum_ref
 
@@ -31,6 +34,108 @@ _MAX_SEG = 65535      # segsum_kernel puts the segment on grid axis y
 #: keeps whole in shared memory (``kResidentBytes`` in csrc); a larger
 #: bundle takes its tiled path.
 RESIDENT_BYTES = 48 * 1024
+
+
+#: ``bracket_kernel``'s shape (``csrc/sweep_bracket.cu``): threads per
+#: CTA, scenarios a CTA's tile, bytes of the stage's two buffers, pairs a
+#: window of the tiled path, most sites whose metadata is copied to shared
+#: memory; ``segsum_kernel``'s threads per CTA.
+THREADS, TILE, STAGE_BYTES, WINDOW, META_SITES = 128, 512, 32 * 1024, 512, 256
+SEGSUM_THREADS = 128
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def plan(S: int, n_seg: int, n_pairs: int, resident: bool, itemsize: int,
+         sms: int, occ: int) -> _plan.LaunchPlan:
+    """The launch ``sweep_bracket_plan_*`` computes for ``S`` scenarios,
+    ``n_seg`` sites and ``n_pairs`` (lat, w) pairs over the three groups,
+    in floats of ``itemsize`` bytes: a persistent grid of at most ``occ``
+    CTAs on each of ``sms`` SMs (both of which the card reports) over
+    the scenario tiles; dynamic shared memory for the stage, the sites'
+    metadata and the pairs (``resident``) or a window of them."""
+    pair = 2 * itemsize
+    cs = min(n_seg, STAGE_BYTES // (2 * TILE * itemsize))
+    meta = 3 * (_align16((n_seg + 1) * 4) + _align16(n_seg * pair)) \
+        if n_seg <= META_SITES else 0
+    bufs = (("stage (2 chunks of sums)", 2 * TILE * cs * itemsize),
+            ("site offsets and bounds", meta),
+            ("pairs" if resident else "window",
+             (n_pairs if resident else WINDOW) * pair))
+    tiles = -(-S // TILE)
+    return _plan.LaunchPlan(
+        "bracket_kernel", _plan.dim3(min(tiles, max(1, occ) * sms)),
+        _plan.dim3(THREADS), sum(b for _, b in bufs),
+        buffers=tuple((n, b, "dynamic") for n, b in bufs))
+
+
+def segsum_plan(rows: int, n_seg: int) -> _plan.LaunchPlan:
+    """The launch ``segsum_plan_*`` computes: a thread a row, the segment
+    on grid y."""
+    return _plan.LaunchPlan("segsum_kernel",
+                            _plan.dim3(-(-rows // SEGSUM_THREADS), n_seg),
+                            _plan.dim3(SEGSUM_THREADS))
+
+
+def occupancy_estimate(smem: int, threads: int = THREADS) -> int:
+    """CTAs an H100 SM holds at ``smem`` dynamic bytes a CTA, from its
+    2,048 threads, 32 CTAs and 228 KB of shared memory (1 KB of it
+    reserved per CTA), registers aside: the analysis tier's stand-in for
+    what ``sweep_bracket_attrs_*`` reads on the card."""
+    return max(1, min(2048 // threads, 32, 233_472 // (smem + 1024)))
+
+
+def case_plan(case: dict) -> _plan.LaunchPlan:
+    """The plan of an analysis case (``analysis.kernelcheck``): ``S``
+    scenarios, ``n_seg`` sites, ``n_max`` samples in each of the three
+    groups, ``dtype``; ``sms`` and ``occ`` default to an H100's."""
+    itemsize = 8 if case["dtype"] == "float64" else 4
+    n_pairs = 3 * (case["n_max"] + case["n_max"] % 2)
+    resident = n_pairs * 2 * itemsize <= RESIDENT_BYTES
+    sms = case.get("sms", 132)
+    args = (case["S"], case["n_seg"], n_pairs, resident, itemsize, sms)
+    occ = case.get("occ") or occupancy_estimate(plan(*args, 1).smem)
+    return plan(*args, occ)
+
+
+def _case_outputs(case: dict) -> dict:
+    return {name: (case["S"], case["n_seg"]) for name in BRACKET_NAMES}
+
+
+def _case_tiles(case: dict, p: _plan.LaunchPlan, cta) -> dict:
+    """What CTA ``cta`` writes: the rows of every ``TILE``-scenario tile
+    its stride loop takes (``tile = blockIdx.x; tile += gridDim.x``),
+    every site of each of the four outputs."""
+    S, n_seg = case["S"], case["n_seg"]
+    rows = [((t * TILE, min((t + 1) * TILE, S)), (0, n_seg))
+            for t in range(cta[0], -(-S // TILE), p.grid[0])]
+    return {name: rows for name in BRACKET_NAMES}
+
+
+def segsum_case_plan(case: dict) -> _plan.LaunchPlan:
+    """The plan of an analysis case: ``rows`` x ``n`` -> ``n_seg``."""
+    return segsum_plan(case["rows"], case["n_seg"])
+
+
+def _segsum_tiles(case: dict, p: _plan.LaunchPlan, cta) -> dict:
+    """A thread a row of CTA x's rows, at segment ``blockIdx.y``."""
+    r0 = cta[0] * SEGSUM_THREADS
+    return {"out": [((r0, min(r0 + SEGSUM_THREADS, case["rows"])),
+                     (cta[1], cta[1] + 1))]}
+
+
+def _make_dataflow():
+    from ...analysis.dataflow import DataflowContract
+    par = ("parallel",) * 3
+    return (DataflowContract(par, case_plan, _case_outputs, _case_tiles),
+            DataflowContract(par, segsum_case_plan,
+                             lambda c: {"out": (c["rows"], c["n_seg"])},
+                             _segsum_tiles))
+
+
+DATAFLOW, SEGSUM_DATAFLOW = _make_dataflow()
 
 
 class CsrGroup(NamedTuple):
@@ -136,7 +241,10 @@ def fused_bracket_segsum(hit, lfb, miss, delta, cxl_lat, n_seg: int) -> dict:
     per-scenario ``(S,)`` or ``(S, 1)`` float32/float64 tensors;
     ``n_seg``: number of call-sites.  Returns ``{name: (S, n_seg)}`` for
     ``hit_degraded``, ``lfb_mem``, ``lfb_half`` and ``miss_congested`` in
-    ``delta``'s dtype.
+    ``delta``'s dtype.  Under a capture (fake tensors, or any dispatch
+    mode) the checked call is the custom op
+    ``repro_torch::fused_bracket_segsum``, so a captured step holds the
+    kernel as one node.
     """
     delta = delta.reshape(-1)
     cxl_lat = cxl_lat.reshape(-1)
@@ -144,39 +252,74 @@ def fused_bracket_segsum(hit, lfb, miss, delta, cxl_lat, n_seg: int) -> dict:
         raise ValueError("delta and cxl_lat must be float32/float64 tensors "
                          "with one value per scenario")
     groups = [_as_group(g, n_seg) for g in (hit, lfb, miss)]
-    s = delta.shape[0]
-    if delta.device.type == "cpu":
-        return bracket_segsum_ref(*[(g.lat, g.w, g.seg) for g in groups],
-                                  delta, cxl_lat, n_seg)
-    if delta.device.type != "cuda":
-        raise ValueError(f"no kernel for device {delta.device}")
-    if s == 0 or n_seg == 0:
-        return {k: delta.new_zeros((s, n_seg)) for k in BRACKET_NAMES}
-    if n_seg > _MAX_SEG:
-        raise ValueError(f"n_seg={n_seg} exceeds {_MAX_SEG}")
     dev, dt = delta.device, delta.dtype
-    delta, cxl_lat = delta.contiguous(), cxl_lat.contiguous()
-    _check_cuda(cxl_lat, dev, dt, "cxl_lat")
-    args = []
-    for name, g in zip(("hit", "lfb", "miss"), groups):
-        _check_cuda(g.lat, dev, dt, name + " lat")
-        _check_cuda(g.w, dev, dt, name + " w")
-        _check_cuda(g.offsets, dev, torch.int32, name + " offsets")
-        _check_cuda(g.pairs, dev, dt, name + " pairs")
-        _check_cuda(g.bounds, dev, dt, name + " bounds")
-        if g.pairs.shape != (g.lat.numel() + g.lat.numel() % 2, 2) \
-                or g.pairs.data_ptr() % 16:
-            raise ValueError(f"{name} pairs: expected a 16-byte aligned "
-                             f"(n + n % 2, 2) tensor from csr_group, got "
-                             f"{tuple(g.pairs.shape)}")
-        args.append((g.pairs, g.offsets, g.bounds))
-    outs = [torch.empty((s, n_seg), dtype=dt, device=dev)
-            for _ in BRACKET_NAMES]
-    with torch.cuda.device(dev):
-        _cuda.launch_bracket(args, delta, cxl_lat, n_seg,
-                             bracket_resident(groups), outs)
-    fused_bracket_segsum.launches += 1
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if dev.type == "cuda":
+        if n_seg > _MAX_SEG:
+            raise ValueError(f"n_seg={n_seg} exceeds {_MAX_SEG}")
+        delta, cxl_lat = delta.contiguous(), cxl_lat.contiguous()
+        _check_cuda(cxl_lat, dev, dt, "cxl_lat")
+        for name, g in zip(("hit", "lfb", "miss"), groups):
+            _check_cuda(g.lat, dev, dt, name + " lat")
+            _check_cuda(g.w, dev, dt, name + " w")
+            _check_cuda(g.offsets, dev, torch.int32, name + " offsets")
+            _check_cuda(g.pairs, dev, dt, name + " pairs")
+            _check_cuda(g.bounds, dev, dt, name + " bounds")
+            if g.pairs.shape != (g.lat.numel() + g.lat.numel() % 2, 2):
+                raise ValueError(f"{name} pairs: expected an (n + n % 2, 2) "
+                                 f"tensor from csr_group, got "
+                                 f"{tuple(g.pairs.shape)}")
+    args = (*([getattr(g, f) for g in groups]
+              for f in ("lat", "w", "seg", "pairs", "offsets", "bounds")),
+            delta, cxl_lat, n_seg, bracket_resident(groups))
+    # Outside a capture the op's body runs as a plain call: through the
+    # op's own dispatch (its autograd and aliasing checks over 18 tensors)
+    # a small call took about 50 us longer, and price() of 262,144
+    # scenarios 25-32 ms against 12-17 ms (python -m
+    # repro_torch.launch.wall_times, NVIDIA H100 80GB HBM3 at 700 W).
+    traced = isinstance(delta, FakeTensor) \
+        or _get_current_dispatch_mode() is not None
+    outs = (fused_bracket_segsum_op if traced else _bracket_body)(*args)
     return dict(zip(BRACKET_NAMES, outs))
+
+
+def _bracket_body(lat: list[torch.Tensor], w: list[torch.Tensor],
+                  seg: list[torch.Tensor], pairs: list[torch.Tensor],
+                  offsets: list[torch.Tensor], bounds: list[torch.Tensor],
+                  delta: torch.Tensor, cxl_lat: torch.Tensor, n_seg: int,
+                  resident: bool) -> list[torch.Tensor]:
+    """The checked call, each argument a list over the (hit, lfb, miss)
+    groups: the plain version on the CPU, the kernel on the card.  As the
+    op ``repro_torch::fused_bracket_segsum`` a capture records it as one
+    node (its fake version gives the shapes only, and launches and counts
+    nothing)."""
+    if delta.device.type == "cpu":
+        out = bracket_segsum_ref(*zip(lat, w, seg), delta, cxl_lat, n_seg)
+        return [out[k] for k in BRACKET_NAMES]
+    s = delta.shape[0]
+    if s == 0 or n_seg == 0:
+        return [delta.new_zeros((s, n_seg)) for _ in BRACKET_NAMES]
+    for name, p in zip(("hit", "lfb", "miss"), pairs):
+        if p.data_ptr() % 16:
+            raise ValueError(f"{name} pairs: expected a 16-byte aligned "
+                             "tensor from csr_group")
+    outs = [torch.empty((s, n_seg), dtype=delta.dtype, device=delta.device)
+            for _ in BRACKET_NAMES]
+    with torch.cuda.device(delta.device):
+        _cuda.launch_bracket(list(zip(pairs, offsets, bounds)), delta,
+                             cxl_lat, n_seg, resident, outs)
+    fused_bracket_segsum.launches += 1
+    return outs
+
+
+fused_bracket_segsum_op = torch.library.custom_op(
+    "repro_torch::fused_bracket_segsum", mutates_args=())(_bracket_body)
+
+
+@fused_bracket_segsum_op.register_fake
+def _(lat, w, seg, pairs, offsets, bounds, delta, cxl_lat, n_seg, resident):
+    return [delta.new_empty((delta.shape[0], n_seg)) for _ in BRACKET_NAMES]
 
 
 fused_bracket_segsum.launches = 0

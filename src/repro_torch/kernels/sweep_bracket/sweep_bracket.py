@@ -29,6 +29,14 @@ _SIGNATURES = {
                       + [_P] * 5, _FLOATS),
     # x, rows, n, offsets, perm, n_seg, out, stream
     "segsum": ([_P, _I, _I, _P, _P, _I, _P, _P], _FLOATS),
+    # S, n_seg, pairs, resident, out: the launch geometry, then the SM count
+    # and CTAs per SM it was sized with (``_plan.c_plan(..., n=13)``)
+    "sweep_bracket_plan": ([_I, _I, _I, _I, _P], _FLOATS),
+    # rows, n, n_seg, out
+    "segsum_plan": ([_I, _I, _I, _P], _FLOATS),
+    # variant, smem, out: a kernel's attributes (``_plan.c_attrs``)
+    "sweep_bracket_attrs": ([_I, _I, _P], _FLOATS),
+    "segsum_attrs": ([_I, _I, _P], _FLOATS),
 }
 
 

@@ -192,6 +192,46 @@ def train(cfg, shape: ShapeConfig, n_steps: int,
     return model, history
 
 
+# --------------------------------------------------------------------------
+# Captured entry point (repro_torch.analysis.ircheck registration)
+# --------------------------------------------------------------------------
+
+def _ircheck_train_step_spec(device="cpu", abstract=True):
+    """The train step as :func:`train` builds it (``make_train_step``,
+    AdamW with float32 moments), over the reference's reduced qwen2.5-3b at
+    sequence 16 and batch 2.  The parameters and both moments are updated
+    in place; the step count is a fresh host scalar each step.  Built
+    under fake tensors when ``abstract`` (a capture's gradients need the
+    parameters the capture sees), the count stays a real host scalar (the
+    schedule reads it)."""
+    from ..analysis.ircheck import EntrySpec, src_for
+    from ..core.graph import abstract as fake
+
+    cfg = get_arch("qwen2.5-3b").reduced()
+    shape = ShapeConfig("ircheck", "train", 16, 2)
+    build = lambda: factory.make_model(cfg, device=device)
+    model = fake(build) if abstract else build()
+    params = reference_leaves(model)
+    opt_state = fake(adamw_init, params) if abstract else adamw_init(params)
+    opt_state["count"] = torch.zeros((), dtype=torch.int32)
+    batch = factory.make_inputs(cfg, shape, device=device)
+    step = make_train_step(model.loss, AdamWConfig(total_steps=10))
+    return EntrySpec(name="train.step", fn=step,
+                     args=(params, opt_state, batch),
+                     inplace=(0, (1, "mu"), (1, "nu")), grad=True,
+                     allow_syncs={
+                         "aten::lift_fresh@src/repro_torch/train/optimizer.py":
+                         "the learning-rate schedule's float32 scalars are "
+                         "made and read on the host (the reference's float32 "
+                         "arithmetic); they never reach the card"},
+                     src=src_for(make_train_step))
+
+
+def register_ircheck_entrypoints(register) -> None:
+    """Register the train step with ``repro_torch.analysis.ircheck``."""
+    register("train.step", _ircheck_train_step_spec)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="training driver")
     ap.add_argument("--arch", required=True)

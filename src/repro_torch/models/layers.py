@@ -218,7 +218,9 @@ def gqa_attention(q, k, v, causal: bool = True, kv_positions=None,
         mask = q_positions[..., :, None] >= kv_positions[None, :]
         if mask.ndim == 3:
             mask = mask[:, None, None]
-        scores = torch.where(mask, scores, scores.new_tensor(-1e30))
+        # a Python scalar, not a tensor made from it: on the card a new
+        # tensor is a copy from the host, which waits for the card
+        scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v)
     return out.reshape(B, S, Hq * D)

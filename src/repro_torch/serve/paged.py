@@ -390,3 +390,56 @@ class PagedContinuousEngine(ContinuousEngine):
                 self._pools, row, tok, name=f"prefill_chunk@{bs}")
         return out
 
+
+# --------------------------------------------------------------------------
+# Captured entry points (repro_torch.analysis.ircheck registrations)
+# --------------------------------------------------------------------------
+
+def _ircheck_engine(device="cpu", abstract=True) -> PagedContinuousEngine:
+    """The reference's reduced qwen2.5-3b paged engine (2 slots of 16
+    positions, blocks of 8), its weights fake when ``abstract``."""
+    from ..configs import get_arch
+    from ..core.graph import abstract as fake
+    from ..models import make_model
+    cfg = get_arch("qwen2.5-3b").reduced()
+    build = lambda: make_model(cfg, device=device)
+    model = fake(build) if abstract else build()
+    return PagedContinuousEngine(model=model, n_slots=2, max_len=16,
+                                 block_size=8)
+
+
+def _ircheck_paged_decode_spec(device="cpu", abstract=True):
+    """The paged decode step: gather, decode, scatter into the pools."""
+    from ..analysis.ircheck import EntrySpec, src_for
+    eng = _ircheck_engine(device, abstract)
+    dev = eng.device
+    tables = torch.zeros((eng.n_slots, eng._max_blocks), dtype=torch.int32,
+                         device=dev)
+    tokens = torch.zeros((eng.n_slots, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((eng.n_slots,), dtype=torch.int32, device=dev)
+    return EntrySpec(name="serve.paged_decode", fn=eng._paged_step,
+                     args=(eng._pools, eng._dense, tables, tokens, pos),
+                     inplace=(0,),
+                     src=src_for(PagedContinuousEngine._paged_step))
+
+
+def _ircheck_paged_prefill_spec(device="cpu", abstract=True):
+    """One prompt chunk of one slot, its K/V block scattered into the
+    pools."""
+    from ..analysis.ircheck import EntrySpec, src_for
+    eng = _ircheck_engine(device, abstract)
+    dev = eng.device
+    row = torch.zeros((1, eng._max_blocks), dtype=torch.int32, device=dev)
+    tok = torch.zeros((eng.block_size,), dtype=torch.int32, device=dev)
+    return EntrySpec(
+        name="serve.paged_prefill_chunk",
+        fn=lambda p, t, c: eng._chunk_step(p, t, c, 0, t[0, :1]),
+        args=(eng._pools, row, tok), inplace=(0,),
+        src=src_for(PagedContinuousEngine._chunk_step))
+
+
+def register_ircheck_entrypoints(register) -> None:
+    """Register the paged steps with ``repro_torch.analysis.ircheck``: both
+    write the pools in place."""
+    register("serve.paged_decode", _ircheck_paged_decode_spec)
+    register("serve.paged_prefill_chunk", _ircheck_paged_prefill_spec)

@@ -217,12 +217,7 @@ class ContinuousEngine:
         logits, new = self.model.prefill(
             {"tokens": torch.as_tensor(padded, device=self.device)},
             self.max_len, last_index=[S - 1])
-        for cache, fresh in zip(self.caches, new):
-            if cache is None:
-                continue
-            for name in (cache if isinstance(cache, dict)
-                         else cache._fields):
-                _field(cache, name)[slot] = _field(fresh, name)[0]
+        install(self.caches, new, slot)
         self._count_prefill(f"prefill@{L}")
         return logits
 
@@ -397,6 +392,86 @@ class ContinuousEngine:
         return out
 
 
+def install(caches, new, slot: int) -> None:
+    """Write one prefilled request's caches ``new`` (a batch of 1) into row
+    ``slot`` of every layer's ``caches``, in place (the reference's
+    donated ``_write``)."""
+    for cache, fresh in zip(caches, new):
+        if cache is None:
+            continue
+        for name in (cache if isinstance(cache, dict) else cache._fields):
+            _field(cache, name)[slot] = _field(fresh, name)[0]
+
+
 def _field(cache, name: str) -> torch.Tensor:
     """One tensor of a layer's cache: ``cache["k"]`` or ``state.conv``."""
     return cache[name] if isinstance(cache, dict) else getattr(cache, name)
+
+
+# --------------------------------------------------------------------------
+# Captured entry points (repro_torch.analysis.ircheck registrations)
+# --------------------------------------------------------------------------
+
+def _ircheck_engine(device="cpu", abstract=True) -> ContinuousEngine:
+    """The reference's reduced qwen2.5-3b engine (2 slots of 16 positions,
+    a prefill bucket of 8), its weights fake when ``abstract``."""
+    from ..configs import get_arch
+    from ..core.graph import abstract as fake
+    from ..models import make_model
+    cfg = get_arch("qwen2.5-3b").reduced()
+    build = lambda: make_model(cfg, device=device)
+    model = fake(build) if abstract else build()
+    return ContinuousEngine(model=model, n_slots=2, max_len=16,
+                            prefill_buckets=(8,))
+
+
+def _step_inputs_of(eng) -> tuple:
+    dev = eng.device
+    return (torch.zeros((eng.n_slots, 1), dtype=torch.int32, device=dev),
+            torch.zeros((eng.n_slots,), dtype=torch.int32, device=dev))
+
+
+def _ircheck_decode_spec(device="cpu", abstract=True):
+    """The decode step over every slot, the caches written in place."""
+    from ..analysis.ircheck import EntrySpec, src_for
+    eng = _ircheck_engine(device, abstract)
+    model = eng.model
+    tokens, pos = _step_inputs_of(eng)
+    return EntrySpec(
+        name="serve.decode",
+        fn=lambda c, t, p: model.decode_step(c, {"tokens": t}, p),
+        args=(eng.caches, tokens, pos), inplace=(0,),
+        src=src_for(ContinuousEngine._decode_active))
+
+
+def _ircheck_write_spec(device="cpu", abstract=True):
+    """One admission's caches installed into a slot, in place."""
+    from ..analysis.ircheck import EntrySpec, src_for
+    eng = _ircheck_engine(device, abstract)
+    new = eng.model.init_caches(1, eng.max_len)
+    return EntrySpec(name="serve.write", fn=install,
+                     args=(eng.caches, new, 0), inplace=(0,),
+                     src=src_for(install))
+
+
+def _ircheck_prefill_spec(device="cpu", abstract=True):
+    """One admission's prefill at the engine's bucket."""
+    from ..analysis.ircheck import EntrySpec, src_for
+    eng = _ircheck_engine(device, abstract)
+    model, L = eng.model, eng.prefill_buckets[0]
+    tok = torch.zeros((1, L), dtype=torch.int32, device=eng.device)
+    idx = torch.zeros((1,), dtype=torch.int32, device=eng.device)
+    return EntrySpec(
+        name="serve.prefill",
+        fn=lambda t, i: model.prefill({"tokens": t}, eng.max_len,
+                                      last_index=i),
+        args=(tok, idx), src=src_for(ContinuousEngine._prefill_into_slot))
+
+
+def register_ircheck_entrypoints(register) -> None:
+    """Register the serving steps with ``repro_torch.analysis.ircheck``:
+    the decode step and the slot write update the caches in place (the
+    reference's two donated jits)."""
+    register("serve.decode", _ircheck_decode_spec)
+    register("serve.write", _ircheck_write_spec)
+    register("serve.prefill", _ircheck_prefill_spec)

@@ -33,6 +33,16 @@ PARALLEL_MODULES = {"repro_torch.parallel", "repro_torch.parallel.sharding",
                     "repro_torch.launch.perf_cell"}
 
 
+#: The modules of the analysis tier: the probe must import each of them.
+ANALYSIS_MODULES = {"repro_torch.lint", "repro_torch.analysis",
+                    "repro_torch.analysis.lint",
+                    "repro_torch.analysis.kernelcheck",
+                    "repro_torch.analysis.dataflow",
+                    "repro_torch.analysis.ircheck",
+                    "repro_torch.analysis.top_collectives",
+                    "repro_torch.kernels._plan"}
+
+
 def test_importing_every_port_module_loads_no_jax():
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
@@ -41,6 +51,7 @@ def test_importing_every_port_module_loads_no_jax():
     out = json.loads(proc.stdout)
     assert out["modules"] >= 75
     assert PARALLEL_MODULES <= set(out["names"])
+    assert ANALYSIS_MODULES <= set(out["names"])
     assert out["bad"] == [], f"the port imported {out['bad']}"
 
 

@@ -342,3 +342,31 @@ def test_bracket_kernel_terms_all_kept_or_all_dropped(cuda, dtype, lo, hi,
     for k in ref:
         np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].cpu().numpy(),
                                    **tol)
+
+
+def test_only_a_capture_goes_through_the_op(monkeypatch):
+    """An eager call runs the op's body directly (the op's dispatch is a
+    host cost a call); under fake tensors the call is the op
+    ``repro_torch::fused_bracket_segsum``, which a capture records, and
+    both give the plain version's shapes."""
+    from repro_torch.core import graph
+    calls = []
+    op = ops.fused_bracket_segsum_op
+
+    def counting(*a):
+        calls.append(1)
+        return op(*a)
+    monkeypatch.setattr(ops, "fused_bracket_segsum_op", counting)
+    rng = np.random.default_rng(3)
+    groups = [(torch.as_tensor(rng.uniform(1.0, 500.0, 7)),
+               torch.as_tensor(rng.uniform(0.1, 3.0, 7)),
+               torch.as_tensor(np.sort(rng.integers(0, 3, 7)))) for _ in "hlm"]
+    d = torch.as_tensor(rng.uniform(-150.0, 400.0, 5))
+    x = torch.as_tensor(rng.uniform(150.0, 700.0, 5))
+    prepared = [csr_group(*g, 3) for g in groups]    # as price() caches
+    out = fused_bracket_segsum(*prepared, d, x, 3)
+    assert calls == [] and all(v.shape == (5, 3) for v in out.values())
+    fake = graph.abstract(fused_bracket_segsum, *prepared, d, x, 3)
+    assert calls == [1] and all(v.shape == (5, 3) for v in fake.values())
+    ref = bracket_segsum_ref(*groups, d, x, 3)
+    assert all(torch.equal(out[k], ref[k]) for k in ref)

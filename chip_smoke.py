@@ -2650,7 +2650,9 @@ RATIO_PAR_TP_F32 = 1.25
 RTOL_PAR_F32 = 1e-5
 RTOL_PAR_TRAIN, RTOL_PAR_TRAIN_F32 = 1e-3, 1e-6
 RTOL_PAR_TP_TRAIN, RTOL_PAR_TP_TRAIN_F32 = 3e-2, 1e-5
-PAR_TP_PROMPT, PAR_TP_CACHE, PAR_TP_DECODE = (2, 1024), 4096, 32
+#: (f)'s decode steps: 16 (cut from 32 to make room for (l) and the
+#: examples; each step 155-192 ms a rank)
+PAR_TP_PROMPT, PAR_TP_CACHE, PAR_TP_DECODE = (2, 1024), 4096, 16
 #: (h) FSDP training: ``launch.dryrun.build_step`` for (g)'s model and
 #: batch on (data 2, model 2) in the 4-rank world, held against (g)'s
 #: losses by RTOL_PAR_TP_TRAIN; its executed collectives against its
@@ -2664,8 +2666,9 @@ PAR_FSDP_MESH = (2, 2)
 #: (i)'s decode steps: FSDP gathers every layer's weights each step
 #: (6.6 GB a rank through host memory under gloo: 14.9 s a step on the
 #: H100 machine, PERF.md), which the reference's serving avoids below 7e9
-#: bytes a rank
-PAR_FSDP_DECODE = 2
+#: bytes a rank; one step (cut from 2) leaves room for (l) and the
+#: examples within the script's time
+PAR_FSDP_DECODE = 1
 DRY_CELLS = (("qwen2.5-3b", "decode_32k", False),
              ("jamba-v0.1-52b", "long_500k", True),
              ("gemma-7b", "train_4k", False),
@@ -2675,8 +2678,9 @@ DRY_TIMEOUT_S = 900
 #: over ``model``) in the 4-rank world: the kernels alone at rank 3's
 #: shapes of jamba's 4,096-token row over 4 model ranks (flash q (2,
 #: 1,024, 32, 128) against k / v (2, 4,096, 8, 128) at q_offset 3,072;
-#: the scan over 1,024 of 4,096 steps from a state); (a)'s jamba with both
-#: kernels on (data 1, model 4): one 4,096-token row, 1,024 a rank,
+#: the scan over 1,024 of 4,096 steps from a state); (a)'s jamba cut to
+#: PAR_SEQ_LAYERS layers, both kernels on, on (data 1, model 4): one
+#: 4,096-token row, 1,024 a rank,
 #: prefilled into a cache of PAR_SEQ_CACHE positions (4,096 and room for
 #: the decode steps, divisible by 4) and PAR_SEQ_DECODE greedy decode
 #: steps, held against the whole model on rank 0 under (f)'s rule; (g)'s
@@ -2687,12 +2691,33 @@ DRY_TIMEOUT_S = 900
 SEQ_FLASH = dict(B=2, S=1024, T=4096, Hq=32, Hkv=8, D=128, o=3072)
 SEQ_SCAN = dict(B=2, L=1024, blocks=4, d=8192, N=16)
 PAR_SEQ_MESH = (1, 4)
+#: (k)'s jamba depth: 4 layers, cut from (a)'s 8 (one attention layer,
+#: three mamba, two MoE) to make room for (l) and the examples; each
+#: forward gathers every layer's weights through gloo (about 19.9 GB a
+#: rank at 8 layers: 41 s a prefill, 37 s a decode step on the H100,
+#: PERF.md)
+PAR_SEQ_LAYERS = 4
 PAR_SEQ_PROMPT, PAR_SEQ_CACHE = (1, 4096), 4352
 #: (k)'s decode steps: every step gathers all 26.6 GB of jamba x 8's bf16
 #: weights a rank through gloo (about 45 s at the 0.44 GB/s (i) reaches,
 #: PERF.md); one step keeps the script under about 1,050 s of its 1,200 s
 #: limit
 PAR_SEQ_DECODE = 1
+#: (l) the reference's decode-cache layout under ``"tp"``
+#: (``sharding.cache_block``): qwen2.5-3b at its widths and depth, bf16,
+#: flash on, in the 4-rank world.  On (data 1, model 4) its 2 kv heads do
+#: not split, so L is split over ``model``: a prefill of 2 x 1,024 tokens;
+#: on (data 2, model 2) a batch of 1 does not split over ``data``, so L is
+#: split over ``data``: a prefill of 1 x 2,048 tokens; each into a
+#: PAR_CACHE_LEN cache, then PAR_CACHE_DECODE greedy decode steps, held
+#: against the whole model on rank 0 as (f) is.
+PAR_CACHE_ARCH = "qwen2.5-3b"
+PAR_CACHE_RUNS = (((1, 4), (2, 1024), None), ((2, 2), (1, 2048), 1))
+PAR_CACHE_LEN, PAR_CACHE_DECODE = 4096, 8
+#: the greedy tokens of a (l) run that may differ from the whole bf16
+#: model's: the most the runs have shown (1 of (1, 4)'s 18, PERF.md), each
+#: a near tie by :func:`_cache_whole_compare`'s rule
+PAR_CACHE_TIES = 1
 PERF_CELLS = (("qwen2.5-3b", "train_4k", "tp"),
               ("qwen2.5-3b", "train_4k", "fsdp_seq"))
 PERF_TIMEOUT_S = 600
@@ -2959,14 +2984,62 @@ def phase_parallel(torch, np, pt, card, cb):
     parallel_fsdp(torch, card, ranks, g_losses)
     for k, n in parallel_seq(torch, card, ranks, g_losses).items():
         launches[k] += n
+    launches["flash_attention"] += parallel_tp_cache(card, ranks)
     for r in ranks:
         errs["flash_attention"] = max(errs["flash_attention"],
                                       r["seq_serve"]["err_flash"])
         errs["mamba_scan"] = max(errs["mamba_scan"],
                                  r["seq_serve"]["err_scan"])
+        errs["flash_attention"] = max(
+            [errs["flash_attention"]]
+            + [k["err_flash"] for k in r["tp_cache"]["runs"]])
     _finish_dryrun(torch, card, dry)
     log(f"parallel: phase {time.perf_counter() - t_phase:.1f} s")
     return launches, errs, seq_kernels
+
+
+# --------------------------------------------------------------------------
+# 14b. the port's examples on the card
+# --------------------------------------------------------------------------
+#: each example's ``main`` at its smallest arguments (``--device`` is the
+#: card by default); serve_lm with the reduced jamba, whose prefills run
+#: both LM kernels
+EXAMPLE_RUNS = (
+    ("quickstart", ()), ("stencil_advisor", ()), ("hpcg_analysis", ()),
+    ("sweep_quickstart", ()),
+    ("serve_lm", ("--arch", "jamba-v0.1-52b")),
+    ("serve_lm", ("--arch", "jamba-v0.1-52b", "--continuous")),
+    ("train_lm", ("--small", "--steps", "20", "--log-every", "5")))
+
+
+def phase_examples(card, counters) -> dict:
+    """14b. Every example of ``repro_torch.examples`` in this process on
+    the card: each must return 0 (its output kept, its last line logged);
+    the sweep, halo and LM kernels must have launched.  Returns each
+    kernel wrapper's launches over the phase."""
+    import contextlib
+    import io
+
+    for c in counters.values():
+        c.launches = 0
+    t_phase = time.perf_counter()
+    for name, args in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(list(args))
+        out = buf.getvalue().strip().splitlines()
+        assert rc == 0, (name, args, out[-20:])
+        log(f"examples [{card}] {name} {' '.join(args)}: exit {rc} in "
+            f"{time.perf_counter() - t0:.1f} s; last line: {out[-1]}")
+    launches = {k: c.launches for k, c in counters.items()}
+    for k in ("fused_bracket_segsum", "halo_exchange", "flash_attention",
+              "mamba_scan"):
+        assert launches[k] > 0, (k, launches)
+    log(f"examples: launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _train_runs(cmd_1, cmd_2):
@@ -3428,18 +3501,27 @@ def parallel_seq(torch, card, ranks, g_losses) -> dict:
     from repro_torch.launch.mesh import init_fake_ranks, make_mesh
     from repro_torch.parallel import transport
 
+    from repro_torch import configs
+    from repro_torch.models.blocks import layer_specs
+
+    specs = layer_specs(configs.get_arch(LM_ARCH).replace(
+        n_layers=PAR_SEQ_LAYERS))
+    n_attn = sum(sp.mixer == "attn" for sp in specs)
+    n_mamba = sum(sp.mixer == "mamba" for sp in specs)
     launches = {"flash_attention": 0, "mamba_scan": 0}
     for r in ranks:
         k = r["seq_serve"]
         for name in launches:
             launches[name] += k["launches"][name]
-        assert k["launches"]["flash_attention"] == 1, k["launches"]
-        assert k["launches"]["mamba_scan"] == (7 if r["rank"] == 0
-                                               else 14), k["launches"]
+        # rank 0 scans its block once; the others again from the carry
+        assert k["launches"]["flash_attention"] == n_attn, k["launches"]
+        assert k["launches"]["mamba_scan"] == (n_mamba if r["rank"] == 0
+                                               else 2 * n_mamba), \
+            k["launches"]
         assert not any(c.startswith("all_reduce")
                        for c in k["prefill_collectives"]), k
         log(f"parallel (k) [{card}] rank {r['rank']}: fsdp_seq jamba x "
-            f"{LM_LAYERS} on {PAR_SEQ_MESH}, positions {k['block']} of "
+            f"{PAR_SEQ_LAYERS} on {PAR_SEQ_MESH}, positions {k['block']} of "
             f"{PAR_SEQ_PROMPT[1]}, {k['params'] / 1e9:.3f} B parameters "
             f"a rank ({k['param_bytes'] / 1e9:.3f} GB) of "
             f"{k['whole_params'] / 1e9:.3f} B, built in {k['build_s']:.2f} "
@@ -3510,8 +3592,8 @@ def parallel_seq(torch, card, ranks, g_losses) -> dict:
 
 
 def rank_seq_serve(torch, dist, transport, dev, rank):
-    """(k) (a)'s jamba with both kernels on, ``layout="fsdp_seq"`` on (data
-    1, model 4): one PAR_SEQ_PROMPT row (1,024 positions a rank) prefilled
+    """(k) (a)'s jamba cut to PAR_SEQ_LAYERS layers, both kernels on,
+    ``layout="fsdp_seq"`` on (data 1, model 4): one PAR_SEQ_PROMPT row (1,024 positions a rank) prefilled
     into a PAR_SEQ_CACHE cache, every flash and scan launch held against
     its plain version as it happens, then PAR_SEQ_DECODE greedy decode
     steps; the launches, collectives, times and peak.  Rank 0 then builds
@@ -3527,7 +3609,7 @@ def rank_seq_serve(torch, dist, transport, dev, rank):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = configs.get_arch(LM_ARCH).replace(n_layers=LM_LAYERS)
+    cfg = configs.get_arch(LM_ARCH).replace(n_layers=PAR_SEQ_LAYERS)
     mesh = make_mesh(PAR_SEQ_MESH, ("data", "model"), "cuda")
     t0 = time.perf_counter()
     model = make_model(cfg, use_kernel=True, moe_impl="scatter", device=dev,
@@ -3602,6 +3684,216 @@ def rank_seq_serve(torch, dist, transport, dev, rank):
         info.update(_seq_whole_compare(torch, dev, cfg, served))
     dist.barrier()
     return info
+
+
+def rank_tp_cache(torch, dist, transport, dev, rank):
+    """(l) the reference's decode caches under ``"tp"``: for each of
+    PAR_CACHE_RUNS, qwen2.5-3b (bf16, flash on) on that mesh, a prefill of
+    the prompt into a PAR_CACHE_LEN cache (every flash call held against
+    its plain version as it happens; then once more, timed) and
+    PAR_CACHE_DECODE greedy decode steps: the rank's cache block and its bytes beside those of the layout
+    it replaces (the kv heads its query heads read over the whole length),
+    the times, the collectives by route, the launches.  Rank 0 then holds
+    every run against the whole model (:func:`_cache_whole_compare`)."""
+    import types
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers, make_model
+
+    cfg = configs.get_arch(PAR_CACHE_ARCH)
+    runs, served = [], []
+    for mesh_shape, prompt_shape, global_batch in PAR_CACHE_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(mesh_shape, ("data", "model"), "cuda")
+        model = make_model(cfg, use_kernel=True, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(LM_SEED), mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED + 3)
+        prompt = torch.randint(0, cfg.vocab_size, prompt_shape,
+                               generator=gen, device=dev, dtype=torch.int32)
+        rows = prompt_shape[0]
+        block = model.cache_block(rows, PAR_CACHE_LEN, global_batch)
+        hf = _Holding(torch, fa.flash_attention, _hold_flash)
+        saved = layers.fa_ops
+        layers.fa_ops = types.SimpleNamespace(flash_attention=hf)
+        info = {"mesh": list(mesh_shape), "prompt": list(prompt_shape),
+                "block": {"rows": block.rows, "heads": list(block.heads),
+                          "lo": block.lo, "length": block.length,
+                          "axes": list(block.axes)}}
+        try:
+            with torch.inference_mode():
+                fa.flash_attention.launches = 0
+                before = _collectives(transport)
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                logits, caches = model.prefill({"tokens": prompt},
+                                               PAR_CACHE_LEN,
+                                               global_batch=global_batch)
+                torch.cuda.synchronize()
+                info["prefill_first_ms"] = (time.perf_counter() - t0) * 1e3
+                info["launches"] = fa.flash_attention.launches
+                info["prefill_collectives"] = _collectives(transport, before)
+        finally:
+            layers.fa_ops = saved
+        with torch.inference_mode():            # again, the kernels warm
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            model.prefill({"tokens": prompt}, PAR_CACHE_LEN,
+                          global_batch=global_batch)
+            torch.cuda.synchronize()
+            info["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        attn = [c for c in caches if isinstance(c, dict)]
+        info["cache_bytes"] = sum(t.numel() * t.element_size()
+                                  for c in attn for t in c.values())
+        heads = layers.attn_heads(cfg, model.tp)
+        info["replaced_bytes"] = len(attn) * 2 * rows * PAR_CACHE_LEN \
+            * len(heads.kv) * cfg.resolved_head_dim * attn[0]["k"] \
+            .element_size()
+        with torch.inference_mode():
+            tok = logits.argmax(-1)
+            tokens, outs, steps = [tok.cpu()], [logits.float().cpu()], []
+            before = _collectives(transport)
+            for i in range(PAR_CACHE_DECODE):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(
+                    caches, {"tokens": tok}, prompt_shape[1] + i,
+                    max_len=PAR_CACHE_LEN, global_batch=global_batch)
+                tok = logits.argmax(-1)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0) * 1e3)
+                tokens.append(tok.cpu())
+                outs.append(logits.float().cpu())
+            coll = _collectives(transport, before)
+        info.update(decode_ms=statistics.median(steps),
+                    decode_collectives={k: [v[0] / PAR_CACHE_DECODE,
+                                            v[1] / PAR_CACHE_DECODE]
+                                        for k, v in coll.items()},
+                    peak_bytes=torch.cuda.max_memory_allocated(),
+                    err_flash=hf.err, rel_flash=hf.rel,
+                    flash_shapes=hf.shapes)
+        runs.append(info)
+        served.append({"prompt": prompt.cpu(), "tokens": tokens,
+                       "logits": outs, "routes": []})
+        del model, logits, caches, attn
+        dist.barrier()
+    torch.cuda.empty_cache()
+    out = {"runs": runs}
+    if rank == 0:
+        out["whole"] = _cache_whole_compare(torch, dev, cfg, served)
+    dist.barrier()
+    return out
+
+
+def _cache_whole_compare(torch, dev, cfg, served) -> list:
+    """Rank 0, alone on the card: each (l) run's prompt and tokens through
+    the whole model, in bf16 and with its weights cast to float32 (the rule
+    of (f)).  At most PAR_CACHE_TIES greedy tokens a run may differ from
+    the whole bf16 model's, each a near tie: where the float32 model sides
+    with the whole bf16 model, its lead of the one token over the other
+    is within the whole bf16 model's own largest distance from float32 on
+    that row (a bound the TP run's own errors do not set)."""
+    from repro_torch.models import make_model
+    whole = make_model(cfg, use_kernel=True, device=dev,
+                       generator=torch.Generator(device=dev)
+                       .manual_seed(LM_SEED))
+    w16 = [_whole_serve(torch, whole, dev, s, PAR_CACHE_LEN,
+                        PAR_CACHE_DECODE) for s in served]
+    whole.float()                        # the same weights, cast up
+    whole.cfg = whole.cfg.replace(dtype="float32")
+    w32 = [_whole_serve(torch, whole, dev, s, PAR_CACHE_LEN,
+                        PAR_CACHE_DECODE) for s in served]
+    del whole
+    torch.cuda.empty_cache()
+    out = []
+    for s, a16, a32 in zip(served, w16, w32):
+        agree, ties = 0, []
+        for tp, x16, x32, tok in zip(s["logits"], a16["logits"],
+                                     a32["logits"], s["tokens"]):
+            want = x16.argmax(-1)
+            agree += int((want == tok).sum())
+            for r in (want != tok).reshape(-1).nonzero().reshape(-1):
+                row32 = x32.reshape(-1, x32.shape[-1])[r]
+                gap = float(row32[want.reshape(-1)[r]]
+                            - row32[tok.reshape(-1)[r]])
+                noise = float((x16.reshape(-1, x16.shape[-1])[r]
+                               - row32).abs().max())
+                assert gap <= noise, (gap, noise)
+                ties.append((gap, noise))
+        assert len(ties) <= PAR_CACHE_TIES, ties
+        got = torch.cat([x.flatten() for x in s["logits"]])
+        b16 = torch.cat([x.flatten() for x in a16["logits"]])
+        b32 = torch.cat([x.flatten() for x in a32["logits"]])
+        out.append({"same_rel": _rel(torch, got, b16),
+                    "tp_f32": _rel(torch, got, b32),
+                    "whole_f32": _rel(torch, b16, b32), "agree": agree,
+                    "ties": ties,
+                    "n_tokens": sum(t.numel() for t in s["tokens"]),
+                    "whole_prefill_ms": a16["prefill_ms"],
+                    "whole_decode_ms": a16["decode_ms"]})
+    return out
+
+
+def parallel_tp_cache(card, ranks) -> int:
+    """(l) from the world's ranks: each run's cache block equals the
+    reference's (bytes a rank, against the layout it replaces), its flash
+    launches (one an attention layer a prefill), its collectives, and rank
+    0's compare with the whole model under (f)'s rule; returns the flash
+    launches (summed over the ranks and runs)."""
+    import torch
+    from repro_torch import configs
+    cfg = configs.get_arch(PAR_CACHE_ARCH)
+    hd, n = cfg.resolved_head_dim, cfg.n_layers
+    size = getattr(torch, cfg.dtype).itemsize
+    launches = 0
+    for r in ranks:
+        for (mesh_shape, prompt_shape, _), k in zip(PAR_CACHE_RUNS,
+                                                     r["tp_cache"]["runs"]):
+            R = mesh_shape[1]
+            split = "model" if cfg.n_kv_heads % R else "data"
+            count = mesh_shape[1] if split == "model" else mesh_shape[0]
+            heads = cfg.n_kv_heads if split == "model" \
+                else cfg.n_kv_heads // R
+            want = 2 * n * prompt_shape[0] * (PAR_CACHE_LEN // count) \
+                * heads * hd * size
+            assert k["block"]["axes"] == [split], k["block"]
+            assert k["cache_bytes"] == want, (k["cache_bytes"], want)
+            assert k["launches"] == n, k["launches"]
+            launches += k["launches"]
+            log(f"parallel (l) [{card}] rank {r['rank']}: {PAR_CACHE_ARCH} "
+                f"on {tuple(mesh_shape)}, prompt {tuple(prompt_shape)}, "
+                f"cache block {k['block']}: {k['cache_bytes']:,} bytes a "
+                f"rank against {k['replaced_bytes']:,} in the layout it "
+                f"replaces (x{k['replaced_bytes'] / k['cache_bytes']:.2f}); "
+                f"prefill {k['prefill_ms']:.1f} ms (the first "
+                f"{k['prefill_first_ms']:.1f} ms), a decode step "
+                f"{k['decode_ms']:.1f} ms (median of {PAR_CACHE_DECODE}); "
+                f"peak {k['peak_bytes'] / 1e9:.3f} GB; flash launches "
+                f"{k['launches']} (shapes {k['flash_shapes']}), held "
+                f"{k['err_flash']:.3e} (rel norm {k['rel_flash']:.3e}); "
+                f"prefill collectives (calls, bytes put in) "
+                f"{k['prefill_collectives']}; a decode step's "
+                f"{k['decode_collectives']}")
+    for (mesh_shape, prompt_shape, _), c in zip(
+            PAR_CACHE_RUNS, ranks[0]["tp_cache"]["whole"]):
+        assert c["tp_f32"] <= RATIO_PAR_TP_F32 * c["whole_f32"] \
+            + RTOL_PAR_F32, c
+        log(f"parallel (l) on {tuple(mesh_shape)}: every step's logits "
+            f"({1 + PAR_CACHE_DECODE}), the whole model fed the same "
+            f"tokens: {c['same_rel']:.3e}; against the float32 model: TP "
+            f"{c['tp_f32']:.3e}, the whole bf16 model {c['whole_f32']:.3e} "
+            f"(bound: within {RATIO_PAR_TP_F32} x + {RTOL_PAR_F32}); greedy "
+            f"tokens equal to the whole bf16 model's {c['agree']} of "
+            f"{c['n_tokens']} (near ties, at most {PAR_CACHE_TIES}, as "
+            f"(float32 lead, the whole bf16 model's largest distance): "
+            f"{c['ties']}); "
+            f"the whole model's prefill {c['whole_prefill_ms']:.2f} ms, "
+            f"decode step {c['whole_decode_ms']:.2f} ms")
+    return launches
 
 
 def _seq_whole_compare(torch, dev, cfg, served) -> dict:
@@ -3731,7 +4023,7 @@ def _ep_forward(torch, dev, mesh, moe_impl, holding=True):
 
 def rank_world(out_dir):
     """One rank of the 4-rank gloo world: (a), (f), (c), (d), (h), (i),
-    (k)."""
+    (k), (l)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3755,6 +4047,7 @@ def rank_world(out_dir):
         res["seq_serve"] = rank_seq_serve(torch, dist, transport, dev, rank)
         res["seq_train"] = rank_fsdp_train(torch, dist, transport, dev,
                                            layout="fsdp_seq")
+        res["tp_cache"] = rank_tp_cache(torch, dist, transport, dev, rank)
         res["routes"] = {f"{op} {r}": n
                          for (op, r), n in sorted(transport.routes.items())}
     finally:
@@ -5080,6 +5373,12 @@ def main() -> int:
     for k in kernels:
         k["launches_train"] = counters[k["name"]].launches
         assert k["launches_train"] == 0, k
+
+    # 14b. the examples on the card
+    by_example = phase_examples(card, counters)
+    for k in kernels:
+        k["launches_examples"] = by_example[k["name"]]
+    torch.cuda.empty_cache()
 
     # 15. the parallel layer over ranks sharing the card (kernels built
     #     above; the ranks load them from disk)

@@ -45,9 +45,15 @@ holds in the port:
   capture, so the CLI makes it only with ``--graphs``; without it
   ``compile_s`` is 0.0.
 
-Uneven blocks (kv heads under ``sharding.head_split``, the decode caches
-when Hkv < R: ``sharding.cache_layout``) differ from rank to rank; the
-record is rank 0's.  ``layout="fsdp_seq"`` (pure FSDP over every rank with
+Uneven blocks (kv heads under ``sharding.head_split``) differ from rank
+to rank; the record is rank 0's.  A decode cell's caches are the
+reference's ``cache_pspecs`` blocks (``sharding.cache_block``: the
+batch's rows over the data axes where it divides them, the kv heads over
+``model`` where they split, else L over ``model``; a ``long_500k`` cell's
+batch of 1 stays whole on every data rank, as in ``batch_pspecs``, and
+its L is split over the data axes too), so its ``memory.*`` and
+fits-80-GB verdicts count the reference's bytes; a prefill cell keeps its
+block of the caches it makes.  ``layout="fsdp_seq"`` (pure FSDP over every rank with
 the sequence split over ``model``, ``sharding.fsdp_seq_specs``) builds the
 same three steps; its rank 0 holds the first block of the positions, which
 attends the fewest keys (the record is that rank's), and decode's new
@@ -234,24 +240,32 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
             "fsdp": used_fsdp, "n_micro": n_micro, "optimizer": optimizer}
 
     if shape.kind == "prefill":
+        rows = next(iter(local_batch(inputs, mesh).values())).shape[0]
+        model.cache_block(rows, shape.seq_len, shape.global_batch)
+
         @torch.no_grad()
         def prefill_step(p, b):
-            return model.prefill(local_batch(b, mesh), max_len=shape.seq_len)
+            return model.prefill(local_batch(b, mesh), max_len=shape.seq_len,
+                                 global_batch=shape.global_batch)
         return Step(prefill_step, "prefill", (), model), (params, batch), {
             "fsdp": used_fsdp, "n_micro": 1}
 
-    # decode: this rank's rows of the batch, its block of each cache
+    # decode: this rank's rows of the batch, its block of each cache (the
+    # block made here, outside the capture: its group is made on first use)
     mine = local_batch(inputs, mesh)
     rows = next(iter(mine.values())).shape[0]
+    block = model.cache_block(rows, shape.seq_len, shape.global_batch)
 
     def caches_of():
         return init_caches(cfg, rows, shape.seq_len, dev, model.tp,
-                           model.seq)
+                           model.seq, block)
     caches = graph.abstract(caches_of) if abstract else caches_of()
 
     @torch.no_grad()
     def decode_step(p, c, b, pos):
-        return model.decode_step(c, local_batch(b, mesh), pos)
+        return model.decode_step(c, local_batch(b, mesh), pos,
+                                 max_len=shape.seq_len,
+                                 global_batch=shape.global_batch)
     return Step(decode_step, "decode", (1,), model), \
         (params, caches, batch, shape.seq_len - 1), \
         {"fsdp": used_fsdp, "n_micro": 1}

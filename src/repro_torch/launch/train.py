@@ -104,6 +104,15 @@ def _load(params, opt_state, tree) -> None:
     opt_state["count"] = tree["opt"]["count"]
 
 
+def _say(text: str) -> None:
+    """Write ``text`` and its newline to stdout in one write.  The ranks of
+    a launch share its stdout, and an unbuffered ``print`` writes the text
+    and its newline apart, so another rank's line could land between
+    them and run on after this one's text."""
+    sys.stdout.write(text + "\n")
+    sys.stdout.flush()
+
+
 def train(cfg, shape: ShapeConfig, n_steps: int,
           opt_cfg: AdamWConfig | None = None, n_micro: int = 1,
           ckpt_dir=None, ckpt_every: int = 50, restore: bool = True,
@@ -139,7 +148,7 @@ def train(cfg, shape: ShapeConfig, n_steps: int,
 
     def log(msg):
         if rank == 0:
-            print(msg, flush=True)
+            _say(msg)
 
     start_step = 0
     saver = None
@@ -292,17 +301,14 @@ def main(argv=None) -> int:
                            fail_at_step=args.fail_at_step, device=dev,
                            mesh=mesh, layout=args.layout)
         if args.summary:
-            # one write per line: ranks share the launcher's stdout, and an
-            # unbuffered print writes the text and its newline apart
-            sys.stdout.write(json.dumps({
+            _say(json.dumps({
                 "rank": dist.get_rank() if mesh is not None else 0,
                 "world": dist.get_world_size() if mesh is not None else 1,
                 "history": history,
                 "peak_bytes": torch.cuda.max_memory_allocated(dev)
-                if dev.type == "cuda" else None}) + "\n")
-            sys.stdout.flush()
+                if dev.type == "cuda" else None}))
         if history and (mesh is None or dist.get_rank() == 0):
-            print(f"final loss: {history[-1]['loss']:.4f}")
+            _say(f"final loss: {history[-1]['loss']:.4f}")
     finally:
         if mesh is not None:
             dist.destroy_process_group()

@@ -196,15 +196,23 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
 
 # ----------------------------------------------------------- prefill/decode
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
-                tp=None, seq=None):
+                tp=None, seq=None, cache=None):
     """Zeroed decode caches, one entry per layer: attention -> {"k": (B,
     max_len, Hkv, D), "v": ...}; mamba -> MambaState; FFN-only -> None.
-    With ``tp`` (a ``sharding.ModelAxis``): this rank's block of each
-    (``sharding.cache_layout``); with ``seq``: the attention caches' block
-    of ``max_len / R`` positions, the mamba states whole."""
+    ``batch`` is the rows this rank holds.  With ``tp`` (a
+    ``sharding.ModelAxis``): the mamba states' channels of this rank, and
+    the attention caches' kv heads its query heads read; with ``cache`` (a
+    ``sharding.CacheBlock`` of ``batch`` rows): the attention caches are
+    that block of ``max_len`` positions; with ``seq``: the attention
+    caches' block of ``max_len / R`` positions, the mamba states whole."""
     dt = layers.dtype_of(cfg)
     heads = layers.attn_heads(cfg, tp)
     nkv = cfg.n_kv_heads if heads is None else len(heads.kv)
+    if cache is not None:
+        if cache.rows != batch:
+            raise ValueError(f"{cfg.name}: a cache block of {cache.rows} "
+                             f"rows for {batch}")
+        nkv, max_len = len(cache.heads), cache.length
     if seq is not None:
         max_len = seq.block(max_len, f"{cfg.name}'s decode cache")
     shape = (batch, max_len, nkv, cfg.resolved_head_dim)
@@ -222,13 +230,19 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
 
 def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
                   use_kernel: bool = False, moe_impl: str = "scatter",
-                  mesh=None, seq=None, positions=None):
+                  mesh=None, seq=None, positions=None, cache=None):
     """Forward producing decode caches (k/v padded to ``max_len``; with
-    ``seq``, this rank's block of ``max_len / R`` positions of them, cut
-    from the k / v its attention gathered, with no more communication)."""
+    ``cache``, a ``sharding.CacheBlock``, its positions of them, and where
+    L is split over ``model`` every kv head, gathered; with ``seq``, this
+    rank's block of ``max_len / R`` positions of them, cut from the k / v
+    its attention gathered, with no more communication)."""
     tp = sharding.model_axis(mesh)
+    lo, Lc = 0, max_len
     if seq is not None:
         Lc = seq.block(max_len, f"{cfg.name}'s decode cache")
+        lo = seq.rank * Lc
+    elif cache is not None and cache.split:
+        lo, Lc = cache.lo, cache.length
     caches = []
     for layer in map(fsdp.view, stack):
         spec = layer.spec
@@ -236,13 +250,13 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, k, v = layers.attention_prefill(layer["attn"], h, cfg,
                                                  use_kernel, tp, seq,
-                                                 positions)
+                                                 positions, cache)
             x = x + out
             pad = (0, 0, 0, 0, 0, max_len - k.shape[1])
             k, v = F.pad(k, pad), F.pad(v, pad)
-            if seq is not None:
-                k = k[:, seq.rank * Lc:(seq.rank + 1) * Lc].contiguous()
-                v = v[:, seq.rank * Lc:(seq.rank + 1) * Lc].contiguous()
+            if Lc != max_len:
+                k = k[:, lo:lo + Lc].contiguous()
+                v = v[:, lo:lo + Lc].contiguous()
             caches.append({"k": k, "v": v})
         elif spec.mixer == "mamba":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
@@ -258,12 +272,13 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
 
 
 def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
-                 moe_impl: str = "scatter", mesh=None, seq=None):
+                 moe_impl: str = "scatter", mesh=None, seq=None, cache=None):
     """One step through the stack.  x: (B, S, d); ``pos`` an int (the write
     index of the whole batch) or a (B,) tensor (one per row).  Attention
     caches are written in place; returns (x, caches).  With a position per
     row, each row is a sequence of its own, so the MoE layers route each
-    row on its own too (see ``models.moe``)."""
+    row on its own too (see ``models.moe``).  ``cache``: the attention
+    caches' ``sharding.CacheBlock``."""
     per_row = torch.is_tensor(pos) and pos.ndim == 1
     tp = sharding.model_axis(mesh)
     new_caches = []
@@ -273,7 +288,7 @@ def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, ck, cv = layers.attention_decode(layer["attn"], h, cfg,
                                                   c["k"], c["v"], pos, tp,
-                                                  seq)
+                                                  seq, cache)
             x = x + out
             new_caches.append({"k": ck, "v": cv})
         elif spec.mixer == "mamba":

@@ -36,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..parallel import sharding
+from ..parallel import sharding, transport
 from .blocks import layer_pattern, n_blocks
 from .config import ArchConfig
 from .mamba import MambaState
@@ -292,21 +292,38 @@ def params_from_jax(cfg: ArchConfig, tree, mesh=None,
 def caches_from_jax(cfg: ArchConfig, caches, mesh=None) -> list:
     """The reference's decode caches (one entry per pattern position,
     stacked along ``n_blocks``: ``{"k", "v"}`` dicts, ``MambaState``s or
-    ``None``; numpy leaves) as the port's per-layer list; with a ``mesh``,
-    this rank's block of each (``sharding.cache_layout``)."""
-    axis = sharding.model_axis(mesh)
-
-    def cut(x, kind, which):
-        t = to_tensor(x)
-        if axis is None:
-            return t
-        lay = sharding.cache_layout(cfg, kind, which, axis.size)
-        return lay.take(t, axis.rank).clone()
-
+    ``None``; numpy leaves, the global batch over the whole length) as the
+    port's per-layer list; with a ``mesh``, this rank's block of each: the
+    attention caches' ``sharding.cache_block`` over the caches' batch and
+    length, the mamba states' rows of it and channels
+    (``sharding.state_layout``)."""
     P, nb = len(layer_pattern(cfg)), n_blocks(cfg)
     if len(caches) != P:
         raise ValueError(f"{cfg.name}: {len(caches)} cache entries, the "
                          f"config has {P} pattern positions")
+    axis = sharding.model_axis(mesh)
+    block = None
+    if mesh is not None:
+        held = [c for c in caches if c is not None]
+        attn = [np.shape(c["k"]) for c in held if isinstance(c, dict)]
+        block = sharding.cache_block(cfg, mesh, np.shape(held[0][
+            "k" if isinstance(held[0], dict) else 0])[1],
+            attn[0][2] if attn else 0)
+
+    def cut(x, kind, which):
+        t = to_tensor(x)
+        if block is None:
+            return t
+        t = t.narrow(0, block.row0, block.rows)
+        if kind == "attn":
+            a = block.heads[0]
+            t = t.narrow(1, block.lo, block.length).narrow(
+                2, a, len(block.heads))
+        elif axis is not None:
+            t = sharding.state_layout(cfg, which, axis.size).take(t,
+                                                                  axis.rank)
+        return t.clone()
+
     out = [None] * (P * nb)
     for pos, c in enumerate(caches):
         for i in range(nb):
@@ -320,3 +337,53 @@ def caches_from_jax(cfg: ArchConfig, caches, mesh=None) -> list:
                     conv=cut(np.asarray(c[0])[i], "mamba", "conv"),
                     ssm=cut(np.asarray(c[1])[i], "mamba", "ssm"))
     return out
+
+
+def caches_to_jax(cfg: ArchConfig, caches, mesh=None, cache=None) -> list:
+    """The inverse of :func:`caches_from_jax`: the port's per-layer decode
+    caches as the reference's (one entry per pattern position, each leaf
+    stacked along ``n_blocks``, numpy; bfloat16 as its bits), every rank's
+    blocks gathered whole: the attention caches' positions over the L
+    group of ``cache`` (the rank's ``sharding.CacheBlock``), their kv heads
+    over ``model`` where the rank holds its own, the mamba states'
+    channels over ``model``, and the rows over the data axes where the
+    batch is split.  With a ``mesh`` every rank of it calls it."""
+    if mesh is not None and cache is None:
+        raise ValueError("caches_to_jax over a mesh needs the rank's "
+                         "CacheBlock (LanguageModel.cache_block)")
+    axis = sharding.model_axis(mesh)
+
+    def whole(t, kind, which):
+        if mesh is None:
+            return t
+        if kind == "attn":
+            if cache.split:
+                t = transport.all_gather_dim(t, cache.group, 1)
+            if axis is not None and len(cache.heads) < cfg.n_kv_heads:
+                t = sharding.Layout(2, tuple(
+                    sharding.head_split(cfg, axis.size, j).kv
+                    for j in range(axis.size)), cfg.n_kv_heads).gather(
+                        t, axis)
+        elif axis is not None:
+            t = sharding.state_layout(cfg, which, axis.size).gather(t, axis)
+        if cache.rows < cache.batch:
+            dp = sharding.present_data_axes(mesh)
+            t = transport.all_gather_dim(t, sharding.axes_group(mesh, dp), 0)
+        return t
+
+    P = len(layer_pattern(cfg))
+    out = []
+    for pos in range(P):
+        layers_ = caches[pos::P]
+        if layers_[0] is None:
+            out.append(None)
+        elif isinstance(layers_[0], dict):
+            out.append({k: np.stack([to_numpy(whole(c[k], "attn", k))
+                                     for c in layers_])
+                        for k in layers_[0]})
+        else:
+            out.append(MambaState(*(np.stack([to_numpy(whole(
+                c[j], "mamba", which)) for c in layers_])
+                for j, which in enumerate(("conv", "ssm")))))
+    return out
+

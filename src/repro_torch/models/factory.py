@@ -108,10 +108,14 @@ def _concrete(shape, dtype, seed: int, device, vocab: int | None = None):
 def abstract_caches(cfg: ArchConfig, batch: int, max_len: int,
                     mesh=None) -> list:
     """The decode caches of ``blocks.init_caches`` as meta tensors: one
-    entry per layer, shapes and dtypes only (this rank's blocks with a
-    ``mesh``)."""
-    return blocks.init_caches(cfg, batch, max_len, torch.device("meta"),
-                              sharding.model_axis(mesh))
+    entry per layer, shapes and dtypes only (with a ``mesh``: this rank's
+    blocks of the caches of a global batch of ``batch`` rows,
+    ``sharding.cache_block``)."""
+    if mesh is None:
+        return blocks.init_caches(cfg, batch, max_len, torch.device("meta"))
+    block = sharding.cache_block(cfg, mesh, batch, max_len)
+    return blocks.init_caches(cfg, block.rows, max_len, torch.device("meta"),
+                              sharding.model_axis(mesh), cache=block)
 
 
 def decode_inputs(cfg: ArchConfig, shape: ShapeConfig, abstract: bool = True,

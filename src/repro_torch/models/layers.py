@@ -28,6 +28,11 @@ work: the load is not balanced (a zig-zag order would change which
 positions a rank holds).  The decode caches are split along L over
 ``model``: :func:`attention_decode_seq` combines every rank's partial
 softmax ``(m, l, o)`` with one all-gather.
+
+Under ``"tp"`` the decode caches are the reference's ``cache_pspecs``
+block (``cache``, a ``parallel.sharding.CacheBlock``): where it splits L,
+:func:`attention_decode_block` combines the L group's partial softmaxes
+the same way (:func:`_attend_blocks`, shared with ``"fsdp_seq"``).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -374,11 +380,13 @@ def _attend_seq(q, k, v, seq, use_kernel: bool):
 
 
 def attention_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False,
-                      tp=None, seq=None, positions=None):
+                      tp=None, seq=None, positions=None, cache=None):
     """Full-sequence attention that also returns the (k, v) cache rows:
-    ``(out, k (B, S, Hkv, D), v)`` (with ``tp``: this rank's kv heads; with
-    ``seq``: this rank's block of the positions ``positions``, and k / v of
-    the whole sequence, as gathered for the attention)."""
+    ``(out, k (B, S, Hkv, D), v)`` (with ``tp``: this rank's kv heads, or,
+    where ``cache`` (a ``sharding.CacheBlock``) splits L over ``model``,
+    every kv head, gathered over ``model``; with ``seq``: this rank's block
+    of the positions ``positions``, and k / v of the whole sequence, as
+    gathered for the attention)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions, tp)
@@ -388,11 +396,97 @@ def attention_prefill(p, x, cfg: ArchConfig, use_kernel: bool = False,
     heads = attn_heads(cfg, tp)
     out = _attend(q, *_expand(k, v, heads, cfg.attn_expand_kv),
                   use_kernel) @ p["wo"]
+    if heads is not None and cache is not None and cache.over_model:
+        _, k, v = _whole_heads(cfg, tp, k, v)
     return _out(out, tp, heads), k, v
 
 
+def _whole_heads(cfg: ArchConfig, tp, k, v, q=None):
+    """``(q, k, v)`` of every head from each rank's (its query heads ``q``,
+    when given, and the kv heads they read), in one all-gather over
+    ``model``: the kv heads padded to the most a rank holds, every kv head
+    taken once from a rank that holds it (two may)."""
+    split = [sharding.head_split(cfg, tp.size, j) for j in range(tp.size)]
+    n = max(len(h.kv) for h in split)
+    pad = (0, 0, 0, n - k.shape[2])
+    parts = [F.pad(k, pad), F.pad(v, pad)] + ([] if q is None else [q])
+    got = transport.all_gather(torch.cat(parts, 2), tp.group)
+    B, S, _, D = k.shape
+    kk = k.new_empty((B, S, cfg.n_kv_heads, D))
+    vv = v.new_empty((B, S, cfg.n_kv_heads, D))
+    for j, h in enumerate(split):           # a rank's kv heads: one run
+        a, m = h.kv[0], len(h.kv)
+        kk[:, :, a:a + m] = got[j, :, :, :m]
+        vv[:, :, a:a + m] = got[j, :, :, n:n + m]
+    if q is not None:
+        q = got[:, :, :, 2 * n:].permute(1, 2, 0, 3, 4).reshape(
+            B, S, -1, D)
+    return q, kk, vv
+
+
+def _write_block(cache_k, cache_v, k, v, pos: int, lo: int) -> None:
+    """Write the new rows ``k`` / ``v`` (positions ``[pos, pos + S)``) into
+    the caches' block of positions ``[lo, lo + Lc)``: only the rows it
+    holds."""
+    S, Lc = k.shape[1], cache_k.shape[1]
+    a, b = max(pos, lo), min(pos + S, lo + Lc)       # rows this block owns
+    if a < b:
+        cache_k[:, a - lo:b - lo] = k[:, a - pos:b - pos]
+        cache_v[:, a - lo:b - lo] = v[:, a - pos:b - pos]
+
+
+def _attend_blocks(q, cache_k, cache_v, pos: int, lo: int, group,
+                   keep: int = 0):
+    """Queries ``q`` (B, S, Hq, D) at positions ``[pos, pos + S)`` against
+    the keys of every rank of ``group``, each holding the block of
+    positions ``[lo, lo + Lc)`` of the heads q reads: every rank's float32
+    partial softmax ``(m, l, o)`` over its valid positions (an empty block
+    gives ``m = -inf``, ``l = 0``), combined through one all-gather.
+    Returns (B, S, Hq * D) in q's type.  With ``keep`` (R > 1): group rank
+    ``j`` needs only the ``(j % R)``-th of R equal runs of the query heads,
+    so the partials are exchanged by head in one all-to-all and the rank
+    gets (B, S, Hq / R * D), its own run."""
+    B, S, Hq, D = q.shape
+    Lc, Hkv = cache_k.shape[1], cache_k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bshgd,bthd->bhgst", qg, cache_k).float() / math.sqrt(D)
+    live = (pos + torch.arange(S, device=q.device))[:, None] >= (
+        lo + torch.arange(Lc, device=q.device))[None, :]       # (S, Lc)
+    s = s.masked_fill(~live, -math.inf)
+    m = s.amax(-1)                                             # (B,h,g,S)
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = e.sum(-1)
+    o = torch.einsum("bhgst,bthd->bhgsd", e, cache_v.float())
+    part = torch.cat([o, m[..., None], l[..., None]], -1)
+    if keep:
+        runs = part.reshape(B, keep, Hq // keep, S, D + 2)
+        to = torch.arange(dist.get_world_size(group), device=q.device) % keep
+        parts = transport.all_to_all(runs.index_select(1, to).movedim(1, 0),
+                                     group)                  # (n,B,Hq/R,S,.)
+        Hq //= keep
+    else:
+        parts = transport.all_gather(part, group)            # (n,B,h,g,S,.)
+    o, m, l = parts[..., :D], parts[..., D], parts[..., D + 1]
+    top = m.amax(0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - torch.where(
+        torch.isfinite(top), top, 0.0)), 0.0)
+    out = (w[..., None] * o).sum(0) / (w * l).sum(0)[..., None]
+    return out.reshape(B, Hq, S, D).permute(0, 2, 1, 3).reshape(
+        B, S, Hq * D).to(q.dtype)
+
+
+def _one_position(pos, layout: str) -> int:
+    """``pos`` as one int; a position per row raises under ``layout``'s
+    sequence-split caches."""
+    if torch.is_tensor(pos) and pos.ndim:
+        raise NotImplementedError(
+            f"{layout} decodes a batch at one position; a position per row "
+            "(the continuous engines) has no sequence-split cache path")
+    return int(pos)
+
+
 def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None,
-                     seq=None):
+                     seq=None, cache=None):
     """Decode step with a pre-filled KV cache; writes the new rows into
     ``cache_k`` / ``cache_v`` in place and attends over the whole cache.
 
@@ -401,12 +495,16 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None,
     D); ``pos`` is the index of the FIRST new token, an int for the whole
     batch or a (B,) tensor with one per row (the slots of a continuous
     engine, each at its own position).  Returns (out, cache_k, cache_v).
-    With ``tp`` the caches hold this rank's kv heads
-    (``sharding.cache_layout``); with ``seq`` (:func:`attention_decode_seq`)
-    this rank's block of the positions.
+    With ``tp`` the caches hold this rank's kv heads; with ``cache`` (a
+    ``sharding.CacheBlock`` that splits L) its block
+    (:func:`attention_decode_block`); with ``seq``
+    (:func:`attention_decode_seq`) this rank's block of the positions.
     """
     if seq is not None:
         return attention_decode_seq(p, x, cfg, cache_k, cache_v, pos, seq)
+    if cache is not None and cache.split:
+        return attention_decode_block(p, x, cfg, cache_k, cache_v, pos, tp,
+                                      cache)
     B, S = x.shape[0], x.shape[1]
     steps = torch.arange(S, device=x.device)
     if torch.is_tensor(pos) and pos.ndim == 1:
@@ -424,48 +522,48 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, tp=None,
     return _out(out @ p["wo"], tp, heads), cache_k, cache_v
 
 
+def attention_decode_block(p, x, cfg: ArchConfig, cache_k, cache_v, pos,
+                           tp, cache):
+    """Decode under ``"tp"`` with the caches' L split (``cache``, a
+    ``sharding.CacheBlock``): the rank whose block holds the new tokens'
+    positions writes them; where L is split over ``model`` the rank holds
+    every kv head of its positions, so the new tokens' q, k and v are
+    first gathered whole over ``model`` (one all-gather) and the partial
+    softmax runs every query head.  One collective over the L group
+    combines the ranks' partials (:func:`_attend_blocks`): an all-gather
+    where every rank of the group needs every head its keys serve, an
+    all-to-all by head where L is split over ``model`` (a rank needs only
+    its own query heads, for ``wo`` and the row sum).  ``pos`` is an
+    int."""
+    pos = _one_position(pos, "layout='tp' with a sequence-split cache")
+    B, S = x.shape[0], x.shape[1]
+    positions = (pos + torch.arange(S, device=x.device)).expand(B, S)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    heads = attn_heads(cfg, tp)
+    gather = heads is not None and cache.over_model
+    if gather:
+        q, k, v = _whole_heads(cfg, tp, k, v, q)
+    _write_block(cache_k, cache_v, k, v, pos, cache.lo)
+    out = _attend_blocks(q, cache_k, cache_v, pos, cache.lo, cache.group,
+                         tp.size if gather else 0)
+    return _out(out @ p["wo"], tp, heads), cache_k, cache_v
+
+
 def attention_decode_seq(p, x, cfg: ArchConfig, cache_k, cache_v, pos: int,
                          seq):
     """Decode under sequence sharding: the caches hold this rank's block
     of ``L / R`` positions of the whole ``max_len`` (every kv head).  The
     new tokens (the same on every ``model`` rank) are written by the rank
-    whose block holds their positions; every rank computes its partial
-    softmax ``(m, l, o)`` in float32 over its valid positions (an empty
-    block gives ``m = -inf``, ``l = 0``), and one all-gather over ``model``
-    combines them.  ``pos`` is an int: the whole batch at one position."""
-    if torch.is_tensor(pos) and pos.ndim:
-        raise NotImplementedError(
-            "layout='fsdp_seq' decodes a batch at one position; a position "
-            "per row (the continuous engines) has no sequence-sharded path")
+    whose block holds their positions, and every rank's partial softmax is
+    combined over ``model`` (:func:`_attend_blocks`).  ``pos`` is an int:
+    the whole batch at one position."""
+    pos = _one_position(pos, "layout='fsdp_seq'")
     B, S = x.shape[0], x.shape[1]
-    pos = int(pos)
     positions = (pos + torch.arange(S, device=x.device)).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    Lc = cache_k.shape[1]
-    lo = seq.rank * Lc
-    a, b = max(pos, lo), min(pos + S, lo + Lc)       # rows this rank owns
-    if a < b:
-        cache_k[:, a - lo:b - lo] = k[:, a - pos:b - pos]
-        cache_v[:, a - lo:b - lo] = v[:, a - pos:b - pos]
-    Hq, D = q.shape[2], q.shape[3]
-    Hkv = cache_k.shape[2]
-    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bshgd,bthd->bhgst", qg, cache_k).float() / math.sqrt(D)
-    live = (pos + torch.arange(S, device=x.device))[:, None] >= (
-        lo + torch.arange(Lc, device=x.device))[None, :]       # (S, Lc)
-    s = s.masked_fill(~live, -math.inf)
-    m = s.amax(-1)                                             # (B,h,g,S)
-    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
-    l = e.sum(-1)
-    o = torch.einsum("bhgst,bthd->bhgsd", e, cache_v.float())
-    parts = transport.all_gather(torch.cat([o, m[..., None], l[..., None]],
-                                           -1), seq.group)
-    o, m, l = parts[..., :D], parts[..., D], parts[..., D + 1]
-    top = m.amax(0)
-    w = torch.where(torch.isfinite(m), torch.exp(m - torch.where(
-        torch.isfinite(top), top, 0.0)), 0.0)                 # (R,B,h,g,S)
-    out = (w[..., None] * o).sum(0) / (w * l).sum(0)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * D).to(x.dtype)
+    lo = seq.rank * cache_k.shape[1]
+    _write_block(cache_k, cache_v, k, v, pos, lo)
+    out = _attend_blocks(q, cache_k, cache_v, pos, lo, seq.group)
     return out @ p["wo"], cache_k, cache_v
 
 

@@ -69,6 +69,7 @@ class LanguageModel(nn.Module):
         self.moe_impl = moe_impl
         self.mesh = mesh
         self.seq = None
+        self._cache_blocks = {}
         if layout == "fsdp_seq":
             if mesh is None:
                 raise ValueError("layout='fsdp_seq' needs a mesh")
@@ -258,7 +259,8 @@ class LanguageModel(nn.Module):
         return (lse - gold).mean() + 0.01 * aux
 
     # --------------------------------------------------------------- serving
-    def prefill(self, batch, max_len: int, last_index=None):
+    def prefill(self, batch, max_len: int, last_index=None,
+                global_batch: int | None = None):
         """Process the prompt; returns (last-position logits, caches).
 
         ``last_index`` (optional, ``(B,)`` int) selects the position whose
@@ -271,7 +273,10 @@ class LanguageModel(nn.Module):
         attention and Mamba layers run the CUDA kernels, at any length.
         Under ``"fsdp_seq"`` the caches are this rank's blocks, and the
         last position's logits (rank R-1's) are returned on every rank;
-        ``last_index`` raises there (no engine runs that layout).
+        ``last_index`` raises there (no engine runs that layout).  Under
+        ``"tp"`` with a mesh the caches are this rank's
+        :meth:`cache_block` (``global_batch``: the global batch whose rows
+        ``batch`` holds, as :meth:`cache_block` reads it).
         """
         x = self._embed_inputs(batch)
         if self.seq is not None:
@@ -286,10 +291,10 @@ class LanguageModel(nn.Module):
                 moe_impl=self.moe_impl, seq=self.seq, positions=positions)
             last = transport.all_gather(x[:, -1:], self.seq.group)[-1]
             return self._head(last), caches
-        x, caches = blocks.stack_prefill(self.stack, x, self.cfg, max_len,
-                                         use_kernel=self.use_kernel,
-                                         moe_impl=self.moe_impl,
-                                         mesh=self.mesh)
+        x, caches = blocks.stack_prefill(
+            self.stack, x, self.cfg, max_len, use_kernel=self.use_kernel,
+            moe_impl=self.moe_impl, mesh=self.mesh,
+            cache=self.cache_block(x.shape[0], max_len, global_batch))
         if last_index is None:
             x_last = x[:, -1:]
         else:
@@ -298,25 +303,69 @@ class LanguageModel(nn.Module):
                        idx.reshape(-1)][:, None]
         return self._head(x_last), caches
 
-    def decode_step(self, caches, batch, pos):
+    def decode_step(self, caches, batch, pos, max_len: int | None = None,
+                    global_batch: int | None = None):
         """New tokens at ``pos``.  ``batch`` carries the inputs at those
         positions ({"tokens": (B, S)} or {"frame_embeds": (B, S, F)}, S = 1
         for ordinary decode); ``pos`` is the write index into the caches:
         an int for the whole batch, or a (B,) tensor with one per row.  The
         attention caches are written in place; returns (logits, caches).
-        Decode runs the plain paths, as in the reference."""
+        Decode runs the plain paths, as in the reference.  Under ``"tp"``
+        with a mesh the caches are :meth:`cache_block` of ``max_len``
+        positions (``None``: the caches' own length, L whole) and
+        ``global_batch``; a block that splits L takes an int ``pos``."""
         x = self._embed_inputs(batch)
+        cache = None
+        attn = [c for c in caches if isinstance(c, dict)]
+        if attn and self.seq is None and self.mesh is not None:
+            held = attn[0]["k"].shape[1]
+            cache = self.cache_block(x.shape[0], max_len or held,
+                                     global_batch)
+            if cache.length != held:
+                raise ValueError(
+                    f"{self.cfg.name}: caches of {held} positions are not "
+                    f"this rank's block of {max_len or held} "
+                    f"({cache.length}); pass the whole length as max_len")
         x, caches = blocks.stack_decode(self.stack, caches, x, self.cfg, pos,
-                                        moe_impl=self.moe_impl,
+                                        moe_impl=self.moe_impl, cache=cache,
                                         **self._mixers())
         return self._head(x), caches
 
-    def init_caches(self, batch_size: int, max_len: int):
-        """Zeroed decode caches (this rank's block of each under tensor
-        parallelism: ``sharding.cache_layout``; under ``"fsdp_seq"``, its
-        block of the positions)."""
+    def init_caches(self, batch_size: int, max_len: int,
+                    global_batch: int | None = None):
+        """Zeroed decode caches of ``batch_size`` rows (this rank's block
+        of each under ``"tp"`` with a mesh: :meth:`cache_block`; under
+        ``"fsdp_seq"``, its block of the positions)."""
         return blocks.init_caches(self.cfg, batch_size, max_len, self.device,
-                                  self.tp, self.seq)
+                                  self.tp, self.seq, self.cache_block(
+                                      batch_size, max_len, global_batch))
+
+    def cache_block(self, rows: int, max_len: int,
+                    global_batch: int | None = None):
+        """This rank's ``sharding.CacheBlock`` of the decode caches under
+        ``"tp"`` with a mesh (else ``None``): ``rows`` are the rows this
+        rank was given, of a global batch of ``global_batch`` rows (the
+        block of the batch over the data axes where it divides them, else
+        all of it, as ``batch_pspecs`` lays it out; ``None``: ``rows`` are
+        this rank's block, ``rows`` x the data ranks in all).  Made once
+        for each (rows, batch, length): every rank must ask at the same
+        point, outside a capture (a group of several axes is made on first
+        use)."""
+        if self.mesh is None or self.seq is not None:
+            return None
+        if global_batch is None:
+            dp = sharding.present_data_axes(self.mesh)
+            global_batch = rows * sharding.axis_size(self.mesh, dp)
+        key = (rows, global_batch, max_len)
+        if key not in self._cache_blocks:
+            blk = sharding.cache_block(self.cfg, self.mesh, global_batch,
+                                       max_len)
+            if blk.rows != rows:
+                raise ValueError(
+                    f"{self.cfg.name}: {rows} rows are not this rank's of a "
+                    f"batch of {global_batch} ({blk.rows} rows a rank)")
+            self._cache_blocks[key] = blk
+        return self._cache_blocks[key]
 
     @property
     def device(self) -> torch.device:

@@ -55,16 +55,34 @@ or vocabulary do                               (codebook ``V``) do not split
 not split over R                               over R, so the module runs
                                                whole, with no collective
 decode caches      ``cache_pspecs``: L over    the kv heads the rank's query
-(attention, when   ``model`` (sequence-        heads read, over the whole
-Hkv % R != 0)      parallel cache)             length (under ``"tp"``; the
-                                               sequence-split cache is
-                                               ``"fsdp_seq"``'s, below)
+(attention, when   ``model`` (and the data     heads read, over the whole
+Hkv % R != 0 and   axes where the batch does   length: where L does not divide
+L does not split   not split) where it         that group, the spec leaves L
+over the L group)  divides, else whole, every  whole, and a rank holding every
+                   kv head on every rank       kv head would gather them a token
 =================  ==========================  ===============================
 
 The fused ``wqkv`` / ``bqkv`` / ``w_gateup`` have no rule, so their spec
 and their block are the whole leaf; each rank multiplies by its own
 columns of it.  :func:`departures` names, for a model's leaves, the ones
 whose executed block differs from the spec's.
+
+The decode caches (:class:`CacheBlock`, :func:`cache_block`): under
+``"tp"`` a rank holds the block of ``cache_pspecs`` over the global
+batch, as the reference's dry run shards them.  Its rows are the batch's
+block over the data axes where the batch divides them, else all of it
+(the same rows on every data rank); its kv heads are its own ``Hkv / R``
+where they split over ``model``; and L is split over the L group, the
+data axes where the batch does not divide them and ``model`` where the
+kv heads do not, where L divides that group's size.  A rank whose block
+of L holds every kv head computes a float32 partial softmax of every
+query head over its positions, and one collective over the L group
+combines them (``models.layers``): an all-to-all by head where L is
+split over ``model`` (each rank receives only its own query heads'
+partials), else an all-gather.  Where L does not divide the group the
+spec leaves it whole, and the rank holds the kv heads its query heads
+read (the last row above).  Mamba states keep the spec's channel split
+(:func:`state_layout`) and the rows of the attention caches.
 
 FSDP (:func:`fsdp_specs`, :class:`FsdpBlock`): with FSDP on, a rank holds
 of each port tensor the block of the data-axes entry of
@@ -106,9 +124,9 @@ on the stack dim                               summed over ``model`` (each
                                                and all-reduced over the data
                                                axes
 attention decode   ``cache_pspecs``: heads     L over ``model``: contiguous
-caches (Hkv % R    over ``model``              blocks of ``max_len / R``
-== 0)                                          positions a rank, the bytes a
-                                               rank holds equal (a sequence-
+caches (Hkv % R    over ``model`` (as          blocks of ``max_len / R``
+== 0)              ``"tp"`` holds them,        positions a rank, the bytes a
+                   :class:`CacheBlock`)        rank holds equal (a sequence-
                                                sharded rank holds every head
                                                of its positions)
 mamba decode       the channel dim over        whole on every ``model`` rank
@@ -699,21 +717,91 @@ def vocab_block(cfg, axis: ModelAxis | None) -> tuple | None:
     return None if split is None else split[axis.rank]
 
 
+@dataclass(frozen=True)
+class CacheBlock:
+    """This rank's block of every attention decode cache (B, L, Hkv, D)
+    under ``"tp"`` (the module docstring): rows ``[row0, row0 + rows)`` of
+    the global ``batch``, the kv heads ``heads`` (a contiguous run, in order)
+    and positions ``[lo, lo + length)`` of the whole length.  ``axes``: the
+    mesh axes L is split over (the data axes first, then ``model``; empty
+    where L is whole), and ``group``, those axes' process group (``None``
+    where L is whole, or for a block asked for at other coordinates)."""
+
+    rows: int
+    row0: int
+    batch: int
+    heads: tuple
+    lo: int
+    length: int
+    axes: tuple = ()
+    group: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+
+    @property
+    def split(self) -> bool:
+        """L is split over ranks."""
+        return bool(self.axes)
+
+    @property
+    def over_model(self) -> bool:
+        """L is split over ``model``: the rank holds every kv head of its
+        positions."""
+        return MODEL_AXIS in self.axes
+
+
+def present_data_axes(mesh) -> tuple:
+    """The data axes that ``mesh`` has (a mesh may lack them)."""
+    names = set(mesh.mesh_dim_names)
+    return tuple(a for a in data_axes(mesh) if a in names)
+
+
+def cache_block(cfg, mesh, batch: int, max_len: int,
+                coord=None) -> CacheBlock:
+    """This rank's :class:`CacheBlock` (or the block of the rank at mesh
+    coordinates ``coord``) of decode caches of ``batch`` rows (the global
+    batch) and ``max_len`` positions on ``mesh``: ``cache_pspecs``'s
+    block, except where L does not divide its group (the module
+    docstring).  Every rank must ask at the same point: the group of
+    several axes is made on first use."""
+    sizes = axis_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    own = coord is None
+    coord = mesh.get_coordinate() if own else coord
+    dp = present_data_axes(mesh)
+    nm = sizes.get(MODEL_AXIS, 1)
+    r = coord[names.index(MODEL_AXIS)] if MODEL_AXIS in names else 0
+    nkv = cfg.n_kv_heads
+    group_axes = []
+    if batch % axis_size(mesh, dp) == 0 and batch >= axis_size(mesh, dp):
+        d, n = block_index(dp, mesh, coord)
+        rows, row0 = batch // n, d * (batch // n)
+    else:
+        rows, row0 = batch, 0
+        group_axes.extend(dp)
+    split_heads = nkv % nm == 0 and nkv >= nm
+    if not split_heads:
+        group_axes.append(MODEL_AXIS)
+    hs = head_split(cfg, nm, r)
+    mine = tuple(range(nkv)) if hs is None else hs.kv
+    n_group = axis_size(mesh, group_axes) if group_axes else 1
+    if not nkv or n_group == 1 or max_len % n_group:
+        return CacheBlock(rows, row0, batch, mine, 0, max_len)
+    axes = tuple(group_axes)
+    index, count = block_index(axes, mesh, coord)
+    length = max_len // count
+    return CacheBlock(rows, row0, batch,
+                      mine if split_heads else tuple(range(nkv)),
+                      index * length, length, axes,
+                      axes_group(mesh, axes) if own else None)
+
+
 @functools.lru_cache(maxsize=None)
-def cache_layout(cfg, kind: str, which: str, R: int) -> Layout:
-    """The executed :class:`Layout` of a decode cache: attention ``"k"`` /
-    ``"v"`` (B, L, Hkv, D) — the kv heads the rank's query heads read,
-    over the whole length; mamba ``"conv"`` (B, K-1, d_inner) / ``"ssm"``
-    (B, d_inner, N) — the rank's channels (taken by name, not by the
-    size guess of ``cache_pspecs``)."""
-    if R == 1:
-        return WHOLE
-    if kind == "attn":
-        heads = [head_split(cfg, R, r) for r in range(R)]
-        if heads[0] is None:
-            return WHOLE
-        return Layout(2, tuple(h.kv for h in heads), cfg.n_kv_heads)
-    if channel_split(cfg.d_inner, R) is None:
+def state_layout(cfg, which: str, R: int) -> Layout:
+    """The executed :class:`Layout` of a mamba decode state over a
+    ``model`` axis of R: ``"conv"`` (B, K-1, d_inner) and ``"ssm"`` (B,
+    d_inner, N) hold the rank's channels (taken by name, not by the size
+    guess of ``cache_pspecs``)."""
+    if R == 1 or channel_split(cfg.d_inner, R) is None:
         return WHOLE
     return Layout(2 if which == "conv" else 1, _even(cfg.d_inner, R),
                   cfg.d_inner)

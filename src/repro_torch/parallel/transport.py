@@ -56,7 +56,8 @@ volume: Counter = Counter()
 #: counted here, and the factor from its per-rank result bytes to the
 #: bytes one rank puts in (the group size n: 1 / n, n or 1).
 KINDS = {"all_reduce": ("all-reduce", 0), "all_gather": ("all-gather", -1),
-         "reduce_scatter": ("reduce-scatter", 1)}
+         "reduce_scatter": ("reduce-scatter", 1),
+         "all_to_all_single": ("all-to-all", 0)}
 
 
 def snapshot() -> tuple:
@@ -139,6 +140,18 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     n = dist.get_world_size(group)
     out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
     dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+    return out
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``(n, ...)``: block ``j`` of ``t`` (``n`` blocks along dim 0, ``n``
+    the group's size) sent to group rank ``j``; block ``j`` of the result
+    is the one group rank ``j`` sent this rank.  One all-to-all of one
+    tensor."""
+    _count("all_to_all_single", t, group)
+    x = t.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
     return out
 
 

@@ -267,20 +267,23 @@ def _reference_caches(cfg, caches) -> list:
     return out
 
 
-def tp_decode(shape, names):
-    """TP ``prefill`` of a (2, 12) prompt (seed 7) and 8 greedy
-    ``decode_step``s on a (data, model) mesh of ``shape``: the 9 tokens;
-    rank 0 also returns the gathered parameters.  Beside them: the whole
-    model's parameters carried into this rank's blocks
-    (``params_from_jax(..., mesh=)``) against the TP model's, and its
-    prefill caches (``caches_from_jax(..., mesh=)``) against the TP
-    prefill's."""
+def tp_decode(shape, names, rows=TP_PROMPT[0], global_batch=None):
+    """TP ``prefill`` of the first ``rows`` rows of a (2, 12) prompt (seed
+    7) and 8 greedy ``decode_step``s on a (data, model) mesh of ``shape``
+    (every rank given those rows, of a global batch of ``global_batch``:
+    ``LanguageModel.cache_block``): the 9 tokens; rank 0 also returns the
+    gathered parameters.  Beside them: the whole model's parameters
+    carried into this rank's blocks (``params_from_jax(..., mesh=)``)
+    against the TP model's, its prefill caches (``caches_from_jax(...,
+    mesh=)``) against the TP prefill's, and the TP prefill's caches
+    gathered whole (``caches_to_jax``) against its; the cache block, the
+    attention caches' shape, and what a position per row raises."""
     from repro_torch.models import make_model
-    from repro_torch.models.convert import (caches_from_jax, params_from_jax,
-                                            params_to_jax)
+    from repro_torch.models.convert import (caches_from_jax, caches_to_jax,
+                                            params_from_jax, params_to_jax)
     mesh = _mesh(shape)
     prompt = torch.tensor(np.random.default_rng(7).integers(
-        0, 256, TP_PROMPT), dtype=torch.int32)
+        0, 256, TP_PROMPT), dtype=torch.int32)[:rows]
     out = {}
     for name in names:
         cfg = _tp_cfg(name)
@@ -294,28 +297,55 @@ def tp_decode(shape, names):
         mine = model.state_dict()
         params_equal = loaded.keys() == mine.keys() and all(
             torch.equal(loaded[k], mine[k]) for k in mine)
+        kw = {"global_batch": global_batch}
+        block = model.cache_block(rows, TP_MAX_LEN, global_batch)
         with torch.no_grad():
-            logits, caches = model.prefill({"tokens": prompt}, TP_MAX_LEN)
+            logits, caches = model.prefill({"tokens": prompt}, TP_MAX_LEN,
+                                           **kw)
             _, wc = whole.prefill({"tokens": prompt}, TP_MAX_LEN)
-            cut = caches_from_jax(cfg, _reference_caches(cfg, wc), mesh)
-            cache_err = max((float((a - b).abs().max())
-                             for c, w in zip(caches, cut) if c is not None
-                             for a, b in zip(c.values() if isinstance(c, dict)
-                                             else c, w.values()
-                                             if isinstance(w, dict) else w)),
-                            default=0.0)
+            want = _reference_caches(cfg, wc)
+            cut = caches_from_jax(cfg, want, mesh)
+            cache_err = _max_err(caches, cut)
+            back = caches_to_jax(cfg, caches, mesh, block)
+            gather_err = _max_err(back, want)
             toks = [logits.argmax(-1)]
             for i in range(TP_NEW - 1):
                 logits, caches = model.decode_step(
-                    caches, {"tokens": toks[-1]}, TP_PROMPT[1] + i)
+                    caches, {"tokens": toks[-1]}, TP_PROMPT[1] + i,
+                    max_len=TP_MAX_LEN, **kw)
                 toks.append(logits.argmax(-1))
+            per_row = ""
+            if block is not None and block.split:
+                try:
+                    model.decode_step(caches, {"tokens": toks[-1]},
+                                      torch.full((rows,), 20), TP_MAX_LEN,
+                                      **kw)
+                except NotImplementedError as e:
+                    per_row = str(e)
         params = params_to_jax(model)
+        attn = [c["k"] for c in caches if isinstance(c, dict)]
         out[name] = {"tokens": torch.cat(toks, 1).numpy(),
-                     "cache_heads": next((c["k"].shape[2] for c in caches
-                                          if isinstance(c, dict)), None),
+                     "cache_shape": tuple(attn[0].shape) if attn else None,
+                     "block": None if block is None else {
+                         k: getattr(block, k) for k in (
+                             "rows", "row0", "heads", "lo", "length",
+                             "axes")},
+                     "coord": mesh.get_coordinate(), "per_row": per_row,
                      "params_equal": params_equal, "cache_err": cache_err,
+                     "gather_err": gather_err,
                      "params": params if dist.get_rank() == 0 else None}
     return out
+
+
+def _max_err(got, want) -> float:
+    """The largest distance between two cache lists' tensors (either the
+    port's tensors or numpy arrays)."""
+    def vals(c):
+        return list(c.values()) if isinstance(c, dict) else list(c)
+    return max((float(np.abs(np.asarray(a, np.float64)
+                             - np.asarray(b, np.float64)).max())
+                for c, w in zip(got, want) if c is not None
+                for a, b in zip(vals(c), vals(w))), default=0.0)
 
 
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)

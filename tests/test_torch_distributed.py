@@ -99,6 +99,23 @@ TP_ROWS, TP_SEQ = 2, 32               # rows of each data shard, sequence
 TP_DECODE = ("qwen2.5-3b", "jamba-v0.1-52b", "falcon-mamba-7b")
 TP_TRAIN_MESH, TP_TRAIN_STEPS = (2, 2), 3
 FSDP_NAMES = ("qwen2.5-3b", "jamba-v0.1-52b")
+# TP decode with the caches' L split: the irregular phi3 (3 kv heads) over
+# (1, 2) (L over model), and a batch of 1 on (2, 2) (L over data, and over
+# data and model for the irregular phi3); qwen2.5-3b over (1, 4) is the
+# tp_decode part above (2 kv heads on 4 ranks: L over model)
+SPLIT_PARTS = {
+    2: [("tp_decode:(1, 2):irregular", {"shape": (1, 2),
+                                        "names": ["irregular"]})],
+    4: [("tp_decode:(2, 2):1", {"shape": (2, 2),
+                                "names": ["qwen2.5-3b", "irregular"],
+                                "rows": 1, "global_batch": 1})]}
+SPLIT_CASES = [("qwen2.5-3b", 4, "tp_decode:(1, 4)", (1, 4), 2, ("model",)),
+               ("irregular", 2, "tp_decode:(1, 2):irregular", (1, 2), 2,
+                ("model",)),
+               ("qwen2.5-3b", 4, "tp_decode:(2, 2):1", (2, 2), 1,
+                ("data",)),
+               ("irregular", 4, "tp_decode:(2, 2):1", (2, 2), 1,
+                ("data", "model"))]
 SEQ_MESHES = ((1, 4), (2, 2))        # fsdp_seq: (data, model)
 SEQ_MOE_CF = 0.5                     # a capacity factor that drops tokens
 ADAFACTOR_MESHES = ((1, 4), (2, 2))
@@ -173,6 +190,8 @@ def _parts(n, tmp):
             "batch_shape": (TP_ROWS * shape[0], TP_SEQ)})]
     parts.append((f"tp_decode:{TP_MESHES[n][0]}",
                   {"shape": TP_MESHES[n][0], "names": TP_DECODE}))
+    for part, args in SPLIT_PARTS[n]:
+        parts.append((part, args))
     if n == 4:
         parts.append(("tp_elastic", {"directory": str(tmp / "tp_ckpt")}))
         parts.append(("fsdp_model:(2, 2)", {"shape": TP_TRAIN_MESH,
@@ -546,8 +565,9 @@ def test_tp_prefill_and_decode_match_the_reference_engine(worlds, name):
     """TP prefill + 8 greedy decode steps on (1, 2) and (1, 4): the tokens
     of the reference's ``ServeEngine`` (greedy) on the whole model's
     parameters (the gathered ones equal them bit for bit), every rank; the
-    caches hold the kv heads a rank's query heads read (qwen2.5-3b's 2 kv
-    heads over 4 ranks: one a rank)."""
+    attention caches are rank 0's block of the reference's
+    ``cache_pspecs`` (qwen2.5-3b's 2 kv heads: one a rank over 2 ranks,
+    and over 4 ranks both heads of a quarter of the positions)."""
     for n, shapes in TP_MESHES.items():
         res = [_part(r, f"tp_decode:{shapes[0]}")[name] for r in worlds[n]]
         for got, want in zip(jax.tree.leaves(res[0]["params"]),
@@ -560,7 +580,61 @@ def test_tp_prefill_and_decode_match_the_reference_engine(worlds, name):
             assert got["cache_err"] <= 1e-5     # caches_from_jax(mesh=)
         cfg = ranks._tp_cfg(name)
         if cfg.n_heads:
-            assert res[0]["cache_heads"] == max(1, cfg.n_kv_heads // n)
+            assert res[0]["cache_shape"] == _ref_cache_block(
+                name, shapes[0], ranks.TP_PROMPT[0])
+
+
+def _ref_cache_block(name, shape, batch, coord=None) -> tuple:
+    """The shape of the block of an attention cache of ``batch`` rows and
+    ``TP_MAX_LEN`` positions under the reference's ``cache_pspecs`` on a
+    (data, model) mesh of ``shape``."""
+    from jax.sharding import AbstractMesh
+    from repro.models.factory import abstract_caches
+    from repro.parallel import cache_pspecs
+    amesh = AbstractMesh(shape, ("data", "model"))
+    caches = abstract_caches(_ref_cfg(name), batch, ranks.TP_MAX_LEN)
+    i = next(i for i, c in enumerate(caches) if isinstance(c, dict))
+    sizes = dict(zip(("data", "model"), shape))
+    out = []
+    for n, e in zip(caches[i]["k"].shape[1:], tuple(
+            cache_pspecs(caches, amesh)[i]["k"])[1:] + (None,) * 4):
+        for a in (e if isinstance(e, tuple) else (e,)):
+            n //= sizes[a] if a else 1
+        out.append(n)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("name,n,part,shape,rows,axes", SPLIT_CASES,
+                         ids=["qwen-1x4", "irregular-1x2", "qwen-2x2-b1",
+                              "irregular-2x2-b1"])
+def test_tp_split_cache_prefill_and_decode_match_the_reference_engine(
+        worlds, name, n, part, shape, rows, axes):
+    """TP prefill + 8 greedy decode steps where the reference's
+    ``cache_pspecs`` split the caches' L: over ``model`` where the kv heads
+    do not split (qwen2.5-3b's 2 over 4 ranks, the irregular phi3's 3 over
+    2), over ``data`` for a batch of 1 on (2, 2) (and over both for the
+    irregular phi3).  Every rank: the greedy tokens of the reference's
+    ``ServeEngine`` on the prompt's rows, exactly; its attention caches
+    the reference's block at its coordinates (rank ``r``'s positions along
+    the split axes, data first); the whole model's prefill caches cut to
+    that block (``caches_from_jax(mesh=)``) and the rank's gathered whole
+    (``caches_to_jax``) within 1e-5; a position per row raises."""
+    res = [_part(r, part)[name] for r in worlds[n]]
+    want = _engine_tokens(name)[:rows]
+    sizes = dict(zip(("data", "model"), shape))
+    block = _ref_cache_block(name, shape, rows)
+    for got in res:
+        np.testing.assert_array_equal(got["tokens"], want)
+        assert got["params_equal"]
+        assert got["cache_err"] <= 1e-5 and got["gather_err"] <= 1e-5
+        assert got["cache_shape"] == block
+        b = got["block"]
+        assert b["axes"] == axes and b["rows"] == rows and b["row0"] == 0
+        idx = 0
+        for a in axes:
+            idx = idx * sizes[a] + got["coord"][("data", "model").index(a)]
+        assert (b["lo"], b["length"]) == (idx * block[1], block[1])
+        assert "position per row" in got["per_row"], got["per_row"]
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)

@@ -184,20 +184,80 @@ def _close(got, want):
         np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
+def _cache_bytes(cfg, shape, mesh) -> int:
+    """The bytes of the decode caches that ``build_step`` gives rank 0."""
+    _, args, _ = dryrun.build_step(cfg, shape, mesh, device="cpu",
+                                   abstract=True)
+    return sum(t.numel() * t.element_size() for c in args[1]
+               if isinstance(c, dict) for t in c.values())
+
+
+def _ref_cache_bytes(rcfg, shape, amesh) -> int:
+    """The bytes a device holds of the reference's attention decode
+    caches under its ``cache_pspecs``."""
+    caches = ref_factory.abstract_caches(rcfg, shape.global_batch,
+                                         shape.seq_len)
+    specs = ref_par.cache_pspecs(caches, amesh)
+    sizes = dict(zip(amesh.axis_names, amesh.axis_sizes))
+    total = 0
+    for c, sp in zip(caches, specs):
+        if not isinstance(c, dict):
+            continue
+        for k, x in c.items():
+            n = math.prod(x.shape) * x.dtype.itemsize
+            for e in tuple(sp[k]):
+                for a in (e if isinstance(e, tuple) else (e,)):
+                    n //= sizes[a] if a else 1
+            total += n
+    return total
+
+
 def test_full_width_decode_cell():
     """``qwen2.5-3b x decode_32k`` at full width on (16, 16): the record
     against the reference's functions, its collectives (the TP
-    all-reduces of 36 layers and the head's one gather) and a footprint
-    that fits the H100."""
+    all-reduces of 36 layers; 37 all-gathers, the head's and one an
+    attention layer, of the new token's heads, and 36 all-to-alls, the
+    partials' combine by head, as the caches split L over ``model``: 2 kv
+    heads on 16 ranks), the reference's cache block (603,979,776 bytes a rank,
+    the bytes its ``cache_pspecs`` give a device) and a footprint that
+    fits the H100."""
     cfg, shape = ARCHS["qwen2.5-3b"], SHAPES["decode_32k"]
-    with _world("16x16") as (mesh, _):
+    with _world("16x16") as (mesh, amesh):
         rec = dryrun.run_cell(cfg, shape, mesh)
         _hold_record(rec, REF_ARCHS[cfg.name], shape, mesh)
+        held = _cache_bytes(cfg, shape, mesh)
+    assert held == _ref_cache_bytes(REF_ARCHS[cfg.name], shape, amesh) \
+        == 603_979_776
     assert rec["status"] == "ok" and rec["fsdp"] is False
     assert rec["collectives"]["all-reduce"]["count"] >= 2 * cfg.n_layers
-    assert rec["collectives"]["all-gather"]["count"] == 1
+    assert rec["collectives"]["all-gather"]["count"] == 1 + cfg.n_layers
+    assert rec["collectives"]["all-to-all"]["count"] == cfg.n_layers
     assert rec["memory"]["fits_hbm"]
     assert rec["roofline"]["dominant"] == "memory"
+
+
+@pytest.mark.parametrize("name,gathers,exchanges", [("qwen2.5-3b", 3, 2),
+                                                    ("jamba-v0.1-52b", 2, 0)])
+def test_reduced_long_decode_cell_splits_the_cache(name, gathers, exchanges):
+    """A ``long_500k``-shaped decode cell (batch 1) of the reduced arch at
+    (2, 4): the batch stays whole on both data ranks and the caches split
+    L over the data axes (and over ``model`` where the kv heads do not
+    split: qwen2.5-3b's 2 on 4 ranks), so a rank holds the bytes of the
+    reference's ``cache_pspecs`` block; the all-gathers are the head's
+    and, per attention layer, the partials' combine over data (jamba) or
+    the new token's heads over ``model`` (qwen2.5-3b, whose partials are
+    combined by an all-to-all by head over data and ``model``)."""
+    cfg = ARCHS[name].reduced()
+    shape = ShapeConfig("long", "decode", 64, 1)
+    with _world("2x4") as (mesh, amesh):
+        rec = dryrun.run_cell(cfg, shape, mesh)
+        _hold_record(rec, REF_ARCHS[name].reduced(), shape, mesh)
+        held = _cache_bytes(cfg, shape, mesh)
+    assert rec["status"] == "ok"
+    assert held == _ref_cache_bytes(REF_ARCHS[name].reduced(), shape, amesh)
+    assert rec["collectives"]["all-gather"]["count"] == gathers
+    assert rec["collectives"].get("all-to-all", {"count": 0})["count"] \
+        == exchanges
 
 
 @pytest.mark.parametrize("name", list(ARCHS))

@@ -67,6 +67,49 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert out[-1].startswith("final loss: ")
 
 
+class _Writes:
+    """A stdout that keeps each write apart."""
+
+    def __init__(self):
+        self.writes = []
+
+    def write(self, text):
+        self.writes.append(text)
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def test_train_cli_writes_each_line_whole(tmp_path, monkeypatch):
+    """The ranks of a launch share its stdout, so each line the train
+    launcher prints is one write, its text and newline together: no other
+    rank's line can then land inside it (an unbuffered ``print`` writes the
+    two apart)."""
+    from repro_torch.launch import train as launch_train
+
+    args = ["--arch", "qwen2.5-3b", "--reduced", "--seq", "16", "--batch",
+            "2", "--log-every", "1", "--summary", "--ckpt-dir",
+            str(tmp_path), "--ckpt-every", "1", "--device", "cpu"]
+    lines = []
+    for steps in ("2", "3"):             # the second run restores step 1
+        out = _Writes()
+        monkeypatch.setattr(sys, "stdout", out)
+        assert launch_train.main(args + ["--steps", steps]) == 0
+        monkeypatch.undo()
+        assert all(w.endswith("\n") and w.count("\n") == 1
+                   for w in out.writes), out.writes
+        lines += [w[:-1] for w in out.writes]
+    assert [_shape(ln) for ln in lines if not ln.startswith("{")] == [
+        "[train] step # loss # gnorm #", "[train] step # loss # gnorm #",
+        "final loss: #", "[train] restored step #, resuming at #",
+        "[train] step # loss # gnorm #", "final loss: #"]
+    summaries = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert [[h["step"] for h in s["history"]] for s in summaries] == \
+        [[0, 1], [2]]
+    assert all(s["rank"] == 0 and s["world"] == 1 for s in summaries)
+
+
 @pytest.mark.parametrize("engine", [[], ["--continuous"], ["--paged"]])
 def test_serve_cli_on_the_cpu(engine):
     """The port's serve driver prints the JAX package's driver's lines

@@ -43,6 +43,13 @@ ANALYSIS_MODULES = {"repro_torch.lint", "repro_torch.analysis",
                     "repro_torch.kernels._plan"}
 
 
+#: The port's examples and record scripts: the probe must import each.
+EXAMPLE_MODULES = {f"repro_torch.examples.{n}" for n in (
+    "quickstart", "sweep_quickstart", "stencil_advisor", "hpcg_analysis",
+    "serve_lm", "train_lm")} | {"repro_torch.scripts.refresh_fits",
+                                "repro_torch.scripts.update_experiments"}
+
+
 def test_importing_every_port_module_loads_no_jax():
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
@@ -52,7 +59,23 @@ def test_importing_every_port_module_loads_no_jax():
     assert out["modules"] >= 75
     assert PARALLEL_MODULES <= set(out["names"])
     assert ANALYSIS_MODULES <= set(out["names"])
+    assert EXAMPLE_MODULES <= set(out["names"])
     assert out["bad"] == [], f"the port imported {out['bad']}"
+
+
+def test_examples_and_scripts_load_no_jax():
+    """Every example and record script, imported in a fresh interpreter,
+    leaves jax and the JAX package out of ``sys.modules``."""
+    code = ("import importlib, json, sys; [importlib.import_module(m) for m "
+            f"in {sorted(EXAMPLE_MODULES)!r}]; "
+            "print(json.dumps(sorted(k for k in "
+            "sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
+            "'repro'))))")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout) == []
 
 
 def test_parallel_entry_points_load_no_jax():

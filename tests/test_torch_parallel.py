@@ -23,6 +23,7 @@ from repro.configs import ARCHS
 from repro.models import factory as ref_factory
 from repro_torch.configs import get_arch
 from repro_torch.models import factory, lm
+from repro_torch.models import blocks
 from repro_torch.models.blocks import layer_pattern
 from repro_torch.models.config import ShapeConfig
 from repro_torch import parallel as par
@@ -284,15 +285,20 @@ def test_abstract_params_and_caches_of_a_rank(meshes, name):
     assert sum(math.prod(t.shape) for t in fsdp.values()) * n_data <= \
         1.01 * sum(math.prod(t.shape) for t in mine.values())
     caches = factory.abstract_caches(cfg, 2, 64, mesh=mesh)
+    block = sharding.cache_block(cfg, mesh, 2, 64)
     for c, w in zip(caches, factory.abstract_caches(cfg, 2, 64)):
         if c is None:
             continue
-        pairs = ([("attn", k, c[k], w[k]) for k in c] if isinstance(c, dict)
-                 else [("mamba", k, c[i], w[i])
-                       for i, k in enumerate(("conv", "ssm"))])
-        for kind, k, a, b in pairs:
-            lay = sharding.cache_layout(cfg, kind, k, axis.size)
-            assert tuple(a.shape) == lay.shape(b.shape, axis.rank)
+        if isinstance(c, dict):
+            for k in c:
+                assert tuple(c[k].shape) == (block.rows, block.length,
+                                             len(block.heads),
+                                             w[k].shape[3])
+            continue
+        for i, k in enumerate(("conv", "ssm")):
+            lay = sharding.state_layout(cfg, k, axis.size)
+            want = (block.rows, *w[i].shape[1:])
+            assert tuple(c[i].shape) == lay.shape(want, axis.rank)
 
 
 @pytest.mark.parametrize("name", list(ARCHS))
@@ -327,6 +333,89 @@ def test_fsdp_blocks_follow_the_reference_order(meshes, name):
             name == "qwen2.5-3b":
         assert set(dep) == {"stack/0/attn/bq", "stack/0/attn/bk",
                             "stack/0/attn/bv"}
+
+
+CACHE_MESHES = [((1, 2), ("data", "model")), *MESHES]
+
+
+def _spec_block(s, shape, mesh, coord) -> list:
+    """``(start, length)`` of each dim of ``shape`` in the block of spec
+    ``s`` at mesh coordinates ``coord``."""
+    out = []
+    for n, e in zip(shape, list(s) + [None] * (len(shape) - len(s))):
+        idx, count = sharding.block_index(e, mesh, coord)
+        out.append((idx * (n // count), n // count))
+    return out
+
+
+@pytest.mark.parametrize("mesh_shape,axes", CACHE_MESHES,
+                         ids=["1x2"] + MESH_IDS)
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_cache_blocks_equal_the_reference_specs(name, mesh_shape, axes):
+    """At full width, on every rank of each mesh: the decode caches
+    ``init_caches`` makes for the rank's ``cache_block`` are the block of
+    the reference's ``cache_pspecs`` over its ``abstract_caches`` (rows,
+    positions and kv heads, where each starts and how many), for a batch
+    that divides the data axes and a batch of 1, over a length every
+    group divides and one (96) that the largest groups do not.  The one
+    departure, L left whole with the kv heads of the rank's query heads
+    where the spec holds every head, shows only at that length and a
+    batch of 1."""
+    from types import SimpleNamespace
+    cfg, rcfg = get_arch(name), ARCHS[name]
+    mesh = SimpleNamespace(mesh_dim_names=axes, shape=mesh_shape)
+    amesh = AbstractMesh(mesh_shape, axes)
+    n_data = math.prod(mesh_shape[:-1])
+    R = mesh_shape[-1]
+    Pn = len(layer_pattern(cfg))
+    for B, L in ((2 * n_data, 4096), (1, 4096), (1, 96)):
+        specs = ref.cache_pspecs(ref_factory.abstract_caches(rcfg, B, L),
+                                 amesh)
+        shapes = [None if c is None else
+                  {k: tuple(v.shape)[1:] for k, v in c.items()}
+                  if isinstance(c, dict) else [tuple(v.shape)[1:] for v in c]
+                  for c in ref_factory.abstract_caches(rcfg, B, L)]
+        seen, made = set(), {}
+        for coord in np.ndindex(*mesh_shape):
+            blk = sharding.cache_block(cfg, mesh, B, L, list(coord))
+            key = (blk.rows, len(blk.heads), blk.length)
+            if key not in made:
+                tp = None if R == 1 else sharding.ModelAxis(None, R, 0)
+                made[key] = blocks.init_caches(cfg, blk.rows, L,
+                                               torch.device("meta"), tp,
+                                               cache=blk)
+            for i, c in enumerate(made[key]):
+                w, shp = specs[i % Pn], shapes[i % Pn]
+                if w is None:
+                    assert c is None
+                    continue
+                if isinstance(w, dict):
+                    want = _spec_block(tuple(w["k"])[1:], shp["k"], mesh,
+                                       coord)
+                    got = [(blk.row0, blk.rows), (blk.lo, blk.length),
+                           (blk.heads[0], len(blk.heads)),
+                           (0, shp["k"][3])]
+                    for k in c:
+                        assert tuple(c[k].shape) == tuple(n for _, n in got)
+                    if got != want:
+                        seen.add("attn")
+                        assert got[0] == want[0] and got[1] == want[1] \
+                            == (0, L), (name, coord, got, want)
+                        h = sharding.head_split(cfg, R, coord[-1])
+                        assert want[2] == (0, cfg.n_kv_heads) \
+                            and blk.heads == h.kv
+                    continue
+                for j, (x, which) in enumerate(zip(c, ("conv", "ssm"))):
+                    want = _spec_block(tuple(w[j])[1:], shp[j], mesh, coord)
+                    lay = sharding.state_layout(cfg, which, R)
+                    got = [(blk.row0, blk.rows)] + [(0, n)
+                                                    for n in shp[j][1:]]
+                    if not lay.whole:
+                        got[lay.dim] = (lay.index[coord[-1]][0],
+                                        len(lay.index[coord[-1]]))
+                    assert got == want, (name, which, coord, got, want)
+                    assert tuple(x.shape) == tuple(n for _, n in got)
+        assert not seen or (B, L) == (1, 96), (B, L)
 
 
 def test_exports_the_reference_names():

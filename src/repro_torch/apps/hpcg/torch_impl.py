@@ -24,6 +24,7 @@ from typing import Literal
 import torch
 import torch.nn.functional as F
 
+from ... import spans
 from ...comm import collectives, message_based
 from ...comm.topology import RankGrid
 from ...kernels.halo_exchange import ops as halo_ops
@@ -54,6 +55,7 @@ def from_slabs(blocks: torch.Tensor) -> torch.Tensor:
     return blocks.reshape(-1, *blocks.shape[2:])
 
 
+@spans.spanned("hpcg.exchange")
 def _exchange(blocks, backend: Backend):
     below, above = _EXCHANGE[backend](blocks)
     below[0] = 0.0                         # Dirichlet: rank 0 has no below
@@ -74,6 +76,7 @@ def _apply_a_padded(p):
     return acc  # diag 26 = 27 - own contribution
 
 
+@spans.spanned("hpcg.apply_a")
 def apply_a(blocks, backend: Backend):
     """y = A x with one ghost-plane exchange along the distributed z axis.
 
@@ -111,16 +114,18 @@ def prolong(coarse, fine_shape):
 
 def v_cycle(rhs, backend: Backend, level: int = 0):
     """Multigrid V-cycle preconditioner M^-1 applied to ``rhs``."""
-    local = rhs.shape[1:]
-    x = smooth(torch.zeros_like(rhs), rhs, backend, PRE_SMOOTH)
-    if level < N_LEVELS - 1 and min(local) >= 4:
-        r = rhs - apply_a(x, backend)
-        xc = v_cycle(restrict(r), backend, level + 1)
-        x = x + prolong(xc, local)
-        x = smooth(x, rhs, backend, POST_SMOOTH)
-    return x
+    with spans.span(f"hpcg.v_cycle.L{level}"):
+        local = rhs.shape[1:]
+        x = smooth(torch.zeros_like(rhs), rhs, backend, PRE_SMOOTH)
+        if level < N_LEVELS - 1 and min(local) >= 4:
+            r = rhs - apply_a(x, backend)
+            xc = v_cycle(restrict(r), backend, level + 1)
+            x = x + prolong(xc, local)
+            x = smooth(x, rhs, backend, POST_SMOOTH)
+        return x
 
 
+@spans.spanned("hpcg.pdot")
 def _pdot(a, b):
     """Global dot product: each rank's ``vdot``, then the sum over ranks
     in rank order (the ``psum``)."""
@@ -140,6 +145,7 @@ def make_cg(grid: RankGrid, backend: Backend = "message_based",
         raise ValueError(f"unknown backend {backend!r}")
     n = grid.size
 
+    @spans.spanned("hpcg.solve")
     def solve(b, x0):
         b = to_slabs(b, n, grid.device)
         x = to_slabs(x0, n, grid.device)

@@ -17,6 +17,7 @@ from typing import Literal
 import torch
 import torch.nn.functional as F
 
+from ... import spans
 from ...comm import message_based, message_free
 from ...comm.topology import RankGrid
 
@@ -42,6 +43,7 @@ def from_tiles(tiles: torch.Tensor) -> torch.Tensor:
     return tiles.permute(0, 2, 1, 3).reshape(px * h, py * w)
 
 
+@spans.spanned("heat.update")
 def _step_local(tiles, halos):
     """One Jacobi update of every rank's tile given its received halos.
 
@@ -71,11 +73,16 @@ def make_step(grid: RankGrid, backend: Backend = "message_based"):
         raise ValueError(f"unknown backend {backend!r}")
     comm = message_based if backend == "message_based" else message_free
 
+    @spans.spanned("heat.step")
     def step(tiles: torch.Tensor) -> torch.Tensor:
         if tiles.shape[:2] != (grid.px, grid.py):
             raise ValueError(f"tiles {tuple(tiles.shape)} are not on a "
                              f"{grid.px}x{grid.py} grid")
-        return _step_local(tiles, comm.exchange_halos_2d(tiles))
+        # the span wraps the call, not the module's function, which a
+        # caller may swap
+        with spans.span("heat.exchange"):
+            halos = comm.exchange_halos_2d(tiles)
+        return _step_local(tiles, halos)
 
     return step
 

@@ -11,7 +11,7 @@ import functools
 
 import torch
 
-from . import collectives
+from . import collectives, counters
 from .topology import shift_perm
 
 
@@ -55,6 +55,7 @@ def exchange_halos_2d(tiles: torch.Tensor):
     south = ppermute(top, 0, shift_perm(nx, -1), rank_axes=2)
     west = ppermute(right, 1, shift_perm(ny, +1), rank_axes=2)
     east = ppermute(left, 1, shift_perm(ny, -1), rank_axes=2)
+    counters.count("halos_2d", "message_based", (north, south, west, east))
     return north, south, west, east
 
 
@@ -67,4 +68,5 @@ def exchange_planes_1d(blocks: torch.Tensor):
     n = blocks.shape[0]
     below = ppermute(blocks[:, -1:], 0, shift_perm(n, +1))
     above = ppermute(blocks[:, :1], 0, shift_perm(n, -1))
+    counters.count("planes_1d", "message_based", (below, above))
     return below, above

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from . import counters
+
 
 def _shifted(n: int, delta: int, device) -> torch.Tensor:
     """``(i + delta) % n`` for every rank i."""
@@ -51,7 +53,9 @@ def read_halos_2d(row_window: torch.Tensor, col_window: torch.Tensor):
 
 def exchange_halos_2d(tiles: torch.Tensor):
     """publish + read: the full message-free exchange."""
-    return read_halos_2d(*publish_boundaries_2d(tiles))
+    halos = read_halos_2d(*publish_boundaries_2d(tiles))
+    counters.count("halos_2d", "message_free", halos)
+    return halos
 
 
 def exchange_planes_1d(blocks: torch.Tensor):
@@ -63,4 +67,6 @@ def exchange_planes_1d(blocks: torch.Tensor):
     window = torch.stack([blocks[:, 0], blocks[:, -1]], dim=1)  # (n, 2, ...)
     below = window[_shifted(n, -1, blocks.device), 1]
     above = window[_shifted(n, +1, blocks.device), 0]
-    return below[:, None], above[:, None]
+    planes = below[:, None], above[:, None]
+    counters.count("planes_1d", "message_free", planes)
+    return planes

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from ...comm import message_free
+from ...comm import counters, message_free
 from .. import _plan
 from . import halo_exchange as _cuda
 from .ref import ring_exchange_collective, ring_halo_exchange_ref
@@ -265,11 +265,15 @@ def exchange_planes_1d(blocks: torch.Tensor):
     """(below, above) boundary planes from the ring neighbours, each
     ``(n, 1, ...)`` for ``blocks`` of ``(n, nz, ...)``: the drop-in
     message-free counterpart of ``comm.message_based.exchange_planes_1d``.
+    Counted in ``comm.counters`` once: here on the card, by
+    ``comm.message_free`` on the CPU.
     """
     if blocks.device.type == "cpu":
         return message_free.exchange_planes_1d(blocks)
     from_prev, from_next = ring_halo_exchange(blocks[:, 0], blocks[:, -1])
-    return from_prev[:, None], from_next[:, None]
+    planes = from_prev[:, None], from_next[:, None]
+    counters.count("planes_1d", "message_free", planes)
+    return planes
 
 
 def exchange_planes_1d_oracle(blocks: torch.Tensor):

@@ -43,6 +43,10 @@ ANALYSIS_MODULES = {"repro_torch.lint", "repro_torch.analysis",
                     "repro_torch.kernels._plan"}
 
 
+#: The program's spans and exchange counters: the probe must import each.
+TRACING_MODULES = {"repro_torch.spans", "repro_torch.comm.counters"}
+
+
 #: The port's examples and record scripts: the probe must import each.
 EXAMPLE_MODULES = {f"repro_torch.examples.{n}" for n in (
     "quickstart", "sweep_quickstart", "stencil_advisor", "hpcg_analysis",
@@ -60,6 +64,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert PARALLEL_MODULES <= set(out["names"])
     assert ANALYSIS_MODULES <= set(out["names"])
     assert EXAMPLE_MODULES <= set(out["names"])
+    assert TRACING_MODULES <= set(out["names"])
     assert out["bad"] == [], f"the port imported {out['bad']}"
 
 

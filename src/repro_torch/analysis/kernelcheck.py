@@ -344,6 +344,29 @@ def check_halo_exchange(case: dict) -> KernelReport:
 
 
 # --------------------------------------------------------------------------
+# stencil27: HPCG's 27-point operator
+# --------------------------------------------------------------------------
+
+_STENCIL_CASES = tuple(
+    # the main path: the V-cycle's four levels of the 8 x 256^3 HPCG, in
+    # float64 (the benchmark's) and float32 (its control's)
+    {"n": 8, "slab": (s, s, s), "dtype": dtype}
+    for dtype in ("float64", "float32") for s in (256, 128, 64, 32)) + (
+    # ragged tiles in y and x, one run and several
+    {"n": 3, "slab": (5, 7, 9), "dtype": "float64"},
+    {"n": 8, "slab": (2, 3, 33), "dtype": "float32"},
+)
+
+
+@register_kernel_checker("stencil27", _STENCIL_CASES,
+                         dataflow="repro_torch.kernels.stencil27.ops")
+def check_stencil27(case: dict) -> KernelReport:
+    from ..kernels.stencil27 import ops
+    return report("stencil27", case, ops.case_plan(case),
+                  dtype=case["dtype"])
+
+
+# --------------------------------------------------------------------------
 # Driver
 # --------------------------------------------------------------------------
 

@@ -16,6 +16,12 @@ CUDA kernel in which each rank's CTAs write its boundary planes straight
 into its neighbours' receive windows under a flag handshake; on the CPU it
 is the shared-window emulation of ``comm.message_free``.  The exchanged
 planes are copies either way, so both backends give bit-identical results.
+
+The operator itself goes through ``kernels.stencil27.ops.apply_27pt``: on
+the card one CUDA kernel reads each slab and its two ghost planes and
+writes ``y`` once; on the CPU it is the plain ``cat``, pad and
+``apply_a_padded`` of ``kernels.stencil27.ref``, which the kernel equals
+bit for bit.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from ... import spans
 from ...comm import collectives, message_based
 from ...comm.topology import RankGrid
 from ...kernels.halo_exchange import ops as halo_ops
+from ...kernels.stencil27 import ops as stencil_ops
+from ...kernels.stencil27.ref import apply_a_padded
 
 Backend = Literal["message_based", "message_free"]
 N_LEVELS = 4
@@ -63,19 +71,6 @@ def _exchange(blocks, backend: Backend):
     return below, above
 
 
-def _apply_a_padded(p):
-    """27-point operator on ``(..., nz+2, ny+2, nx+2)`` zero/halo-padded
-    blocks (the sum runs in the reference's order, in place)."""
-    Z, Y, X = p.shape[-3:]
-    acc = 27.0 * p[..., 1:-1, 1:-1, 1:-1]
-    for dz in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                acc.sub_(p[..., 1 + dz: Z - 1 + dz, 1 + dy: Y - 1 + dy,
-                           1 + dx: X - 1 + dx])
-    return acc  # diag 26 = 27 - own contribution
-
-
 @spans.spanned("hpcg.apply_a")
 def apply_a(blocks, backend: Backend):
     """y = A x with one ghost-plane exchange along the distributed z axis.
@@ -83,8 +78,7 @@ def apply_a(blocks, backend: Backend):
     This is the call-site the paper's model scores (one receive per
     neighbour per sweep)."""
     below, above = _exchange(blocks, backend)
-    z_padded = torch.cat([below, blocks, above], dim=1)
-    return _apply_a_padded(F.pad(z_padded, (1, 1, 1, 1)))
+    return stencil_ops.apply_27pt(blocks, below, above)
 
 
 def smooth(blocks, rhs, backend: Backend, n_iter: int):
@@ -170,7 +164,7 @@ def make_cg(grid: RankGrid, backend: Backend = "message_based",
 
 def reference_apply_a(x: torch.Tensor) -> torch.Tensor:
     """Single-program oracle for A (Dirichlet zero padding)."""
-    return _apply_a_padded(F.pad(x, (1, 1, 1, 1, 1, 1)))
+    return apply_a_padded(F.pad(x, (1, 1, 1, 1, 1, 1)))
 
 
 def make_problem(shape, dtype=torch.float32, device="cuda") -> torch.Tensor:

@@ -17,6 +17,8 @@ version that CPU tensors run.
                   LM's attention with ``use_kernel``
   mamba_scan/     the Mamba-1 selective scan, the LM's SSM mixer with
                   ``use_kernel``
+  stencil27/      HPCG's 27-point operator: one pass over each z-slab
+                  rank and its two ghost planes (``apply_a`` on the card)
 
 ``_build`` compiles each ``csrc/*.cu`` with ``nvcc`` and loads it with
 ``ctypes``.

@@ -30,7 +30,7 @@ from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.sweep_bracket import ops as sb_ops
 
 ALL_KERNELS = {"sweep_bracket", "segment_sum", "flash_attention",
-               "mamba_scan", "halo_exchange"}
+               "mamba_scan", "halo_exchange", "stencil27"}
 
 
 def errors(rep) -> set:

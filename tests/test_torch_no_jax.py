@@ -47,6 +47,13 @@ ANALYSIS_MODULES = {"repro_torch.lint", "repro_torch.analysis",
 TRACING_MODULES = {"repro_torch.spans", "repro_torch.comm.counters"}
 
 
+#: The 27-point operator's kernel package: the probe must import each.
+STENCIL_MODULES = {"repro_torch.kernels.stencil27",
+                   "repro_torch.kernels.stencil27.ops",
+                   "repro_torch.kernels.stencil27.ref",
+                   "repro_torch.kernels.stencil27.stencil27"}
+
+
 #: The port's examples and record scripts: the probe must import each.
 EXAMPLE_MODULES = {f"repro_torch.examples.{n}" for n in (
     "quickstart", "sweep_quickstart", "stencil_advisor", "hpcg_analysis",
@@ -65,6 +72,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert ANALYSIS_MODULES <= set(out["names"])
     assert EXAMPLE_MODULES <= set(out["names"])
     assert TRACING_MODULES <= set(out["names"])
+    assert STENCIL_MODULES <= set(out["names"])
     assert out["bad"] == [], f"the port imported {out['bad']}"
 
 

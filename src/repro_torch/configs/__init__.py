@@ -1,7 +1,8 @@
 """Assigned-architecture registry: ``--arch <id>`` resolves here.
 
-A copy of the JAX package's ``configs/``: every arch file is the same
-published configuration.
+The JAX package's ``configs/``, every arch file the same published
+configuration, plus the archs only the port runs (:data:`PORT_ONLY`: their
+configs set fields the JAX package lacks, ``ArchConfig.port_only``).
 
 Each module defines ``CONFIG`` (the exact published configuration); the
 reduced smoke config of the same family comes from ``ArchConfig.reduced()``.
@@ -11,12 +12,15 @@ from __future__ import annotations
 from ..models.config import ArchConfig, SHAPES, ShapeConfig
 from . import (deepseek_67b, phi3_medium_14b, qwen2_5_3b, gemma_7b,
                phi3_5_moe, llama4_maverick, jamba_v0_1, falcon_mamba_7b,
-               internvl2_2b, musicgen_medium)
+               internvl2_2b, musicgen_medium, granite_4_0_h_small)
 
 ARCHS: dict = {m.CONFIG.name: m.CONFIG for m in (
     deepseek_67b, phi3_medium_14b, qwen2_5_3b, gemma_7b,
     phi3_5_moe, llama4_maverick, jamba_v0_1, falcon_mamba_7b,
-    internvl2_2b, musicgen_medium)}
+    internvl2_2b, musicgen_medium, granite_4_0_h_small)}
+
+#: The archs with no JAX counterpart.
+PORT_ONLY = frozenset(n for n, c in ARCHS.items() if c.port_only())
 
 #: Families with sub-quadratic sequence handling — the only ones that run
 #: the long_500k cell (full-attention archs skip it per the assignment).

@@ -76,7 +76,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-from ..configs import ARCHS, SHAPES, cell_applicable, get_arch, get_shape
+from ..configs import (ARCHS, PORT_ONLY, SHAPES, cell_applicable, get_arch,
+                       get_shape)
 from ..core import analytic, graph
 from ..core.hlo import RooflineTerms
 from ..core.params import H100
@@ -403,8 +404,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     pods = [False, True] if args.both_meshes else [args.multi_pod]
-    archs = list(ARCHS.values()) if args.arch == "all" \
-        else [get_arch(args.arch)]
+    # "all": the archs of the JAX package's dry run (a port-only arch runs
+    # whole on one device: configs.PORT_ONLY)
+    archs = [c for n, c in ARCHS.items() if n not in PORT_ONLY] \
+        if args.arch == "all" else [get_arch(args.arch)]
     shapes = list(SHAPES.values()) if args.shape == "all" \
         else [get_shape(args.shape)]
 

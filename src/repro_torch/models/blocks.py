@@ -1,6 +1,15 @@
 """Layer-pattern machinery: every assigned architecture is a stack of
-``n_layers`` layers, each layer = mixer (attention | mamba | none) + FFN
-(dense | MoE | none), all pre-norm residual.
+``n_layers`` layers, each layer = mixer (attention | mamba | mamba2 |
+none) + FFN (dense | MoE | none), all pre-norm residual.  The mixer kind
+``mamba2`` (``models.mamba2``, ``cfg.ssm_version == 2``) and an MoE with
+a shared expert are the port's alone (``ArchConfig.port_only``), as is
+``cfg.residual_multiplier``, which scales what each half of a layer adds
+to the residual; a Mamba-2 layer runs whole on one device (no ``mesh``
+model axis, no ``seq``).
+
+Spans (``repro_torch.spans``): ``lm.attn`` around an attention mixer,
+``lm.mamba2`` around a Mamba-2 mixer, ``lm.moe`` around an MoE FFN (the
+router, the routed experts and a shared expert).
 
 The JAX package finds the smallest repeating *pattern* of layers and
 compiles the stack as a ``lax.scan`` over homogeneous super-blocks, its
@@ -40,14 +49,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..parallel import fsdp, sharding
-from . import layers, mamba, moe
+from . import layers, mamba, mamba2, moe
 from .config import ArchConfig
 
 
 @dataclass(frozen=True)
 class LayerSpec:
-    mixer: str          # "attn" | "mamba" | "none"
+    mixer: str          # "attn" | "mamba" | "mamba2" (port only) | "none"
     ffn: str            # "dense" | "moe" | "none"
 
 
@@ -58,7 +68,7 @@ def layer_specs(cfg: ArchConfig) -> tuple:
         if cfg.is_attn_layer(i):
             mixer = "attn"
         elif cfg.ssm_state:
-            mixer = "mamba"
+            mixer = "mamba2" if cfg.ssm_version == 2 else "mamba"
         else:
             raise ValueError(f"layer {i} of {cfg.name} has no mixer")
         if cfg.d_ff == 0:
@@ -107,6 +117,9 @@ def init_layer(cfg: ArchConfig, spec: LayerSpec, gen: torch.Generator,
     elif spec.mixer == "mamba":
         p.update(mixer_norm=ones("mixer_norm"),
                  mamba=mamba.init_mamba(cfg, gen, keep))
+    elif spec.mixer == "mamba2":
+        p.update(mixer_norm=ones("mixer_norm"),
+                 mamba2=mamba2.init_mamba2(cfg, gen, keep))
     if spec.ffn == "dense":
         p.update(ffn_norm=ones("ffn_norm"),
                  mlp=layers.init_mlp(cfg, gen, keep=keep))
@@ -125,6 +138,19 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator,
 
 
 # -------------------------------------------------------------------- apply
+def _add(x, out, cfg: ArchConfig):
+    """The residual: ``x + out``, ``out`` scaled by
+    ``cfg.residual_multiplier`` where that is not 1."""
+    m = cfg.residual_multiplier
+    return x + out if m == 1.0 else x + out * m
+
+
+def _mamba2_alone(cfg: ArchConfig, tp, seq):
+    if seq is not None or tp is not None:
+        raise NotImplementedError(f"{cfg.name}: a Mamba-2 layer runs whole "
+                                  "on one device (no model axis, no seq)")
+
+
 def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
          per_row: bool = False, mesh=None, seq=None,
          replicated: bool = False, need_aux: bool = True):
@@ -132,14 +158,15 @@ def _ffn(p, spec: LayerSpec, x, cfg: ArchConfig, moe_impl: str,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "dense":
         h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + layers.mlp_block(p["mlp"], h, cfg,
-                                 tp=sharding.model_axis(mesh))
+        x = _add(x, layers.mlp_block(p["mlp"], h, cfg,
+                                     tp=sharding.model_axis(mesh)), cfg)
     elif spec.ffn == "moe":
-        h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl,
-                             per_row=per_row, mesh=mesh, seq=seq,
-                             replicated=replicated, need_aux=need_aux)
-        x = x + y
+        with spans.span("lm.moe"):
+            h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+            y, aux = moe.moe_ffn(p["moe"], h, cfg, impl=moe_impl,
+                                 per_row=per_row, mesh=mesh, seq=seq,
+                                 replicated=replicated, need_aux=need_aux)
+            x = _add(x, y, cfg)
     return x, aux
 
 
@@ -147,13 +174,21 @@ def _apply_layer(p, spec: LayerSpec, x, cfg: ArchConfig, positions,
                  use_kernel: bool, moe_impl: str, mesh=None, seq=None):
     tp = sharding.model_axis(mesh)
     if spec.mixer == "attn":
-        h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-        x = x + layers.attention_block(p["attn"], h, cfg, positions,
-                                       use_kernel=use_kernel, tp=tp, seq=seq)
+        with spans.span("lm.attn"):
+            h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+            x = _add(x, layers.attention_block(
+                p["attn"], h, cfg, positions, use_kernel=use_kernel, tp=tp,
+                seq=seq), cfg)
     elif spec.mixer == "mamba":
         h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-        x = x + mamba.mamba_block(p["mamba"], h, cfg, use_kernel=use_kernel,
-                                  tp=tp, seq=seq)
+        x = _add(x, mamba.mamba_block(p["mamba"], h, cfg,
+                                      use_kernel=use_kernel, tp=tp, seq=seq),
+                 cfg)
+    elif spec.mixer == "mamba2":
+        _mamba2_alone(cfg, tp, seq)
+        with spans.span("lm.mamba2"):
+            h = layers.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+            x = _add(x, mamba2.mamba2_block(p["mamba2"], h, cfg), cfg)
     return _ffn(p, spec, x, cfg, moe_impl, mesh=mesh, seq=seq)
 
 
@@ -198,7 +233,8 @@ def stack_apply(stack, x, cfg: ArchConfig, positions=None,
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
                 tp=None, seq=None, cache=None):
     """Zeroed decode caches, one entry per layer: attention -> {"k": (B,
-    max_len, Hkv, D), "v": ...}; mamba -> MambaState; FFN-only -> None.
+    max_len, Hkv, D), "v": ...}; mamba -> MambaState; mamba2 ->
+    Mamba2State; FFN-only -> None.
     ``batch`` is the rows this rank holds.  With ``tp`` (a
     ``sharding.ModelAxis``): the mamba states' channels of this rank, and
     the attention caches' kv heads its query heads read; with ``cache`` (a
@@ -223,6 +259,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
                            "v": torch.zeros(shape, dtype=dt, device=device)})
         elif spec.mixer == "mamba":
             caches.append(mamba.init_mamba_state(cfg, batch, device, tp))
+        elif spec.mixer == "mamba2":
+            _mamba2_alone(cfg, tp, seq)
+            caches.append(mamba2.init_mamba2_state(cfg, batch, device))
         else:
             caches.append(None)
     return caches
@@ -247,11 +286,12 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
     for layer in map(fsdp.view, stack):
         spec = layer.spec
         if spec.mixer == "attn":
-            h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
-            out, k, v = layers.attention_prefill(layer["attn"], h, cfg,
-                                                 use_kernel, tp, seq,
-                                                 positions, cache)
-            x = x + out
+            with spans.span("lm.attn"):
+                h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+                out, k, v = layers.attention_prefill(layer["attn"], h, cfg,
+                                                     use_kernel, tp, seq,
+                                                     positions, cache)
+                x = _add(x, out, cfg)
             pad = (0, 0, 0, 0, 0, max_len - k.shape[1])
             k, v = F.pad(k, pad), F.pad(v, pad)
             if Lc != max_len:
@@ -262,7 +302,14 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, state = mamba.mamba_prefill(layer["mamba"], h, cfg,
                                              use_kernel, tp, seq)
-            x = x + out
+            x = _add(x, out, cfg)
+            caches.append(state)
+        elif spec.mixer == "mamba2":
+            _mamba2_alone(cfg, tp, seq)
+            with spans.span("lm.mamba2"):
+                h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+                out, state = mamba2.mamba2_prefill(layer["mamba2"], h, cfg)
+                x = _add(x, out, cfg)
             caches.append(state)
         else:
             caches.append(None)
@@ -272,29 +319,43 @@ def stack_prefill(stack, x, cfg: ArchConfig, max_len: int,
 
 
 def stack_decode(stack, caches, x, cfg: ArchConfig, pos,
-                 moe_impl: str = "scatter", mesh=None, seq=None, cache=None):
+                 moe_impl: str = "scatter", mesh=None, seq=None, cache=None,
+                 release: bool = False):
     """One step through the stack.  x: (B, S, d); ``pos`` an int (the write
     index of the whole batch) or a (B,) tensor (one per row).  Attention
     caches are written in place; returns (x, caches).  With a position per
     row, each row is a sequence of its own, so the MoE layers route each
     row on its own too (see ``models.moe``).  ``cache``: the attention
-    caches' ``sharding.CacheBlock``."""
+    caches' ``sharding.CacheBlock``.  ``release``: the caller hands the
+    list ``caches`` over, and each entry is set to ``None`` as its layer
+    runs, so that one layer's old state, not the stack's, is live beside
+    the new states."""
     per_row = torch.is_tensor(pos) and pos.ndim == 1
     tp = sharding.model_axis(mesh)
     new_caches = []
-    for layer, c in zip(map(fsdp.view, stack), caches):
-        spec = layer.spec
+    for i, layer in enumerate(map(fsdp.view, stack)):
+        spec, c = layer.spec, caches[i]
+        if release:
+            caches[i] = None
         if spec.mixer == "attn":
-            h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
-            out, ck, cv = layers.attention_decode(layer["attn"], h, cfg,
-                                                  c["k"], c["v"], pos, tp,
-                                                  seq, cache)
-            x = x + out
+            with spans.span("lm.attn"):
+                h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+                out, ck, cv = layers.attention_decode(
+                    layer["attn"], h, cfg, c["k"], c["v"], pos, tp, seq,
+                    cache)
+                x = _add(x, out, cfg)
             new_caches.append({"k": ck, "v": cv})
         elif spec.mixer == "mamba":
             h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
             out, state = mamba.mamba_decode(layer["mamba"], h, cfg, c, tp)
-            x = x + out
+            x = _add(x, out, cfg)
+            new_caches.append(state)
+        elif spec.mixer == "mamba2":
+            _mamba2_alone(cfg, tp, seq)
+            with spans.span("lm.mamba2"):
+                h = layers.rms_norm(x, layer["mixer_norm"], cfg.norm_eps)
+                out, state = mamba2.mamba2_decode(layer["mamba2"], h, cfg, c)
+                x = _add(x, out, cfg)
             new_caches.append(state)
         else:
             new_caches.append(None)

@@ -1,9 +1,18 @@
 """Architecture configuration covering all assigned families
 (dense / MoE / hybrid / SSM / VLM / audio LM backbones).
 
-A copy of the JAX package's ``models/config.py``: the same fields, defaults
-and ``reduced()``, so one config means the same model on both sides.  The
-port's forward reads every field that shapes the function.  ``remat``
+The JAX package's ``models/config.py`` with the same fields, defaults and
+``reduced()``, so one config means the same model on both sides, plus the
+fields only the port has (:data:`PORT_ONLY_FIELDS`): the Mamba-2 mixer
+(``ssm_version=2`` with ``ssm_heads``, ``ssm_head_dim``, ``ssm_groups``,
+``ssm_chunk``), a shared expert beside the routed ones (``shared_ff``),
+routing that drops no assignment (``moe_dropless``), attention with no
+positional encoding (``rope=False``) and a softmax scale of its own
+(``attn_scale``), and the embedding, residual and logits multipliers.  At
+their defaults they change nothing, so every config the JAX package has
+computes the same function in both; a config that sets one has no JAX
+counterpart (:meth:`ArchConfig.port_only`).  The port's forward reads
+every field that shapes the function.  ``remat``
 selects activation checkpointing under grad (each pattern period of the
 stack, as the JAX package's ``jax.checkpoint`` of its scanned block); it
 changes no value.  ``scan_layers`` (how the JAX package compiles the stack)
@@ -42,6 +51,20 @@ class ArchConfig:
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
+
+    # --- port only: Mamba-2, shared expert, multipliers (PORT_ONLY_FIELDS) --
+    ssm_version: int = 1           # 1 => Mamba-1; 2 => Mamba-2 (models.mamba2)
+    ssm_heads: int = 0             # Mamba-2 heads; heads * head_dim = d_inner
+    ssm_head_dim: int = 0
+    ssm_groups: int = 1            # B / C groups shared by the heads
+    ssm_chunk: int = 256           # Mamba-2 prefill's chunk length
+    shared_ff: int = 0             # width of a shared expert (0 => none)
+    moe_dropless: bool = False     # no assignment dropped (capacity T)
+    rope: bool = True              # False => no positional encoding (NoPE)
+    attn_scale: float = 0.0        # softmax scale; 0 => 1/sqrt(head_dim)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0    # logits divided by it
 
     # --- hybrid interleave (Jamba: attn every 8th layer, MoE every 2nd) -----
     attn_period: int = 0           # 0 => all layers attend (or none if n_heads=0)
@@ -109,6 +132,13 @@ class ArchConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
 
+    def port_only(self) -> tuple:
+        """The fields of :data:`PORT_ONLY_FIELDS` this config sets away
+        from their defaults: empty where the JAX package has the same
+        model."""
+        return tuple(f for f in PORT_ONLY_FIELDS
+                     if getattr(self, f) != _DEFAULTS[f])
+
     def is_attn_layer(self, layer: int) -> bool:
         if self.n_heads == 0:
             return False
@@ -132,7 +162,13 @@ class ArchConfig:
         """Smoke-test-sized config of the same family/topology."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
         n_kv = max(1, min(self.n_kv_heads, n_heads)) if n_heads else 0
-        return self.replace(
+        extra = {}
+        if self.ssm_version == 2:       # Mamba-2: heads of 16 channels
+            di = self.ssm_expand * d_model
+            extra = dict(ssm_head_dim=16, ssm_heads=di // 16, ssm_chunk=8)
+        if self.shared_ff:
+            extra["shared_ff"] = d_ff
+        return self.replace(**extra,
             name=self.name + "-smoke",
             n_layers=n_layers, d_model=d_model, d_ff=d_ff,
             vocab_size=vocab_size, vocab_pad=0,
@@ -147,6 +183,14 @@ class ArchConfig:
             frontend_dim=min(self.frontend_dim, 32) if self.frontend_dim else 0,
             img_seq=min(self.img_seq, 16) if self.img_seq else 0,
             dtype="float32", remat=False)
+
+
+#: The fields only the port has (module docstring).
+PORT_ONLY_FIELDS = ("ssm_version", "ssm_heads", "ssm_head_dim", "ssm_groups",
+                    "ssm_chunk", "shared_ff", "moe_dropless", "rope",
+                    "attn_scale", "embedding_multiplier",
+                    "residual_multiplier", "logits_scaling")
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ArchConfig)}
 
 
 @dataclass(frozen=True)

@@ -28,6 +28,12 @@ them back.  Under FSDP (a model built with ``fsdp=True``) a leaf's tensors
 are also cut over the data axes (``Leaf.fsdp``, a
 ``parallel.sharding.FsdpBlock`` of the executed ``model`` block): ``take``
 cuts both, ``gather`` gathers over the data axes, then over ``model``.
+
+A config with fields only the port has (``ArchConfig.port_only``) has no
+JAX counterpart: every conversion of its parameters or caches raises
+(:func:`need_reference`).  Such a model's parameters go to its plain
+float32 reference instead (:func:`plain_weights`, :func:`plain_cfg`;
+``models.ref_granite``).
 """
 from __future__ import annotations
 
@@ -40,6 +46,41 @@ from ..parallel import sharding, transport
 from .blocks import layer_pattern, n_blocks
 from .config import ArchConfig
 from .mamba import MambaState
+
+
+def need_reference(cfg: ArchConfig) -> None:
+    """Raise for a config that the JAX package cannot hold."""
+    extra = cfg.port_only()
+    if extra:
+        raise ValueError(
+            f"{cfg.name} has no JAX counterpart: the JAX package lacks "
+            f"{', '.join(extra)}; hold it to its plain reference "
+            "(convert.plain_weights) instead")
+
+
+def plain_weights(model) -> dict:
+    """The model's tensors as a plain reference takes them (the layout of
+    ``models.ref_granite``): ``embed`` (the tied table), ``final_norm`` and
+    each layer's tensors under their names in the layer
+    (``"mamba2.in_proj"``, ``"moe.w_gate"``), the tensors themselves, not
+    copies."""
+    return {"embed": model.embed["table"], "final_norm": model.final_norm,
+            "layers": [dict(layer.named_parameters())
+                       for layer in model.stack]}
+
+
+def plain_cfg(cfg: ArchConfig) -> dict:
+    """The sizes and multipliers a plain reference reads."""
+    return {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.resolved_head_dim,
+            "attention_multiplier": cfg.attn_scale
+            or cfg.resolved_head_dim ** -0.5,
+            "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
+            "ssm_groups": cfg.ssm_groups, "ssm_state": cfg.ssm_state,
+            "experts_per_token": cfg.experts_per_token, "eps": cfg.norm_eps,
+            "embedding_multiplier": cfg.embedding_multiplier,
+            "residual_multiplier": cfg.residual_multiplier,
+            "logits_scaling": cfg.logits_scaling}
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -201,6 +242,7 @@ def leaves_of(cfg: ArchConfig, named, axis=None) -> list:
     """:func:`reference_leaves` of ``(name, tensor)`` pairs named as the
     model's parameters (e.g. ``factory.abstract_params(cfg).items()``);
     ``axis``: the ``model`` axis whose rank's blocks they are."""
+    need_reference(cfg)
     P = len(layer_pattern(cfg))
     groups: dict = {}
     layouts: dict = {}
@@ -253,6 +295,7 @@ def params_from_jax(cfg: ArchConfig, tree, mesh=None,
     ``LanguageModel(cfg, ...)`` (load it with ``load_state_dict``); with a
     ``mesh``, of ``LanguageModel(cfg, ..., mesh=mesh, fsdp=fsdp)``: each
     tensor this rank's block."""
+    need_reference(cfg)
     flat = {}
     for key, value in tree.items():
         if key != "stack":
@@ -297,6 +340,7 @@ def caches_from_jax(cfg: ArchConfig, caches, mesh=None) -> list:
     attention caches' ``sharding.cache_block`` over the caches' batch and
     length, the mamba states' rows of it and channels
     (``sharding.state_layout``)."""
+    need_reference(cfg)
     P, nb = len(layer_pattern(cfg)), n_blocks(cfg)
     if len(caches) != P:
         raise ValueError(f"{cfg.name}: {len(caches)} cache entries, the "
@@ -348,6 +392,7 @@ def caches_to_jax(cfg: ArchConfig, caches, mesh=None, cache=None) -> list:
     over ``model`` where the rank holds its own, the mamba states'
     channels over ``model``, and the rows over the data axes where the
     batch is split.  With a ``mesh`` every rank of it calls it."""
+    need_reference(cfg)
     if mesh is not None and cache is None:
         raise ValueError("caches_to_jax over a mesh needs the rank's "
                          "CacheBlock (LanguageModel.cache_block)")

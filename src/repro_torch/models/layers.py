@@ -170,7 +170,9 @@ def _project_qkv(p, x, cfg: ArchConfig, positions, tp=None):
     """q (B, S, Hq, D) and k / v (B, S, Hkv, D): with ``tp``, this rank's
     query heads and the kv heads they read.  Where two ranks hold one kv
     head, its columns' gradients are summed over them
-    (``sharding.shared_grad``)."""
+    (``sharding.shared_grad``).  RoPE unless ``cfg.rope`` is off (NoPE);
+    a ``cfg.attn_scale`` is folded into q as ``attn_scale * sqrt(D)``, so
+    that the attention's ``1 / sqrt(D)`` gives it."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     heads = attn_heads(cfg, tp)
@@ -201,8 +203,11 @@ def _project_qkv(p, x, cfg: ArchConfig, positions, tp=None):
     q = q.reshape(B, S, nq, hd)
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.attn_scale:      # every path divides the scores by sqrt(hd)
+        q = q * (cfg.attn_scale * math.sqrt(hd))
     return q, k, v
 
 

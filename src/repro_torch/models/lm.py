@@ -6,6 +6,11 @@ all assigned families; the modality frontends (VLM patch embeddings, audio
 frame embeddings) are stubs — the backbone consumes precomputed embeddings
 provided in the batch.
 
+``cfg.embedding_multiplier`` scales the token embeddings and the logits
+are divided by ``cfg.logits_scaling`` (port only; 1 leaves them as they
+are).  ``decode_step`` runs inside the span ``lm.decode_step``
+(``repro_torch.spans``).
+
 Batch contracts (all values tensors on the model's device):
   * LM families:  {"tokens": (B, S) i32, "targets": (B, S) i32}
   * vlm:   {"tokens": (B, S_text), "image_embeds": (B, S_img, F),
@@ -21,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import spans
 from ..parallel import fsdp, sharding, transport
 from . import blocks, layers, moe
 from .config import ArchConfig
@@ -154,7 +160,9 @@ class LanguageModel(nn.Module):
             return torch.cat([img, txt], dim=1)
         if cfg.frontend == "audio":
             return batch["frame_embeds"].to(dt) @ fsdp.gather(self.frame_proj)
-        return layers.embed(embed, batch["tokens"], tp, lo)
+        x = layers.embed(embed, batch["tokens"], tp, lo)
+        m = cfg.embedding_multiplier
+        return x if m == 1.0 else x * m
 
     def _head_local(self, x):
         """This rank's logits: its vocab block (per codebook for audio)
@@ -167,9 +175,11 @@ class LanguageModel(nn.Module):
                 x = transport.sum_backward(x, tp.group)
             logits = x @ fsdp.gather(self.lm_heads)
             return logits.reshape(*x.shape[:-1], cfg.n_codebooks, -1)
-        return layers.unembed(fsdp.view(self.embed), x,
-                              vocab_size=cfg.vocab_size
-                              if cfg.vocab_pad else None, tp=tp, lo=lo)
+        logits = layers.unembed(fsdp.view(self.embed), x,
+                                vocab_size=cfg.vocab_size
+                                if cfg.vocab_pad else None, tp=tp, lo=lo)
+        s = cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
 
     def _head(self, x):
         """The whole logits: this rank's block gathered over ``model``."""
@@ -304,7 +314,7 @@ class LanguageModel(nn.Module):
         return self._head(x_last), caches
 
     def decode_step(self, caches, batch, pos, max_len: int | None = None,
-                    global_batch: int | None = None):
+                    global_batch: int | None = None, release: bool = False):
         """New tokens at ``pos``.  ``batch`` carries the inputs at those
         positions ({"tokens": (B, S)} or {"frame_embeds": (B, S, F)}, S = 1
         for ordinary decode); ``pos`` is the write index into the caches:
@@ -313,7 +323,15 @@ class LanguageModel(nn.Module):
         Decode runs the plain paths, as in the reference.  Under ``"tp"``
         with a mesh the caches are :meth:`cache_block` of ``max_len``
         positions (``None``: the caches' own length, L whole) and
-        ``global_batch``; a block that splits L takes an int ``pos``."""
+        ``global_batch``; a block that splits L takes an int ``pos``.
+        ``release``: the caller hands the list ``caches`` over
+        (``blocks.stack_decode``)."""
+        with spans.span("lm.decode_step"):
+            return self._decode_step(caches, batch, pos, max_len,
+                                     global_batch, release)
+
+    def _decode_step(self, caches, batch, pos, max_len, global_batch,
+                     release):
         x = self._embed_inputs(batch)
         cache = None
         attn = [c for c in caches if isinstance(c, dict)]
@@ -328,7 +346,7 @@ class LanguageModel(nn.Module):
                     f"({cache.length}); pass the whole length as max_len")
         x, caches = blocks.stack_decode(self.stack, caches, x, self.cfg, pos,
                                         moe_impl=self.moe_impl, cache=cache,
-                                        **self._mixers())
+                                        release=release, **self._mixers())
         return self._head(x), caches
 
     def init_caches(self, batch_size: int, max_len: int,

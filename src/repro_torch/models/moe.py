@@ -13,7 +13,20 @@ for their expert are dropped (their combine weight contributes nothing).
 Three details are pinned to the reference: top-k ties go to the lower
 expert index (as ``lax.top_k``), a token's rank within its expert follows
 the flat ``(T, k)`` order of the assignments, and dropped assignments are
-dropped on the way in and read back as zeros.
+dropped on the way in and read back as zeros.  Prefill and decode, which
+discard the aux loss, skip it (``need_aux=False``).
+
+With ``cfg.moe_dropless`` (port only) the capacity is ``T``, the most
+assignments an expert can get, so none is dropped; the experts' buffers
+are then ``E / k`` times the assignments, computed as rows of zeros.
+``cfg.shared_ff`` (port only) adds a shared SwiGLU expert of that width,
+applied to every token beside the routed ones (:func:`shared_expert`).
+
+Every dispatch counts its assignments and the dropped ones
+(:data:`assignments`, :data:`dropped`, read with :func:`snapshot` /
+:func:`since`): the assignments on the host from the shapes, the dropped
+ones summed on the device into a tensor that is read only when asked, so
+counting makes no host sync.  Fake tensors (a capture) count nothing.
 
 ``groups`` splits the T tokens into equal groups routed on their own: each
 group has its own capacity and its own ranks, as if each were a separate
@@ -49,10 +62,45 @@ import math
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..parallel import sharding, transport
 from .config import ArchConfig
 from .layers import Params, activation, dtype_of, normal, whole
+
+#: Routed assignments (tokens x experts per token) in this process.
+assignments = 0
+#: Dropped assignments, ``{device: 0-d int64 tensor}``, summed on the
+#: device.
+dropped: dict = {}
+
+
+def _count(keep) -> None:
+    """Count one dispatch's assignments, ``keep`` (T*k,) of them kept."""
+    global assignments
+    if isinstance(keep, FakeTensor) or keep.device.type == "meta":
+        return
+    assignments += keep.numel()
+    total = dropped.get(keep.device)
+    if total is None:
+        with torch.inference_mode(False):
+            total = dropped[keep.device] = torch.zeros(
+                (), dtype=torch.int64, device=keep.device)
+    total.add_((~keep).sum())
+
+
+def snapshot() -> tuple:
+    """The counters as they stand, for :func:`since` (a device copy of each
+    dropped total: no host sync)."""
+    return assignments, {d: t.clone() for d, t in dropped.items()}
+
+
+def since(before: tuple) -> tuple:
+    """(assignments, dropped) counted since ``before`` (:func:`snapshot`);
+    reading the dropped count waits for the device."""
+    n, totals = before
+    lost = sum(int(t - totals.get(d, 0)) for d, t in dropped.items())
+    return assignments - n, lost
 
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, keep=whole) -> Params:
@@ -70,7 +118,23 @@ def init_moe(cfg: ArchConfig, gen: torch.Generator, keep=whole) -> Params:
     w_up = keep("moe.w_up", normal(gen, (E, d, f), dt, s))
     w_down = keep("moe.w_down", normal(
         gen, (E, f, d), dt, 1.0 / math.sqrt(f) / math.sqrt(cfg.n_layers)))
-    return Params(router=router, w_gate=w_gate, w_up=w_up, w_down=w_down)
+    p = dict(router=router, w_gate=w_gate, w_up=w_up, w_down=w_down)
+    fs = cfg.shared_ff
+    if fs:
+        p.update(shared_gate=keep("moe.shared_gate",
+                                  normal(gen, (d, fs), dt, s)),
+                 shared_up=keep("moe.shared_up", normal(gen, (d, fs), dt, s)),
+                 shared_down=keep("moe.shared_down", normal(
+                     gen, (fs, d), dt,
+                     1.0 / math.sqrt(fs) / math.sqrt(cfg.n_layers))))
+    return Params(**p)
+
+
+def shared_expert(p, x, cfg: ArchConfig):
+    """The shared expert: ``W_down(silu(x W_gate) * x W_up)`` on every
+    token."""
+    return (activation(cfg, x @ p["shared_gate"]) * (x @ p["shared_up"])) \
+        @ p["shared_down"]
 
 
 def expert_block(cfg: ArchConfig, mesh) -> slice | None:
@@ -95,6 +159,11 @@ def _model_size(mesh) -> int:
 
 
 def capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Assignments each expert keeps of ``n_tokens`` tokens: ``n_tokens``
+    itself where the config drops none (an expert gets at most one of a
+    token's ``k`` assignments)."""
+    if cfg.moe_dropless:
+        return n_tokens
     c = int(math.ceil(cfg.capacity_factor * n_tokens
                       * cfg.experts_per_token / cfg.n_experts))
     return max(8, -(-c // 8) * 8)   # round up to a multiple of 8
@@ -147,7 +216,15 @@ def _group_of(T: int, k: int, groups: int, device):
         T // groups * k)
 
 
-def moe_ffn_dense(p, x, cfg: ArchConfig, groups: int = 1):
+def _aux(logits, topi, cfg: ArchConfig, need: bool):
+    """The aux loss, or 0 where it is not used (prefill, decode)."""
+    if need:
+        return aux_load_balance_loss(logits, topi, cfg)
+    return logits.new_zeros(())
+
+
+def moe_ffn_dense(p, x, cfg: ArchConfig, groups: int = 1,
+                  need_aux: bool = True):
     """One-hot einsum dispatch (oracle).  x: (T, d)."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
@@ -157,6 +234,7 @@ def moe_ffn_dense(p, x, cfg: ArchConfig, groups: int = 1):
     flat_e, onehot, rank = _ranks(topi, E, groups)
     onehot = onehot.float()                                      # (T*k, E)
     keep = rank < C
+    _count(keep)
     # column g * C + rank of the experts' (G * C)-row buffers
     col = _group_of(T, k, groups, x.device) * C + rank
     slots = torch.arange(groups * C, device=x.device)
@@ -169,11 +247,12 @@ def moe_ffn_dense(p, x, cfg: ArchConfig, groups: int = 1):
     back = torch.einsum("tec,ecd->td", disp, out.float())
     back = back * topw.reshape(-1)[:, None]
     y = back.reshape(T, k, d).sum(1).to(x.dtype)
-    return y, aux_load_balance_loss(logits, topi, cfg)
+    return y, _aux(logits, topi, cfg, need_aux)
 
 
 # ----------------------------------------------------------------- scatter
-def moe_ffn_scatter(p, x, cfg: ArchConfig, groups: int = 1):
+def moe_ffn_scatter(p, x, cfg: ArchConfig, groups: int = 1,
+                    need_aux: bool = True):
     """Rank-within-expert scatter/gather dispatch (production path)."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
@@ -183,6 +262,7 @@ def moe_ffn_scatter(p, x, cfg: ArchConfig, groups: int = 1):
 
     flat_e, _, rank = _ranks(topi, E, groups)
     keep = rank < C
+    _count(keep)
     col = _group_of(T, k, groups, x.device) * C + rank
     slot = torch.where(keep, flat_e * GC + col, E * GC)          # E*GC: drop
 
@@ -194,7 +274,7 @@ def moe_ffn_scatter(p, x, cfg: ArchConfig, groups: int = 1):
     gathered = torch.cat([out, out.new_zeros((1, d))])[slot]     # drop -> 0
     back = gathered.float() * topw.reshape(-1)[:, None] * keep[:, None]
     y = back.reshape(T, k, d).sum(1).to(x.dtype)
-    return y, aux_load_balance_loss(logits, topi, cfg)
+    return y, _aux(logits, topi, cfg, need_aux)
 
 
 # ---------------------------------------------------------------- ep_local
@@ -240,6 +320,7 @@ def moe_ffn_ep_local(p, x, cfg: ArchConfig, mesh=None):
     aux = aux_load_balance_loss(logits, topi, cfg)
     C = capacity(cfg, T)                   # per data shard: local tokens
     flat_e, _, rank_in_e = _ranks(topi, E, 1)
+    _count(rank_in_e < C)
     local = (flat_e >= lo) & (flat_e < lo + E_loc) & (rank_in_e < C)
     slot = torch.where(local, (flat_e - lo) * C + rank_in_e, E_loc * C)
 
@@ -308,6 +389,7 @@ def moe_ffn_seq(p, x, cfg: ArchConfig, impl: str, seq,
     C = capacity(cfg, tokens)
     flat_e, onehot, local = _ranks(topi, E, 1)
     keep = ranks < C
+    _count(keep)
     Cl = min(C, T * k)                     # this rank's kept, per expert
     xr = xf.repeat_interleave(k, dim=0)
     if impl == "dense":
@@ -345,7 +427,17 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "scatter",
     ``model`` axis (:func:`moe_ffn_ep_local`).  ``seq``: routes the global
     batch under sequence sharding (:func:`moe_ffn_seq`; ``replicated``:
     the same tokens on every ``model`` rank; ``need_aux``: whether the
-    aux loss is used)."""
+    aux loss is used).  A shared expert (``cfg.shared_ff``) adds its
+    output to the routed experts'."""
+    y, aux = _routed(p, x, cfg, impl, per_row, mesh, seq, replicated,
+                     need_aux)
+    if cfg.shared_ff:
+        y = y + shared_expert(p, x, cfg)
+    return y, aux
+
+
+def _routed(p, x, cfg: ArchConfig, impl: str, per_row: bool, mesh, seq,
+            replicated: bool, need_aux: bool):
     B, S, d = x.shape
     if seq is not None:
         if impl not in ("dense", "scatter"):
@@ -368,5 +460,6 @@ def moe_ffn(p, x, cfg: ArchConfig, impl: str = "scatter",
         raise ValueError(f"unknown moe_impl {impl!r}; known: 'dense', "
                          "'scatter', 'ep_local'")
     fn = moe_ffn_dense if impl == "dense" else moe_ffn_scatter
-    y, aux = fn(p, x.reshape(B * S, d), cfg, groups=B if per_row else 1)
+    y, aux = fn(p, x.reshape(B * S, d), cfg, groups=B if per_row else 1,
+                need_aux=need_aux)
     return y.reshape(B, S, d), aux

@@ -18,7 +18,18 @@ The spans, each at the boundary where its work happens:
 * ``hpcg.pdot``: a global dot product;
 * ``heat.step``: one heat step (``apps.stencil.torch_impl.make_step``);
 * ``heat.exchange``: the step's halo exchange;
-* ``heat.update``: the step's Jacobi update.
+* ``heat.update``: the step's Jacobi update;
+* ``lm.decode_step``: one decode step of a language model
+  (``models.lm.LanguageModel.decode_step``);
+* ``lm.attn``: an attention mixer, with its norm (``models.blocks``);
+* ``lm.mamba2``: a Mamba-2 mixer, with its norm (``models.blocks``);
+* ``lm.mamba2.state``: a Mamba-2 decode's state update and readout
+  (``models.mamba2.mamba2_decode``);
+* ``lm.moe``: an MoE FFN with its norm: the router, the routed experts and
+  a shared expert (``models.blocks``).
+
+The MoE layers count their assignments and dropped assignments
+(``models.moe.assignments`` / ``dropped``).
 """
 from __future__ import annotations
 

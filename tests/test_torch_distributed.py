@@ -73,6 +73,7 @@ from repro.models.factory import make_model as ref_make_model
 from repro.parallel.pipeline import compressed_psum as ref_compressed_psum
 from repro.serve.engine import ServeEngine
 import repro_torch.core as pt
+from repro_torch.configs import ARCHS as PORT_ARCHS
 from repro_torch.configs import get_arch
 from repro_torch.models import make_inputs, make_model
 from repro_torch.models.config import ShapeConfig
@@ -94,7 +95,8 @@ EP_MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
 TRAIN_ARCHS = ("qwen2.5-3b", "jamba-v0.1-52b")
 TRAIN_STEPS, TRAIN_SEQ = 2, 16
 TP_MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
-TP_NAMES = sorted(ARCHS) + ["irregular", "fused"]
+#: The archs both packages register, and two variants.
+TP_NAMES = sorted(set(ARCHS) & set(PORT_ARCHS)) + ["irregular", "fused"]
 TP_ROWS, TP_SEQ = 2, 32               # rows of each data shard, sequence
 TP_DECODE = ("qwen2.5-3b", "jamba-v0.1-52b", "falcon-mamba-7b")
 TP_TRAIN_MESH, TP_TRAIN_STEPS = (2, 2), 3

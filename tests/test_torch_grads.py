@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as ref_configs
 from repro.configs import get_arch as ref_arch
 from repro.models.config import ShapeConfig as RefShape
 from repro.models.factory import make_inputs as ref_inputs
@@ -34,7 +35,8 @@ from repro_torch.models.config import ShapeConfig
 from repro_torch.models.convert import params_from_jax, reference_leaves
 from repro_torch.train.loop import loss_and_grads
 
-ARCHS = sorted(configs.ARCHS)
+#: The archs both packages register (a port-only arch has its own file).
+ARCHS = sorted(set(configs.ARCHS) & set(ref_configs.ARCHS))
 MOE = [a for a in ARCHS if configs.get_arch(a).n_experts]
 REMAT_BOTH = ["qwen2.5-3b", "falcon-mamba-7b", "jamba-v0.1-52b"]
 MICRO = [("qwen2.5-3b", "dense"), ("jamba-v0.1-52b", "scatter"),

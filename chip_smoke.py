@@ -10,9 +10,9 @@ failure exits non-zero and no result line is printed:
   1. device   — the card's name and power limit (nvidia-smi), CUDA version;
   2. build    — ``nvcc`` builds ``csrc/sweep_bracket.cu``,
                 ``csrc/halo_exchange.cu``, ``csrc/flash_attention_sm90.cu``,
-                ``csrc/flash_attention.cu``, ``csrc/mamba_scan.cu`` and
-                ``csrc/stencil27.cu`` for sm_90a, all at once, and logs
-                each one's build time;
+                ``csrc/flash_attention.cu``, ``csrc/mamba_scan.cu``,
+                ``csrc/stencil27.cu`` and ``csrc/mamba2_state.cu`` for
+                sm_90a, all at once, and logs each one's build time;
   3. kernels  — every CUDA kernel against its plain PyTorch version on the
                 card: the sweep kernels (f64 and f32, the reference's test
                 shapes) and the halo exchange (bit-exact; 1, 2, 3, 8 and 64
@@ -73,6 +73,16 @@ failure exits non-zero and no result line is printed:
                 and float32, bit for bit against its plain version, its
                 device times beside their bounds, and at level 0 in
                 float64 the plain version's;
+  8b. Mamba-2 — the Mamba-2 decode state kernel at the granite cell's
+                shape (256 slots x 128 heads x 64 x 128, float32, x, B
+                and C split from one conv output laid out batch-innermost,
+                as the decode's is on the card), held to its plain
+                version within the error bounds of
+                ``tests/test_torch_mamba2_state.py`` (the share of the new
+                state equal bit for bit logged), the given state left
+                unwritten, one launch a call; its device time beside its
+                bound (the state read and written once) and the plain
+                version's;
   9. LM kernels — the flash-attention kernels against their plain version:
                 the f32 kernel at the JAX tests' shapes (f32 at 2e-5, three
                 block shapes, bf16 at D = 16), the bf16 tensor-core kernel
@@ -317,6 +327,8 @@ HPCG_LEVEL_NX = (256, 128, 64, 32)          # the V-cycle's four levels
 # the halo kernel's two routes: halo_cluster_kernel and halo_flags_kernel
 HALO_KERNEL = "halo_"
 OPERATOR_KERNEL = "stencil27_kernel"         # HPCG's 27-point operator
+MAMBA2_STATE_KERNEL = "mamba2_state_kernel"  # Mamba-2's decode state update
+MAMBA2_CELL = (256, 128, 64, 128, 1)         # granite's (b, H, P, N, G)
 TOL_STENCIL = dict(rtol=1e-6, atol=1e-6)     # the JAX test's bound
 RTOL_APPLY_A = 1e-6
 HALO_RANKS = (1, 2, 3, 8, 64)
@@ -1502,6 +1514,81 @@ def phase_operator_times(torch, card):
             del x, below, above
     torch.cuda.empty_cache()
     return row
+
+
+def phase_mamba2_state_times(torch, card):
+    """The Mamba-2 decode state kernel at the granite cell's shape: held to
+    its plain version (``mamba2_state_update_ref`` on the same CUDA
+    tensors) within the test's bounds, the given state unwritten, one
+    launch a call; then its device time per call (profiler, the kernel
+    alone) beside its bound, the state read and written once and x, dt,
+    B, C in and y out, and the plain version's."""
+    from repro_torch.kernels.mamba2_state import (mamba2_state_update,
+                                                  mamba2_state_update_ref)
+    b, H, P, N, G = MAMBA2_CELL
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    ssm = torch.randn((b, H, P, N), generator=gen, **f32)
+    # x, B and C split from one conv output, batch-innermost as the
+    # decode's einsum lays it out on the card
+    xs, Bt, Ct = torch.randn((H * P + 2 * G * N, b), generator=gen,
+                             **f32).t().split([H * P, G * N, G * N], dim=-1)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, H), generator=gen, **f32) - 4.0)
+    A_log = torch.log(torch.empty((H,), **f32).uniform_(1.0, 16.0,
+                                                        generator=gen))
+    D = torch.randn((H,), generator=gen, **f32)
+    args = (ssm, xs.reshape(b, H, P), dt, Bt.reshape(b, G, N),
+            Ct.reshape(b, G, N), A_log, D)
+    before, n0 = ssm.clone(), mamba2_state_update.launches
+    y, S = mamba2_state_update(*args)
+    torch.cuda.synchronize()
+    assert mamba2_state_update.launches == n0 + 1
+    assert torch.equal(ssm, before), "the given state was written"
+    del before
+    same = hold_mamba2_state(torch, args, y, S)
+    del y, S
+    nbytes = 2 * ssm.numel() * 4 + 4 * b * (2 * H * P + H + 2 * G * N)
+    bound = nbytes / HBM_BYTES_S * 1e3
+    ms = device_ms(torch, lambda: mamba2_state_update(*args), reps=50,
+                   name=MAMBA2_STATE_KERNEL, floor=bound)
+    plain = device_ms(torch, lambda: mamba2_state_update_ref(*args), reps=5,
+                      floor=bound)
+    log(f"time [{card}]: mamba2_state {b} x {H} x {P} x {N} float32, "
+        f"within its bounds of the plain version ({100 * same:.4f}% of the "
+        f"new state bit for bit); device time per call (profiler): "
+        f"{ms:.5f} ms, bound {bound:.5f} ms (bytes: {nbytes}; "
+        f"{100 * bound / ms:.1f}% of it); its plain version (11 launches: "
+        f"the decay, dt x, the product, addcmul_, a copy of C, the gemv, "
+        f"D x) {plain:.4f} ms a call")
+    del args, ssm
+    torch.cuda.empty_cache()
+
+
+def hold_mamba2_state(torch, args, y, S) -> float:
+    """The Mamba-2 state kernel's ``y`` and new state ``S`` for ``args``
+    against its plain version on the same tensors, within the bounds of
+    ``tests/test_torch_mamba2_state.py`` (``u = 2^-24``): the state within
+    ``6 u (|S da| + |u B|)`` (the kernel's fma), ``y`` within ``2 (N + 3)
+    u`` of its terms' magnitudes (the order of its sum).  Raises on a miss;
+    returns the share of the new state equal bit for bit."""
+    from repro_torch.kernels.mamba2_state import mamba2_state_update_ref
+    ssm, x, dt, Bt, Ct, A_log, D = args
+    H, N, G = ssm.shape[1], ssm.shape[3], Bt.shape[1]
+    heads = torch.arange(H, device=ssm.device) // (H // G)
+    y_ref, S_ref = mamba2_state_update_ref(*args)
+    u = 2.0 ** -24
+    da = torch.exp(dt * -torch.exp(A_log))[..., None, None]
+    mag = (ssm * da).abs_().add_(((dt[..., None] * x)[..., None]
+                                  * Bt[:, heads, None, :]).abs_())
+    same = float((S == S_ref).float().mean())
+    err_s = float((S - S_ref).abs_().sub_(mag * (6 * u)).max())
+    terms = torch.einsum("bhpn,bhn->bhp", mag, Ct[:, heads].abs()) \
+        + (x * D[:, None]).abs()
+    err_y = float(((y - y_ref).abs() - terms * (2 * (N + 3) * u)).max())
+    assert err_s <= 0.0 and err_y <= 0.0, \
+        f"mamba2_state beyond its bounds by {err_s:.3e} / {err_y:.3e}"
+    return same
 
 
 def hold(torch, got, want, tol: dict) -> float:
@@ -4850,6 +4937,8 @@ def analysis_plans(torch) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.halo_exchange import halo_exchange as hx_build
     from repro_torch.kernels.halo_exchange import ops as hx_ops
+    from repro_torch.kernels.mamba2_state import mamba2_state as m2s_build
+    from repro_torch.kernels.mamba2_state import ops as m2s_ops
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.stencil27 import ops as s27_ops
     from repro_torch.kernels.stencil27 import stencil27 as s27_build
@@ -4934,9 +5023,19 @@ def analysis_plans(torch) -> dict:
         return p, c, _plan.c_attrs(lib.fn("stencil27_attrs", dt), 0, 0), \
             case["dtype"], None
 
+    def mamba2_state(case):
+        lib = m2s_build.build()
+        p = m2s_ops.case_plan(case)
+        c = _plan.c_plan(lib.fn("mamba2_state_plan", torch.float32),
+                         *(case[k] for k in ("b", "H", "P", "N")))
+        return p, c, _plan.c_attrs(lib.fn("mamba2_state_attrs",
+                                          torch.float32), 0, 0), \
+            "float32", None
+
     planners = {"sweep_bracket": bracket, "segment_sum": segsum,
                 "flash_attention": flash, "mamba_scan": scan,
-                "halo_exchange": halo, "stencil27": stencil}
+                "halo_exchange": halo, "stencil27": stencil,
+                "mamba2_state": mamba2_state}
     inst, n_cases = {}, 0
     for name in kc.known_kernels():
         for case in kc.cases(name):
@@ -5030,6 +5129,8 @@ def analysis_launches(torch, np):
     from repro_torch.kernels import sweep_bracket as sb
     from repro_torch.kernels.halo_exchange import halo_exchange as hx_build
     from repro_torch.kernels.halo_exchange import ops as hx_ops
+    from repro_torch.kernels.mamba2_state import mamba2_state_update
+    from repro_torch.kernels.mamba2_state import mamba2_state as m2s_build
     from repro_torch.kernels.stencil27 import apply_27pt_ref
     from repro_torch.kernels.stencil27 import stencil27 as s27_build
     from repro_torch.kernels.sweep_bracket import ops as sb_ops
@@ -5123,6 +5224,32 @@ def analysis_launches(torch, np):
         rows.append((f"{OPERATOR_KERNEL} {str(dtype)[6:]} n={n} slab {slab}",
                      0.0, None))
         del x, below, above
+    torch.cuda.empty_cache()
+    # the Mamba-2 state update: ragged rows in two turns, granite's cell;
+    # the raw launches bit for bit against a call through the wrapper,
+    # which is held to the plain version within its bounds
+    for b, H, P, N, G in ((5, 6, 150, 8, 2), MAMBA2_CELL):
+        gen = torch.Generator(device=dev).manual_seed(b)
+        f32 = dict(dtype=torch.float32, device=dev)
+        xs, Bt, Ct = torch.randn((b, H * P + 2 * G * N), generator=gen,
+                                 **f32).split([H * P, G * N, G * N], dim=-1)
+        ins = (torch.randn((b, H, P, N), generator=gen, **f32),
+               xs.reshape(b, H, P),
+               torch.rand((b, H), generator=gen, **f32).mul_(0.1),
+               Bt.reshape(b, G, N), Ct.reshape(b, G, N),
+               torch.randn((H,), generator=gen, **f32),
+               torch.randn((H,), generator=gen, **f32))
+        want = mamba2_state_update(*ins)
+        hold_mamba2_state(torch, ins, *want)
+        hold_guarded(
+            torch, f"mamba2_state b={b} H={H} P={P} N={N}",
+            [((b, H, P, N), torch.float32), ((b, H, P), torch.float32)],
+            lambda outs, i: m2s_build.launch(*ins, outs[0], outs[1]),
+            want[::-1], None)
+        rows.append((f"{MAMBA2_STATE_KERNEL} f32 b={b} H={H} P={P} N={N} "
+                     f"G={G} (against the wrapper's call, which is within "
+                     f"its bounds of the plain version)", 0.0, None))
+        del ins, want, xs, Bt, Ct
     torch.cuda.empty_cache()
     # flash attention on both routes: a ragged small case, the LM's shape
     for route, dtype, cases in (
@@ -5371,6 +5498,7 @@ def main() -> int:
     from repro_torch.kernels.sweep_bracket import sweep_bracket as sb_build
     from repro_torch.kernels.stencil27 import apply_27pt
     from repro_torch.kernels.stencil27 import stencil27 as s27_build
+    from repro_torch.kernels.mamba2_state import mamba2_state as m2s_build
     # these two packages export a wrapper of their launcher module's name
     fa_build = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
@@ -5385,7 +5513,8 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     builds = (sb_build.build, hx_build.build, lambda: fa_build.build("sm90"),
-              lambda: fa_build.build("simt"), ms_build.build, s27_build.build)
+              lambda: fa_build.build("simt"), ms_build.build, s27_build.build,
+              m2s_build.build)
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda build: build(), builds))
     log(f"build: {time.perf_counter() - t0:.2f} s for "
@@ -5439,6 +5568,9 @@ def main() -> int:
     kernels[-1]["launches_by_path"] = dict(zip(
         ("hpcg 4 x 16^3", "hpcg 8 x 256^3", "times"),
         (b - a for a, b in zip(n_op, n_op[1:]))))
+
+    # 8b. the Mamba-2 decode state kernel at the granite cell's shape
+    phase_mamba2_state_times(torch, card)
 
     # 9./10. the LM forward at full width, 11. its times
     model, batch, lm_launches, rec, errs = phase_lm(torch, fa, ms_k)

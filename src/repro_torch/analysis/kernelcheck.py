@@ -367,6 +367,33 @@ def check_stencil27(case: dict) -> KernelReport:
 
 
 # --------------------------------------------------------------------------
+# mamba2_state: one Mamba-2 decode step's state update and readout
+# --------------------------------------------------------------------------
+
+_MAMBA2_STATE_CASES = (
+    # the main path: granite-4.0-h-small's mixer at the benchmark's 256
+    # slots, and one row
+    {"b": 256, "H": 128, "P": 64, "N": 128},
+    {"b": 1, "H": 128, "P": 64, "N": 128},
+    # the reduced test widths (heads of 16, N 8), and ragged rows: P that
+    # no warp's rows divide, the narrowest N, a thread's rows in turns
+    {"b": 3, "H": 8, "P": 16, "N": 8},
+    {"b": 5, "H": 6, "P": 20, "N": 8},
+    {"b": 2, "H": 4, "P": 7, "N": 4},
+    {"b": 2, "H": 2, "P": 128, "N": 128},
+    {"b": 2, "H": 3, "P": 300, "N": 4},
+)
+
+
+@register_kernel_checker("mamba2_state", _MAMBA2_STATE_CASES,
+                         dataflow="repro_torch.kernels.mamba2_state.ops")
+def check_mamba2_state(case: dict) -> KernelReport:
+    from ..kernels.mamba2_state import ops
+    return report("mamba2_state", case, ops.case_plan(case),
+                  dtype="float32")
+
+
+# --------------------------------------------------------------------------
 # Driver
 # --------------------------------------------------------------------------
 

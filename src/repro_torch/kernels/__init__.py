@@ -19,6 +19,9 @@ version that CPU tensors run.
                   ``use_kernel``
   stencil27/      HPCG's 27-point operator: one pass over each z-slab
                   rank and its two ghost planes (``apply_a`` on the card)
+  mamba2_state/   one Mamba-2 decode step's state update and readout: the
+                  float32 state read once and written once (granite's
+                  ``mamba2_decode`` on the card)
 
 ``_build`` compiles each ``csrc/*.cu`` with ``nvcc`` and loads it with
 ``ctypes``.

@@ -20,8 +20,9 @@ end with ``dt = 0`` steps, which leave the state as it is.  Decode
 (:func:`mamba2_decode`) is one step of the recurrence from a
 :class:`Mamba2State` (the last ``K - 1`` conv inputs and the float32
 state) and returns a new one, as ``models.mamba.mamba_decode`` does.  The
-state update and its readout run inside the span ``lm.mamba2.state``.
-The mixer runs whole on one device: no tensor or sequence split.
+state update and its readout run inside the span ``lm.mamba2.state``:
+``kernels.mamba2_state``, a CUDA kernel on the card and its plain version
+on the CPU.  The mixer runs whole on one device: no tensor or sequence split.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import spans
+from ..kernels.mamba2_state import ops as state_ops
 from .config import ArchConfig
 from .layers import Params, dtype_of, normal, whole
 from .mamba import _causal_conv
@@ -195,17 +197,12 @@ def mamba2_decode(p, x, cfg: ArchConfig, state: Mamba2State):
     conv = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
     xs, Bt, Ct = F.silu(conv).float().split([di, G * N, G * N], dim=-1)
     dt = F.softplus(dtr[:, 0].float() + p["dt_bias"])      # (B, H)
-    xh = xs.reshape(Bsz, G, H // G, P)
     with spans.span("lm.mamba2.state"):
-        da = torch.exp(dt * -torch.exp(p["A_log"])).reshape(Bsz, G, -1)
-        u = dt.reshape(Bsz, G, -1)[..., None] * xh        # (B, G, J, P)
-        S = state.ssm.reshape(Bsz, G, H // G, P, N) * da[..., None, None]
-        S.addcmul_(u[..., None], Bt.reshape(Bsz, G, 1, 1, N))
-        y = torch.einsum("bgjpn,bgn->bgjp", S, Ct.reshape(Bsz, G, N))
-        y = y + xh * p["D"].reshape(G, -1)[..., None]
+        y, S = state_ops.mamba2_state_update(
+            state.ssm, xs.reshape(Bsz, H, P), dt, Bt.reshape(Bsz, G, N),
+            Ct.reshape(Bsz, G, N), p["A_log"], p["D"])
     y = _gated_norm(y.reshape(Bsz, 1, di), z, p["norm"], G, cfg.norm_eps)
-    return y @ p["out_proj"], Mamba2State(conv=window[:, 1:],
-                                          ssm=S.reshape(Bsz, H, P, N))
+    return y @ p["out_proj"], Mamba2State(conv=window[:, 1:], ssm=S)
 
 
 def init_mamba2_state(cfg: ArchConfig, batch: int, device) -> Mamba2State:

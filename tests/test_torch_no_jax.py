@@ -54,6 +54,13 @@ STENCIL_MODULES = {"repro_torch.kernels.stencil27",
                    "repro_torch.kernels.stencil27.stencil27"}
 
 
+#: The Mamba-2 state update's kernel package: the probe must import each.
+MAMBA2_STATE_MODULES = {"repro_torch.kernels.mamba2_state",
+                        "repro_torch.kernels.mamba2_state.ops",
+                        "repro_torch.kernels.mamba2_state.ref",
+                        "repro_torch.kernels.mamba2_state.mamba2_state"}
+
+
 #: The port's examples and record scripts: the probe must import each.
 EXAMPLE_MODULES = {f"repro_torch.examples.{n}" for n in (
     "quickstart", "sweep_quickstart", "stencil_advisor", "hpcg_analysis",
@@ -73,6 +80,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert EXAMPLE_MODULES <= set(out["names"])
     assert TRACING_MODULES <= set(out["names"])
     assert STENCIL_MODULES <= set(out["names"])
+    assert MAMBA2_STATE_MODULES <= set(out["names"])
     assert out["bad"] == [], f"the port imported {out['bad']}"
 
 
